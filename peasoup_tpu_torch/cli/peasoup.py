@@ -1,0 +1,165 @@
+"""`peasoup` CLI of the PyTorch / CUDA port: flag-compatible with the
+reference binary (reference: include/utils/cmdline.hpp:69-209 TCLAP
+spec) and with the JAX package's ``peasoup``, plus ``--device``.
+
+Usage:
+  python -m peasoup_tpu_torch.cli.peasoup -i data.fil --dm_end 250 \\
+      --acc_start -5 --acc_end 5
+
+The search runs on the CUDA device unless ``--device cpu`` is given.
+Flags of features the port does not have yet (--npdmp > 0, --subbands,
+--checkpoint, --tune, --dedisp_engine matmul) are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def default_outdir() -> str:
+    return time.strftime("./%Y-%m-%d-%H:%M_peasoup/", time.gmtime())
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="peasoup",
+        description="Peasoup - a GPU pulsar search pipeline (PyTorch/CUDA port)",
+    )
+    p.add_argument("-i", "--inputfile", required=True, help="File to process (.fil)")
+    p.add_argument("-o", "--outdir", default=None, help="The output directory")
+    p.add_argument("-k", "--killfile", default="", help="Channel mask file")
+    p.add_argument("-z", "--zapfile", default="", help="Birdie list file")
+    p.add_argument(
+        "-t", "--num_threads", type=int, default=14,
+        help="Number of device workers (reference: number of GPUs)",
+    )
+    p.add_argument("--limit", type=int, default=1000,
+                   help="upper limit on number of candidates to write out")
+    p.add_argument("--fft_size", type=int, default=0,
+                   help="Transform size to use (defaults to lower power of two)")
+    p.add_argument("--dm_start", type=float, default=0.0)
+    p.add_argument("--dm_end", type=float, default=100.0)
+    p.add_argument("--dm_tol", type=float, default=1.10,
+                   help="DM smearing tolerance (1.11=10%%)")
+    p.add_argument("--dm_pulse_width", type=float, default=64.0,
+                   help="Minimum pulse width (us) for which dm_tol is valid")
+    p.add_argument("--acc_start", type=float, default=0.0)
+    p.add_argument("--acc_end", type=float, default=0.0)
+    p.add_argument("--acc_tol", type=float, default=1.10)
+    p.add_argument("--acc_pulse_width", type=float, default=64.0)
+    p.add_argument("--boundary_5_freq", type=float, default=0.05)
+    p.add_argument("--boundary_25_freq", type=float, default=0.5)
+    p.add_argument("-n", "--nharmonics", type=int, default=4)
+    p.add_argument("--npdmp", type=int, default=0,
+                   help="Number of candidates to fold and pdmp")
+    p.add_argument("-m", "--min_snr", type=float, default=9.0)
+    p.add_argument("--min_freq", type=float, default=0.1)
+    p.add_argument("--max_freq", type=float, default=1100.0)
+    p.add_argument("--max_harm_match", type=int, default=16, dest="max_harm")
+    p.add_argument("--freq_tol", type=float, default=0.0001)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("-p", "--progress_bar", action="store_true")
+    p.add_argument("--subbands", type=int, default=0,
+                   help="two-stage subband dedispersion (not ported yet)")
+    p.add_argument("--subband_smear", type=float, default=1.0)
+    p.add_argument("--dedisp_engine", default="", choices=("", "exact", "matmul"),
+                   help="dedispersion engine; only 'exact' is ported")
+    p.add_argument("--tune", action=argparse.BooleanOptionalAction, default=False,
+                   help="tuned dedispersion plans (not ported yet)")
+    p.add_argument("--tuning-cache", default="")
+    p.add_argument("--checkpoint", default="",
+                   help="Checkpoint file for resumable searches (not ported yet)")
+    p.add_argument("--hbm_bytes", type=int, default=0,
+                   help="device memory budget in bytes (0 = ask the device)")
+    p.add_argument(
+        "--no_accel_dedupe", action="store_true",
+        help="dispatch every accel trial even when trials provably "
+        "share their entire rounded resample-shift map",
+    )
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the search runs (default: the CUDA device)")
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    outdir = args.outdir or default_outdir()
+
+    from ..io.output import CandidateFileWriter, OutputFileWriter
+    from ..io.sigproc import read_filterbank
+    from ..pipeline.search import PeasoupSearch, SearchConfig
+
+    cfg = SearchConfig(
+        outdir=outdir,
+        killfilename=args.killfile,
+        zapfilename=args.zapfile,
+        max_num_threads=args.num_threads,
+        limit=args.limit,
+        size=args.fft_size,
+        dm_start=args.dm_start,
+        dm_end=args.dm_end,
+        dm_tol=args.dm_tol,
+        dm_pulse_width=args.dm_pulse_width,
+        acc_start=args.acc_start,
+        acc_end=args.acc_end,
+        acc_tol=args.acc_tol,
+        acc_pulse_width=args.acc_pulse_width,
+        boundary_5_freq=args.boundary_5_freq,
+        boundary_25_freq=args.boundary_25_freq,
+        nharmonics=args.nharmonics,
+        npdmp=args.npdmp,
+        min_snr=args.min_snr,
+        min_freq=args.min_freq,
+        max_freq=args.max_freq,
+        max_harm=args.max_harm,
+        freq_tol=args.freq_tol,
+        verbose=args.verbose,
+        progress_bar=args.progress_bar,
+        checkpoint_file=args.checkpoint,
+        hbm_bytes=args.hbm_bytes,
+        dedupe_accel=not args.no_accel_dedupe,
+        subbands=args.subbands,
+        subband_smear=args.subband_smear,
+        dedisp_engine=args.dedisp_engine,
+        tune=args.tune,
+        tuning_cache=args.tuning_cache,
+    )
+    search = PeasoupSearch(cfg, device=args.device)
+
+    t0 = time.perf_counter()
+    if args.progress_bar:
+        print(f"Reading data from {args.inputfile}")
+    fil = read_filterbank(args.inputfile)
+    reading = time.perf_counter() - t0
+
+    result = search.run(fil)
+    result.timers["reading"] = reading
+
+    t0 = time.perf_counter()
+    writer = CandidateFileWriter(outdir)
+    writer.write_binary(result.candidates, "candidates.peasoup")
+    result.timers["writing"] = time.perf_counter() - t0
+
+    stats = OutputFileWriter()
+    stats.add_misc_info()
+    stats.add_header(fil.header)
+    stats.add_search_parameters(cfg, args.inputfile)
+    stats.add_dm_list(result.dm_list)
+    stats.add_acc_list(result.acc_list_dm0)
+    stats.add_device_info(search.device)
+    stats.add_candidates(result.candidates, writer.byte_mapping)
+    stats.add_timing_info(result.timers)
+    stats.to_file(os.path.join(outdir, "overview.xml"))
+    if args.verbose or args.progress_bar:
+        print(
+            f"Done: {len(result.candidates)} candidates -> {outdir} "
+            f"(total {result.timers['total']:.2f}s)"
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

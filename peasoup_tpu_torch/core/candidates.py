@@ -1,0 +1,87 @@
+"""Candidate model (reference: include/data_types/candidates.hpp).
+
+A Candidate carries the detection parameters plus a recursive ``assoc``
+list of weaker detections absorbed by the distillers; folding adds
+folded_snr / opt_period / fold. CandidatePOD is the 24-byte on-disk
+record of candidates.peasoup (candidates.hpp:10-17).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+
+# struct CandidatePOD {float dm; int dm_idx; float acc; int nh; float snr; float freq;}
+CANDIDATE_POD_DTYPE = np.dtype(
+    [
+        ("dm", "<f4"),
+        ("dm_idx", "<i4"),
+        ("acc", "<f4"),
+        ("nh", "<i4"),
+        ("snr", "<f4"),
+        ("freq", "<f4"),
+    ]
+)
+
+
+@dataclass
+class Candidate:
+    dm: float = 0.0
+    dm_idx: int = 0
+    acc: float = 0.0
+    nh: int = 0
+    snr: float = 0.0
+    freq: float = 0.0
+    folded_snr: float = 0.0
+    opt_period: float = 0.0
+    is_adjacent: bool = False
+    is_physical: bool = False
+    ddm_count_ratio: float = 0.0
+    ddm_snr_ratio: float = 0.0
+    assoc: List["Candidate"] = field(default_factory=list)
+    fold: Optional[np.ndarray] = None  # (nints, nbins) when folded
+
+    @property
+    def period(self) -> float:
+        return 1.0 / self.freq
+
+    def append(self, other: "Candidate") -> None:
+        self.assoc.append(other)
+
+    def count_assoc(self) -> int:
+        return sum(1 + c.count_assoc() for c in self.assoc)
+
+    def collect_pods(self) -> np.ndarray:
+        """Flatten self + assoc tree into CandidatePOD records
+        (candidates.hpp:78-84, depth-first, self first)."""
+        pods: list[tuple] = []
+
+        def walk(c: "Candidate") -> None:
+            pods.append((c.dm, c.dm_idx, c.acc, c.nh, c.snr, c.freq))
+            for a in c.assoc:
+                walk(a)
+
+        walk(self)
+        return np.array(pods, dtype=CANDIDATE_POD_DTYPE)
+
+
+class CandidateCollection:
+    def __init__(self, cands: Optional[List[Candidate]] = None):
+        self.cands: List[Candidate] = list(cands) if cands else []
+
+    def append(self, other) -> None:
+        if isinstance(other, CandidateCollection):
+            self.cands.extend(other.cands)
+        else:
+            self.cands.extend(other)
+
+    def __len__(self) -> int:
+        return len(self.cands)
+
+    def __iter__(self):
+        return iter(self.cands)
+
+    def __getitem__(self, i):
+        return self.cands[i]

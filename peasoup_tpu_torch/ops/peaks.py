@@ -1,0 +1,190 @@
+"""Candidate peak extraction: thresholding and peak clustering.
+
+Reference: device_find_peaks compacts (index, snr) pairs above threshold
+(Thrust copy_if, src/kernels.cu:384-416); the host then clusters
+neighbours within ``min_gap`` bins (PeakFinder::identify_unique_peaks,
+include/transforms/peakfinder.hpp:27-56), with the quirk that
+``lastidx`` advances only on a new maximum. The search window
+[start_idx, limit) mirrors find_candidates (peakfinder.hpp:82-84).
+
+:func:`find_harmonic_cluster_peaks` runs harmonic summing, thresholding
+and clustering of every level in one pass: the hand-written harmpeaks
+kernel (csrc/harmpeaks.cu) for CUDA tensors, the plain version
+:func:`find_harmonic_cluster_peaks_plain` (harmonic_sums +
+find_peaks_device + cluster_peaks_device) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..device import check, on_cpu, stream_ptr
+from .harmonics import harmonic_sums
+
+
+def find_peaks_device(
+    spec: torch.Tensor,  # (cells, nbins) spectrum or harmonic sum
+    threshold: float,
+    start_idx: torch.Tensor,  # (cells,) first bin to consider
+    limit: torch.Tensor,  # (cells,) one-past-last bin
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every threshold crossing ``s > threshold`` inside [start, limit)
+    of each cell, ascending. Returns (idxs (cells, K) i64 padded with
+    nbins, snrs (cells, K) f32 padded with 0, counts (cells,) i64); K is
+    the largest count (at least 1)."""
+    cells, nbins = spec.shape
+    i = torch.arange(nbins, device=spec.device)
+    thr = torch.tensor(threshold, dtype=torch.float32, device=spec.device)
+    mask = (i >= start_idx[:, None]) & (i < limit[:, None]) & (spec > thr)
+    counts = mask.sum(dim=-1)
+    k = max(int(counts.max()) if cells else 0, 1)
+    cell, idx = mask.nonzero(as_tuple=True)  # row-major: ascending per cell
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(cell.numel(), device=spec.device) - starts[cell]
+    idxs = torch.full((cells, k), nbins, dtype=torch.int64, device=spec.device)
+    snrs = torch.zeros((cells, k), dtype=torch.float32, device=spec.device)
+    idxs[cell, pos] = idx
+    snrs[cell, pos] = spec[cell, idx]
+    return idxs, snrs, counts
+
+
+def cluster_peaks_device(
+    idxs: torch.Tensor,  # (cells, K) ascending crossings, padded with nbins
+    snrs: torch.Tensor,  # (cells, K) f32
+    counts: torch.Tensor,  # (cells,) valid crossings per cell
+    *,
+    nbins: int,
+    min_gap: int = 30,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """identify_unique_peaks over every cell at once: one walk along the
+    crossing axis with all cells in parallel, and one trailing step that
+    closes the last open cluster. Returns (cluster idxs (cells, K)
+    padded with nbins, cluster snrs (cells, K) padded with 0, cluster
+    count (cells,))."""
+    cells, k = idxs.shape
+    dev = idxs.device
+    rows = torch.arange(cells, device=dev)
+    open_ = torch.zeros(cells, dtype=torch.bool, device=dev)
+    cpeak = torch.zeros(cells, dtype=torch.float32, device=dev)
+    cpeakidx = torch.zeros(cells, dtype=torch.int64, device=dev)
+    lastidx = torch.zeros(cells, dtype=torch.int64, device=dev)
+    cursor = torch.zeros(cells, dtype=torch.int64, device=dev)
+    cidx = torch.full((cells, k + 1), nbins, dtype=torch.int64, device=dev)
+    csnr = torch.zeros((cells, k + 1), dtype=torch.float32, device=dev)
+    for j in range(k + 1):
+        if j < k:
+            idx, snr = idxs[:, j], snrs[:, j]
+            valid = counts > j
+        else:  # flush the open clusters
+            idx, snr = lastidx, cpeak
+            valid = torch.zeros_like(open_)
+        close = open_ & (~valid | (idx - lastidx >= min_gap))
+        cidx[rows[close], cursor[close]] = cpeakidx[close]
+        csnr[rows[close], cursor[close]] = cpeak[close]
+        cursor = cursor + close
+        start = (~open_ | close) & valid
+        take = start | (open_ & ~close & valid & (snr > cpeak))
+        cpeak = torch.where(take, snr, cpeak)
+        cpeakidx = torch.where(take, idx, cpeakidx)
+        lastidx = torch.where(take, idx, lastidx)
+        open_ = (open_ & valid) | start
+    return cidx[:, :k], csnr[:, :k], cursor
+
+
+def _clamped_windows(windows, nbins: int, nlev: int) -> np.ndarray:
+    w = np.asarray(windows, dtype=np.int32).reshape(-1, 2).copy()
+    if w.shape[0] != nlev:
+        raise ValueError("windows must cover nharms+1 levels")
+    # the pad past the true nbins is garbage: no window may reach it
+    w[:, 1] = np.minimum(w[:, 1], nbins)
+    return w
+
+
+def find_harmonic_cluster_peaks_plain(
+    spec: torch.Tensor,
+    windows,
+    *,
+    nharms: int,
+    threshold: float,
+    max_peaks: int,
+    scales: tuple,
+    min_gap: int = 30,
+    nbins: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`find_harmonic_cluster_peaks`."""
+    nbins = spec.shape[-1] if nbins is None else nbins
+    nlev = nharms + 1
+    w = torch.from_numpy(_clamped_windows(windows, nbins, nlev)).to(spec.device)
+    rows = spec.shape[0]
+    s = spec[:, :nbins]
+    levels = [s, *harmonic_sums(s, nharms=nharms, scaled=False)]
+    levels = [
+        lv * torch.tensor(sc, dtype=torch.float32, device=spec.device)
+        for lv, sc in zip(levels, scales)
+    ]
+    flat = torch.stack(levels, dim=1).reshape(rows * nlev, nbins)
+    lo = w[:, 0].to(torch.int64).repeat(rows)
+    hi = w[:, 1].to(torch.int64).repeat(rows)
+    ri, rs, counts = find_peaks_device(flat, threshold, lo, hi)
+    ci, cs, cc = cluster_peaks_device(ri, rs, counts, nbins=nbins, min_gap=min_gap)
+    k = ci.shape[1]
+    if k < max_peaks:
+        ci = torch.nn.functional.pad(ci, (0, max_peaks - k), value=nbins)
+        cs = torch.nn.functional.pad(cs, (0, max_peaks - k))
+    return (
+        ci[:, :max_peaks].to(torch.int32).reshape(rows, nlev, max_peaks),
+        cs[:, :max_peaks].reshape(rows, nlev, max_peaks),
+        counts.to(torch.int32).reshape(rows, nlev),
+        cc.to(torch.int32).reshape(rows, nlev),
+    )
+
+
+def find_harmonic_cluster_peaks(
+    spec: torch.Tensor,  # (rows, npad) f32 normalised spectrum, padded
+    windows,  # (nharms+1, 2) int [start, limit) per level
+    *,
+    nharms: int,
+    threshold: float,
+    max_peaks: int,
+    scales: tuple,  # per-level factors, level 0 first
+    min_gap: int = 30,
+    nbins: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Harmonic sums + threshold + cluster walk of every level. Returns
+    (idxs (rows, nlev, max_peaks) i32 padded with nbins, snrs f32 padded
+    with 0, raw counts (rows, nlev) i32, cluster counts (rows, nlev) i32);
+    nlev = nharms + 1. ``nbins`` is the true bin count: windows are
+    clamped to it, so the padding past it never crosses. Clusters past
+    ``max_peaks`` are counted and dropped."""
+    if not 0 < nharms <= 5:
+        raise ValueError("nharms must be in 1..5")
+    if len(scales) != nharms + 1:
+        raise ValueError("scales must cover nharms+1 levels")
+    if on_cpu(spec):
+        return find_harmonic_cluster_peaks_plain(
+            spec, windows, nharms=nharms, threshold=threshold,
+            max_peaks=max_peaks, scales=scales, min_gap=min_gap, nbins=nbins,
+        )
+    check(spec, "spec", torch.float32, 2)
+    rows, npad = spec.shape
+    nbins = npad if nbins is None else nbins
+    if not 0 < nbins <= npad:
+        raise ValueError(f"nbins={nbins} outside the row of {npad}")
+    nlev = nharms + 1
+    dev = spec.device
+    w = torch.from_numpy(_clamped_windows(windows, nbins, nlev)).to(dev)
+    sc = torch.tensor(scales, dtype=torch.float32, device=dev)
+    idxs = torch.empty((rows, nlev, max_peaks), dtype=torch.int32, device=dev)
+    snrs = torch.empty((rows, nlev, max_peaks), dtype=torch.float32, device=dev)
+    counts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
+    ccounts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
+    kernels.launch(
+        "harmpeaks", spec.data_ptr(), rows, npad, nbins, nharms, w.data_ptr(),
+        sc.data_ptr(), float(np.float32(threshold)), min_gap, max_peaks,
+        idxs.data_ptr(), snrs.data_ptr(), counts.data_ptr(),
+        ccounts.data_ptr(), stream_ptr(dev),
+        shape=(rows, npad, nharms, max_peaks),
+    )
+    return idxs, snrs, counts, ccounts

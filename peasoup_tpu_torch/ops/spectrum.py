@@ -1,0 +1,108 @@
+"""Power-spectrum forming, statistics and normalisation.
+
+Reference kernels: power_series_kernel (amplitude via z*rsqrt(z)) and
+bin_interbin_series_kernel (Fourier interpolation by nearest-bin
+difference), src/kernels.cu:215-304; stats/normalise kernels
+src/kernels.cu:420-494 and include/utils/stats.hpp.
+
+:func:`specchain` is the once-per-DM-trial deredden -> zap -> interbin
+pass: the hand-written kernel (csrc/specchain.cu) for CUDA tensors, the
+plain version :func:`interp_deredden_zap` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..device import check, on_cpu, stream_ptr
+
+
+def form_power(fseries: torch.Tensor) -> torch.Tensor:
+    """Amplitude spectrum |X_k| (the reference's "power series")."""
+    return torch.abs(fseries).to(torch.float32)
+
+
+def form_interpolated_parts(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Interbinned amplitude sqrt(max(|X_k|^2, 0.5|X_k - X_{k-1}|^2))
+    over the last axis, X_{-1} = 0 (kernels.cu:231-252)."""
+    re_l = torch.nn.functional.pad(re[..., :-1], (1, 0))
+    im_l = torch.nn.functional.pad(im[..., :-1], (1, 0))
+    ampsq = re * re + im * im
+    dr = re - re_l
+    di = im - im_l
+    ampsq_diff = 0.5 * (dr * dr + di * di)
+    return torch.sqrt(torch.maximum(ampsq, ampsq_diff))
+
+
+def interp_deredden_zap(
+    re: torch.Tensor,  # (..., nbins) f32 real part of the raw spectrum
+    im: torch.Tensor,  # (..., nbins) f32 imaginary part
+    med: torch.Tensor,  # (..., nbins) f32 running median (rednoise)
+    zapmask: torch.Tensor,  # (nbins,) bool birdie mask
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the spectrum-chain tail: deredden (divide by
+    the running median, zero bins 0-4, kernels.cu:1013-1023), zap birdies
+    to 1+0j (kernels.cu:1036-1069) and Fourier-interpolate the amplitude.
+    Returns (re_d, im_d, s0): the dereddened+zapped parts (the irfft
+    input) and the interbinned amplitude (the stats input)."""
+    low5 = torch.arange(re.shape[-1], device=re.device) < 5
+    zero = torch.zeros((), dtype=torch.float32, device=re.device)
+    one = torch.ones((), dtype=torch.float32, device=re.device)
+    re_d = torch.where(low5, zero, re / med)
+    im_d = torch.where(low5, zero, im / med)
+    re_d = torch.where(zapmask, one, re_d)
+    im_d = torch.where(zapmask, zero, im_d)
+    return re_d, im_d, form_interpolated_parts(re_d, im_d)
+
+
+def s0_envelope(plain: torch.Tensor) -> torch.Tensor:
+    """Per-bin bound on the kernel's s0 deviation from the plain version:
+    a few ULP of the bin magnitude (FMA or reassociation in the plain
+    version's squares-and-sum), as the JAX package's
+    ops/pallas/specchain.py:s0_envelope states it."""
+    rms = torch.sqrt(torch.mean(plain * plain, dim=-1, keepdim=True))
+    return 1e-6 * (torch.abs(plain) + rms)
+
+
+def specchain(
+    re: torch.Tensor, im: torch.Tensor, med: torch.Tensor, zapmask: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Deredden + zap + interbin over a (D, nbins) batch in one pass.
+    CUDA tensors go through the specchain kernel (parts bitwise equal to
+    :func:`interp_deredden_zap`, s0 within :func:`s0_envelope`), CPU
+    tensors through the plain version."""
+    if on_cpu(re, im, med, zapmask):
+        return interp_deredden_zap(re, im, med, zapmask)
+    for t, name in ((re, "re"), (im, "im"), (med, "med")):
+        check(t, name, torch.float32, 2)
+    if not re.shape == im.shape == med.shape or zapmask.shape != re.shape[-1:]:
+        raise ValueError("re, im, med must be (D, nbins) and zapmask (nbins,)")
+    if zapmask.dtype != torch.bool:
+        raise TypeError(f"zapmask: expected torch.bool, got {zapmask.dtype}")
+    rows, nbins = re.shape
+    zap = zapmask.contiguous().view(torch.uint8)
+    re_d, im_d, s0 = (torch.empty_like(re) for _ in range(3))
+    kernels.launch(
+        "specchain", re.data_ptr(), im.data_ptr(), med.data_ptr(),
+        zap.data_ptr(), re_d.data_ptr(), im_d.data_ptr(), s0.data_ptr(),
+        rows, nbins, stream_ptr(re.device), shape=(rows, nbins),
+    )
+    return re_d, im_d, s0
+
+
+def spectrum_stats(
+    x: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, rms, std) over the last axis; std = sqrt(rms^2 - mean^2)
+    (stats.hpp:20-23)."""
+    n = x.shape[-1]
+    mean = torch.sum(x, dim=-1) / n
+    rms = torch.sqrt(torch.sum(x * x, dim=-1) / n)
+    std = torch.sqrt(rms * rms - mean * mean)
+    return mean, rms, std
+
+
+def normalise(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std with broadcasting (kernels.cu:469-494)."""
+    return (x - mean[..., None]) / std[..., None]
