@@ -11,14 +11,23 @@ Phases, each fatal on failure:
      (64 channels x 2^21+8192 2-bit samples, 64 us, P = 31.4 ms pulsar
      at DM 10; dm_end 20, acc +-0.5, every accel trial searched): the
      top candidate must be the pulsar and every kernel must have run.
-     With --profile this run is traced by torch.profiler, which prints
-     device time by kernel and the device's busy share (and slows the
-     host, so the stage timers of a profiled run are not the search's).
-  4. Hold each kernel against its plain torch version on the card at the
-     launch shape the CLI run used most, and time both (CUDA events,
-     median of a few runs) beside the least time the card could take.
-  5. The card's search against the CPU search (plain versions) on a
-     small 8-bit filterbank: the strong candidates must agree.
+     With --profile this run and the next are traced by torch.profiler,
+     which prints device time by kernel and the device's busy share (and
+     slows the host, so the stage timers of a profiled run are not the
+     search's).
+  4. The CLI on the binary grid: the big grid's filterbank geometry with
+     a P = 5.03 ms pulsar (duty 0.03) at DM 10 under a constant
+     +100 m/s^2 acceleration, searched with dm_end 20, acc -150..150
+     (resample shifts of up to 17.6 samples) and --npdmp 10: the top
+     candidate must be the pulsar at a non-zero accel trial near
+     +100 m/s^2, folded, and every kernel must have run.
+  5. Hold each kernel against its plain torch version on the card at the
+     launch shape a CLI run used most (resample: the binary grid's; the
+     others: the big grid's), and time both (CUDA events, median of a
+     few runs) beside the least time the card could take.
+  6. The card's search against the CPU search (plain versions) on a
+     small 8-bit filterbank, folding its top 5: the strong candidates
+     and the fold outcomes must agree.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -54,7 +63,9 @@ from peasoup_tpu_torch.ops.harmonics import level_scales  # noqa: E402
 from peasoup_tpu_torch.ops.peaks import (  # noqa: E402
     find_harmonic_cluster_peaks, find_harmonic_cluster_peaks_plain,
 )
-from peasoup_tpu_torch.ops.resample import accel_factor, resample_accel  # noqa: E402
+from peasoup_tpu_torch.ops.resample import (  # noqa: E402
+    accel_factor, resample_rows, resample_rows_plain,
+)
 from peasoup_tpu_torch.ops.spectrum import (  # noqa: E402
     interp_deredden_zap, s0_envelope, specchain,
 )
@@ -64,6 +75,7 @@ from peasoup_tpu_torch.pipeline.accel_search import (  # noqa: E402
 from peasoup_tpu_torch.pipeline.search import (  # noqa: E402
     PeasoupSearch, SearchConfig,
 )
+from peasoup_tpu_torch.plan.accel_plan import AccelerationPlan  # noqa: E402
 from peasoup_tpu_torch.plan.dm_plan import delay_table  # noqa: E402
 
 # the H100 SXM's published peaks (NVIDIA data sheet, at its 700 W limit)
@@ -85,8 +97,21 @@ GRID_CONFIG = SearchConfig(
     npdmp=0, dedupe_accel=False,
 )
 
+# the binary grid: the big grid's geometry, an accelerated pulsar, and a
+# binary search's accel range with folding (every other flag at the
+# CLI's default, accel dedupe included). The pulse is 2.4 samples wide
+# (duty 0.03): at duty 0.10 the fundamental folds to S/N 13.6 at the
+# pulsar's own trial, in the JAX package as in the port
+# (tests/test_torch_search.py::test_binary_grid_pulse_duty).
+BIN_PERIOD, BIN_DUTY, BIN_ACC, BIN_SIZE = 0.00503, 0.03, 100.0, 1 << 21
+BINARY_FLAGS = [
+    "--dm_end", "20", "--acc_start", "-150", "--acc_end", "150", "--npdmp", "10",
+]
+BINARY_CONFIG = SearchConfig(dm_end=20.0, acc_start=-150.0, acc_end=150.0, npdmp=10)
+
 SOURCES = {
     "dedisperse": "peasoup_tpu/ops/pallas/dedisperse.py:157",
+    "resample": "peasoup_tpu/ops/pallas/resample.py:167",
     "specchain": "peasoup_tpu/ops/pallas/specchain.py:139",
     "interbin": "peasoup_tpu/ops/pallas/interbin.py:152",
     "harmpeaks": "peasoup_tpu/ops/pallas/harmpeaks.py:202",
@@ -145,6 +170,33 @@ def big_grid_fil(path: str) -> None:
     write_filterbank(path, Filterbank(header=hdr, data=data))
 
 
+def binary_grid_fil(path: str, duty: float = BIN_DUTY) -> None:
+    """Synthesize the binary grid's filterbank: the big grid's geometry and
+    noise, with the pulse phase (on for a fraction ``duty`` of the
+    period) following the inverse of the search's resample map at
+    +100 m/s^2 (tests/test_accel_recovery.py's recipe), so that the
+    matching accel trial resamples it back to an exactly periodic
+    series; whole-sample DM delays per channel."""
+    nchans, nsamps = NCHANS, NSAMPS
+    rng = np.random.default_rng(7)
+    delays = np.rint(
+        np.float32(PULSAR_DM) * np.abs(delay_table(FCH1, FOFF, nchans, TSAMP))
+    ).astype(np.int64)
+    af = float(accel_factor(np.array([BIN_ACC]), TSAMP)[0])
+    j = np.arange(nsamps, dtype=np.float64)
+    ginv = j - af * j * (j - BIN_SIZE)
+    pulse = (((ginv * TSAMP / BIN_PERIOD) % 1.0) < duty).astype(np.uint8)
+    data = rng.integers(0, 3, size=(nsamps, nchans), dtype=np.uint8)
+    for c in range(nchans):
+        src = np.clip(j - delays[c], 0, nsamps - 1).astype(np.int64)
+        data[:, c] += pulse[src]
+    hdr = SigprocHeader(
+        source_name="binary_grid_synth", data_type=1, nchans=nchans, nbits=2,
+        nifs=1, tsamp=TSAMP, tstart=51000.0, fch1=FCH1, foff=FOFF,
+    )
+    write_filterbank(path, Filterbank(header=hdr, data=data))
+
+
 def small_fil(path: str) -> None:
     """8-bit 16-channel filterbank with a P = 64 ms pulsar at DM 20 (the
     recipe of tests/test_pipeline.py:make_synthetic_fil)."""
@@ -172,6 +224,77 @@ def main_shape(shapes: dict, name: str) -> tuple:
     path (the full row batch; the larger on a tie)."""
     require(len(shapes[name]) > 0, f"kernel {name} launched on the main path")
     return max(shapes[name].items(), key=lambda kv: (kv[1], kv[0]))[0]
+
+
+def pulsar_rows(plan, dms, rows: int) -> list:
+    """``rows`` consecutive (DM, accel) rows of the DM trials ``dms``,
+    centred on the pulsar's DM trial, in the search's row order."""
+    all_rows = [(d, a) for d in dms for a in range(len(plan.accel_lists[d]))]
+    require(rows <= len(all_rows), "the row batch fits the grid")
+    dp = int(np.argmin(np.abs(plan.dm_list - PULSAR_DM)))
+    mid = all_rows.index((dp, 0)) + len(plan.accel_lists[dp]) // 2
+    r0 = max(0, min(mid - rows // 2, len(all_rows) - rows))
+    return all_rows[r0 : r0 + rows]
+
+
+def batch_rows(plan, batch: list, lo: int, tsamp: float, dev) -> tuple:
+    """(row_dm, afs) of a row batch, as PeasoupSearch._search_trials
+    builds them for a DM block starting at trial ``lo``."""
+    row_dm = torch.tensor([d - lo for d, _ in batch], dtype=torch.int32, device=dev)
+    afs = torch.from_numpy(np.asarray(
+        [accel_factor(plan.accel_lists[d], tsamp).astype(np.float32)[a]
+         for d, a in batch], np.float32,
+    )).to(dev)
+    return row_dm, afs
+
+
+def resample_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dict:
+    """The resample kernel against its plain version at the binary grid's
+    modal launch shape (R rows over a DM block of D trials of N samples):
+    the block of preprocessed DM trials that holds the pulsar's, and the R
+    rows around the pulsar's DM trial, built as the search builds them."""
+    search = PeasoupSearch(cfg, device=dev)
+    plan = search.build_plan(fil)
+    size = plan.size
+    rows, d_blk, n = main_shape(shapes, "resample")
+    require(n == size, "resample ran at the plan's FFT size")
+    dp = int(np.argmin(np.abs(plan.dm_list - PULSAR_DM)))
+    lo = dp // d_blk * d_blk
+    require(lo + d_blk <= plan.ndm, "the modal DM block holds the pulsar's trial")
+    trials = dedisperse(
+        fil_to_device(fil, dev), torch.from_numpy(plan.delays).to(dev),
+        torch.from_numpy(plan.killmask).to(dev), plan.out_nsamps,
+        scale=output_scale(fil.nbits, int(plan.killmask.sum())),
+    )
+    tobs = float(np.float32(size) * np.float32(fil.tsamp))
+    bin_width = float(np.float32(1.0 / tobs))
+    zap = torch.from_numpy(plan.zapmask).to(dev)
+    xd, _, _ = preprocess_block(
+        trials[lo : lo + d_blk, :size], zap, size=size,
+        nsamps_valid=min(plan.out_nsamps, size),
+        pos5=int(cfg.boundary_5_freq / bin_width),
+        pos25=int(cfg.boundary_25_freq / bin_width),
+    )
+    del trials
+    batch = pulsar_rows(plan, range(lo, lo + d_blk), rows)
+    row_dm, afs = batch_rows(plan, batch, lo, fil.tsamp, dev)
+    got = resample_rows(xd, row_dm, afs)
+    ref = resample_rows_plain(xd, row_dm, afs)
+    torch.cuda.synchronize()
+    require(torch.equal(got, ref), "resample bitwise equal to its plain version")
+    err = float((got - ref).abs().max())
+    del got, ref
+    ndist = len({d for d, _ in batch})
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: resample_rows(xd, row_dm, afs)),
+        plain_ms=time_ms(lambda: resample_rows_plain(xd, row_dm, afs), reps=3),
+        # each output written once, each DM trial the rows read once, and
+        # the rows' DM index and factor
+        bound=bound(rows * n * 4 + ndist * n * 4 + rows * 8, rows * n * 4.0),
+        shape=f"({d_blk}, {n}) f32 DM block -> ({rows}, {n}) f32, DM trials "
+              f"{batch[0][0]}..{batch[-1][0]}",
+    )
 
 
 def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dict:
@@ -248,22 +371,13 @@ def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dic
     h_rows, h_npad, nharms, mx = main_shape(shapes, "harmpeaks")
     require((m_main, npad_main, h_rows, h_npad) == (m, npad, rows, npad),
             "interbin and harmpeaks ran at one row batch of the plan's size")
-    all_rows = [(d, a) for d in range(ndm) for a in range(len(plan.accel_lists[d]))]
-    require(rows <= len(all_rows), "the row batch fits the grid")
-    dp = int(np.argmin(np.abs(plan.dm_list - PULSAR_DM)))
-    mid = all_rows.index((dp, 0)) + len(plan.accel_lists[dp]) // 2
-    r0 = max(0, min(mid - rows // 2, len(all_rows) - rows))
-    batch = all_rows[r0 : r0 + rows]
+    batch = pulsar_rows(plan, range(ndm), rows)
     lo, hi = batch[0][0], batch[-1][0] + 1
     xd, mean_d, std_d = preprocess_block(trials[lo:hi, :size], zap, **geometry)
     del trials
-    dsel = torch.tensor([d - lo for d, _ in batch], device=dev)
-    afs = torch.from_numpy(np.asarray(
-        [accel_factor(plan.accel_lists[d], fil.tsamp).astype(np.float32)[a]
-         for d, a in batch], np.float32,
-    )).to(dev)
-    z = packed_dft_z(resample_accel(xd[dsel], afs[:, None])[:, 0])
-    mean, std = mean_d[dsel], std_d[dsel]
+    row_dm, afs = batch_rows(plan, batch, lo, fil.tsamp, dev)
+    z = packed_dft_z(resample_rows(xd, row_dm, afs))
+    mean, std = mean_d[row_dm], std_d[row_dm]
     got = untwist_interbin_normalise(z, mean, std, npad=npad)
     ref = untwist_interbin_normalise_plain(z, mean, std, npad=npad)
     torch.cuda.synchronize()
@@ -310,12 +424,15 @@ def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dic
     return out
 
 
-def grid_phase(path: str, outdir: str, profile: bool) -> dict:
-    """The port's CLI on the big grid; returns its launches, launch
-    shapes and timers."""
+def cli_phase(path: str, outdir: str, flags: list, period: float,
+              profile: bool = False) -> dict:
+    """The port's CLI on one grid; checks that it wrote its files, that
+    the top candidate has the pulsar's period (within 2e-3) and that
+    every kernel ran, and returns the launches, launch shapes, timers and
+    the top candidate of the run."""
     from peasoup_tpu_torch.cli.peasoup import main
 
-    argv = ["-i", path, "-o", outdir, *GRID_FLAGS]
+    argv = ["-i", path, "-o", outdir, *flags]
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as tracer
@@ -338,27 +455,64 @@ def grid_phase(path: str, outdir: str, profile: bool) -> dict:
     root = ET.parse(os.path.join(outdir, "overview.xml")).getroot()
     top = root.find("candidates/candidate")
     require(top is not None, "at least one candidate")
-    period = float(top.find("period").text)
-    say(f"top candidate: period {period!r} s, dm {top.find('dm').text}, "
+    for e in root.findall("candidates/candidate")[:5]:
+        say("  candidate " + ", ".join(
+            f"{k} {e.find(k).text}"
+            for k in ("period", "dm", "acc", "nh", "snr", "folded_snr", "opt_period")
+        ))
+    top_period = float(top.find("period").text)
+    say(f"top candidate: period {top_period!r} s, dm {top.find('dm').text}, "
         f"acc {top.find('acc').text}, nh {top.find('nh').text}, "
         f"snr {top.find('snr').text}")
-    require(abs(period - PERIOD) / PERIOD < 2e-3,
-            f"top candidate period {period} within 2e-3 of {PERIOD}")
+    require(abs(top_period - period) / period < 2e-3,
+            f"top candidate period {top_period} within 2e-3 of {period}")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} launched on the main path")
     timers = {e.tag: float(e.text) for e in root.find("execution_times")}
-    return dict(launches=launches, shapes=shapes, timers=timers, wall=wall)
+    return dict(launches=launches, shapes=shapes, timers=timers, wall=wall,
+                top=top)
 
 
-def agreement_phase(tmp: str) -> int:
-    """The card's search against the CPU search on a small input."""
+def binary_checks(run: dict, plan, tsamp: float, outdir: str) -> None:
+    """The binary grid's top candidate is the pulsar, found at a non-zero
+    accel trial within 1.5 planner steps of +100 m/s^2, and folded."""
+    top = run["top"]
+    acc, dm = float(top.find("acc").text), float(top.find("dm").text)
+    step = AccelerationPlan(
+        acc_lo=BINARY_CONFIG.acc_start, acc_hi=BINARY_CONFIG.acc_end,
+        tol=BINARY_CONFIG.acc_tol, pulse_width=BINARY_CONFIG.acc_pulse_width,
+        nsamps=plan.size, tsamp=tsamp, cfreq=FCH1 + (NCHANS / 2) * FOFF, bw=FOFF,
+    ).step(dm)
+    folded_snr = float(top.find("folded_snr").text)
+    opt_period = float(top.find("opt_period").text)
+    say(f"binary grid top candidate: acc {acc} m/s^2 (step {step:.3f}), "
+        f"folded_snr {folded_snr}, opt_period {opt_period!r} s")
+    require(acc != 0.0, "the top candidate sits at a non-zero accel trial")
+    require(abs(acc - BIN_ACC) <= 1.5 * step,
+            f"top candidate acc {acc} within 1.5 steps of {BIN_ACC}")
+    require(folded_snr > 15.0, f"top candidate folded_snr {folded_snr} > 15")
+    require(abs(opt_period - BIN_PERIOD) / BIN_PERIOD < 2e-3,
+            f"top candidate opt_period {opt_period} within 2e-3 of {BIN_PERIOD}")
+    with open(os.path.join(outdir, "candidates.peasoup"), "rb") as f:
+        nfolds = f.read().count(b"FOLD")
+    say(f"binary grid: candidates.peasoup holds {nfolds} FOLD blocks")
+    require(nfolds > 0, "candidates.peasoup holds FOLD blocks")
+
+
+def agreement_phase(tmp: str) -> tuple[int, int]:
+    """The card's search against the CPU search on a small input, folding
+    the top 5 candidates in both."""
     path = os.path.join(tmp, "small.fil")
     small_fil(path)
     fil = read_filterbank(path)
     cfg = SearchConfig(dm_start=0.0, dm_end=40.0, acc_start=-2.0, acc_end=2.0,
-                       min_snr=6.0)
+                       min_snr=6.0, npdmp=5)
     gpu = PeasoupSearch(cfg, device="cuda").run(fil).candidates
     cpu = PeasoupSearch(cfg, device="cpu").run(fil).candidates
+
+    def ident(c):
+        return (c.dm_idx, c.acc, c.nh, c.freq)
+
     # cuFFT and the CPU FFT round differently, so compare the candidates
     # clear of the threshold: same identity, S/N within 1e-3
     strong = [c for c in cpu if c.snr >= 1.1 * cfg.min_snr]
@@ -367,11 +521,24 @@ def agreement_phase(tmp: str) -> int:
     require(len(got) == len(strong), "same number of strong candidates")
     for a, b in zip(strong, got):
         require(
-            (a.dm_idx, a.acc, a.nh, a.freq) == (b.dm_idx, b.acc, b.nh, b.freq)
-            and abs(a.snr - b.snr) <= 1e-3 * a.snr,
+            ident(a) == ident(b) and abs(a.snr - b.snr) <= 1e-3 * a.snr,
             f"candidate agrees: cpu {a} vs cuda {b}",
         )
-    return len(strong)
+    # the same candidates folded, the same optimised period (whole
+    # phase-bin shifts), and the folded S/N within 1e-3 relative: the
+    # dereddening FFTs round differently and the card's fold sums use
+    # atomics, whose order changes from run to run
+    folded = {ident(c): c for c in cpu if c.fold is not None}
+    folded_gpu = {ident(c): c for c in gpu if c.fold is not None}
+    require(len(folded) == cfg.npdmp and folded.keys() == folded_gpu.keys(),
+            "the card and the CPU fold the same candidates")
+    for key, a in folded.items():
+        b = folded_gpu[key]
+        require(a.opt_period == b.opt_period
+                and abs(a.folded_snr - b.folded_snr) <= 1e-3 * max(1.0, a.folded_snr),
+                f"fold outcome agrees: cpu {a.opt_period!r} {a.folded_snr!r} vs "
+                f"cuda {b.opt_period!r} {b.folded_snr!r}")
+    return len(strong), len(folded)
 
 
 def print_profile(prof, wall: float) -> None:
@@ -395,7 +562,7 @@ def print_profile(prof, wall: float) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace the big grid's CLI run with torch.profiler")
+                    help="trace each grid's CLI run with torch.profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -414,52 +581,77 @@ def main() -> int:
     say(f"built kernels in {time.perf_counter() - t0:.1f} s wall: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
 
+    runs, checks = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = os.path.join(tmp, "big_grid.fil")
-        t0 = time.perf_counter()
-        big_grid_fil(path)
-        say(f"synthesized big-grid filterbank in {time.perf_counter() - t0:.1f} s")
-        fil = read_filterbank(path)
-        plan = PeasoupSearch(GRID_CONFIG, device=dev).build_plan(fil)
-        ntrials = sum(len(a) for a in plan.accel_lists)
-
-        grid = grid_phase(path, os.path.join(tmp, "out"), args.profile)
-        say(f"big grid: {plan.ndm} DM trials, {ntrials} DM x accel trials, "
-            f"{grid['wall']:.3f} s CLI wall, "
-            f"{ntrials / grid['timers']['searching']:.1f} trials/s "
-            "over the searching stage")
-        say("stage timers (s): " + json.dumps(grid["timers"], sort_keys=True))
-        say("kernel launches on the main path: " + json.dumps(grid["launches"]))
-        say("launch shapes on the main path: " + json.dumps(
-            {k: {str(s): n for s, n in v.items()} for k, v in grid["shapes"].items()}
-        ))
-
-        checks = kernel_phase(dev, fil, GRID_CONFIG, grid["shapes"])
-        for name, c in checks.items():
-            say(f"{name}: {c['shape']}: {c['ms']:.4f} ms kernel, "
+        for label, synth, cfg, flags, period in (
+            ("big grid", big_grid_fil, GRID_CONFIG, GRID_FLAGS, PERIOD),
+            ("binary grid", binary_grid_fil, BINARY_CONFIG, BINARY_FLAGS, BIN_PERIOD),
+        ):
+            path = os.path.join(tmp, "grid.fil")
+            t0 = time.perf_counter()
+            synth(path)
+            say(f"synthesized {label} filterbank in {time.perf_counter() - t0:.1f} s")
+            fil = read_filterbank(path)
+            plan = PeasoupSearch(cfg, device=dev).build_plan(fil)
+            ntrials = sum(len(a) for a in plan.accel_lists)
+            # the widest trial's resample shift at mid-series, max|af|*N^2/4
+            max_shift = max(
+                float(np.abs(accel_factor(a, fil.tsamp)).max()) for a in plan.accel_lists
+            ) * (plan.size / 2.0) ** 2
+            outdir = os.path.join(tmp, label.replace(" ", "_"))
+            run = cli_phase(path, outdir, flags, period, profile=args.profile)
+            runs[label] = run
+            say(f"{label}: {plan.ndm} DM trials, {ntrials} DM x accel trials, "
+                f"largest resample shift {max_shift:.2f} samples, "
+                f"{run['wall']:.3f} s CLI wall, "
+                f"{ntrials / run['timers']['searching']:.1f} trials/s "
+                "over the searching stage")
+            say(f"{label} stage timers (s): "
+                + json.dumps(run["timers"], sort_keys=True))
+            say(f"{label} kernel launches: " + json.dumps(run["launches"]))
+            say(f"{label} launch shapes: " + json.dumps(
+                {k: {str(s): n for s, n in v.items()} for k, v in run["shapes"].items()}
+            ))
+            if label == "big grid":
+                for name, c in kernel_phase(dev, fil, cfg, run["shapes"]).items():
+                    checks[name] = dict(c, path=label)
+            else:
+                binary_checks(run, plan, fil.tsamp, outdir)
+                checks["resample"] = dict(
+                    resample_phase(dev, fil, cfg, run["shapes"]), path=label
+                )
+            del fil
+            os.remove(path)
+            torch.cuda.empty_cache()
+        for name in SOURCES:
+            c = checks[name]
+            say(f"{name} ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
                 f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
                 f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
-        del fil
-        torch.cuda.empty_cache()
 
-        n = agreement_phase(tmp)
-        say(f"small input: {n} strong candidates agree between cuda and cpu")
+        n, nfold = agreement_phase(tmp)
+        say(f"small input: {n} strong candidates and {nfold} fold outcomes "
+            "agree between cuda and cpu")
 
+    # each kernel with the launches of the run whose launch shape it was
+    # checked and timed at
     entries = [
         {
             "name": name,
             "route": "cuda",
             "source": f"peasoup_tpu_torch/csrc/{name}.cu",
             "replaces": SOURCES[name],
-            "launches": grid["launches"][name],
+            "launches": runs[c["path"]]["launches"][name],
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],
             "bound_ms": c["bound"][0],
             "bound_by": c["bound"][1],
             "library_ms": None,
+            "path": c["path"],
+            "shape": c["shape"],
         }
-        for name, c in checks.items()
+        for name, c in ((name, checks[name]) for name in SOURCES)
     ]
     say(json.dumps({"kernels": entries}))
     say(json.dumps({

@@ -4,11 +4,12 @@ spec) and with the JAX package's ``peasoup``, plus ``--device``.
 
 Usage:
   python -m peasoup_tpu_torch.cli.peasoup -i data.fil --dm_end 250 \\
-      --acc_start -5 --acc_end 5
+      --acc_start -5 --acc_end 5 --npdmp 10
 
-The search runs on the CUDA device unless ``--device cpu`` is given.
-Flags of features the port does not have yet (--npdmp > 0, --subbands,
---checkpoint, --tune, --dedisp_engine matmul) are refused.
+The search runs on the CUDA device unless ``--device cpu`` is given;
+``--npdmp N`` folds and optimises the top N candidates. Flags of
+features the port does not have yet (--subbands, --checkpoint, --tune,
+--dedisp_engine matmul) are refused.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--boundary_25_freq", type=float, default=0.5)
     p.add_argument("-n", "--nharmonics", type=int, default=4)
     p.add_argument("--npdmp", type=int, default=0,
-                   help="Number of candidates to fold and pdmp")
+                   help="Number of candidates to fold and pdmp (0: no folding)")
     p.add_argument("-m", "--min_snr", type=float, default=9.0)
     p.add_argument("--min_freq", type=float, default=0.1)
     p.add_argument("--max_freq", type=float, default=1100.0)

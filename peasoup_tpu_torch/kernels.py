@@ -40,6 +40,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # kernel name -> (C symbol, argtypes); every entry ends with the stream
 _ENTRIES = {
     "dedisperse": ("dedisperse_u8", [_P, _P, _P, _P, _L, _I, _I, _L, _F, _I, _P]),
+    "resample": ("resample_rows", [_P, _P, _P, _P, _L, _L, _P]),
     "specchain": ("specchain", [_P, _P, _P, _P, _P, _P, _P, _L, _L, _P]),
     "interbin": (
         "untwist_interbin_normalise", [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P],

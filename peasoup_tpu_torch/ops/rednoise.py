@@ -3,9 +3,10 @@
 Reference: Heimdall-derived median_scrunch5 / linear_stretch kernels
 (src/kernels.cu:867-1011) composed into a three-scale piecewise median
 spline by Dereddener::calculate_median
-(include/transforms/dereddener.hpp:41-62). The division by the median
-(with the first five bins zeroed) happens in the fused spectrum chain,
-ops/spectrum.py:interp_deredden_zap.
+(include/transforms/dereddener.hpp:41-62). The search divides by the
+median (with the first five bins zeroed) in the fused spectrum chain,
+ops/spectrum.py:specchain; the candidate folder whitens with
+:func:`whiten_fseries`.
 
 All functions are batched over leading axes.
 """
@@ -13,6 +14,8 @@ All functions are batched over leading axes.
 from __future__ import annotations
 
 import torch
+
+from .spectrum import form_power
 
 
 def median_scrunch5(x: torch.Tensor) -> torch.Tensor:
@@ -73,3 +76,22 @@ def running_median(powers: torch.Tensor, *, pos5: int, pos25: int) -> torch.Tens
     s125 = linear_stretch(med125, size)
     idx = torch.arange(size, device=powers.device)
     return torch.where(idx < pos5, s5, torch.where(idx < pos25, s25, s125))
+
+
+def deredden(fseries: torch.Tensor, median: torch.Tensor) -> torch.Tensor:
+    """Divide the complex spectrum by the running median; zero bins 0-4
+    (kernels.cu:1013-1023). The parts are divided separately, as the
+    spectrum chain divides them."""
+    med = median.to(torch.float32)
+    out = torch.complex(fseries.real / med, fseries.imag / med)
+    idx = torch.arange(fseries.shape[-1], device=fseries.device)
+    return torch.where(idx < 5, torch.zeros((), dtype=out.dtype, device=out.device), out)
+
+
+def whiten_fseries(x: torch.Tensor, *, pos5: int, pos25: int) -> torch.Tensor:
+    """rfft -> amplitude -> running median -> dereddened Fourier series:
+    the stanza the reference's candidate folder runs on each DM trial
+    (folder.hpp:385-388)."""
+    fser = torch.fft.rfft(x.to(torch.float32), dim=-1)
+    med = running_median(form_power(fser), pos5=pos5, pos25=pos25)
+    return deredden(fser, med)

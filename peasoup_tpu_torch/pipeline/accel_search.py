@@ -9,7 +9,7 @@ trial of the block is one row of a batched chain:
   (174) -> |.| (178) -> running median (182) -> [specchain kernel:
   deredden (186), zap (188-192), interbin (196)] -> stats (200) ->
   irfft (204);
-  per row: resample (212) -> packed DFT, cuFFT (216) -> [interbin
+  per row: [resample kernel (212)] -> packed DFT, cuFFT (216) -> [interbin
   kernel: untwist, interbin (220), normalise (224)] -> [harmpeaks
   kernel: harmonic sums (228), peaks (233-234), clustering
   (peakfinder.hpp:27-56)].
@@ -29,7 +29,7 @@ from ..ops.fft import packed_dft_z, untwist_interbin_normalise
 from ..ops.harmonics import level_scales
 from ..ops.peaks import find_harmonic_cluster_peaks
 from ..ops.rednoise import running_median
-from ..ops.resample import resample_accel
+from ..ops.resample import resample_rows
 from ..ops.spectrum import form_power, specchain, spectrum_stats
 
 # spectrum rows are padded to a multiple of this many bins, as the JAX
@@ -94,7 +94,8 @@ def preprocess_block(tims, zapmask, *, size, nsamps_valid, pos5, pos25):
 
 
 def search_rows(
-    xd: torch.Tensor,  # (R, size) f32 preprocessed series, one per row
+    xd: torch.Tensor,  # (D, size) f32 preprocessed series of the DM block
+    row_dm: torch.Tensor,  # (R,) i32 each row's DM trial in the block
     afs: torch.Tensor,  # (R,) f32 acceleration factors
     mean: torch.Tensor,  # (R,) f32
     std: torch.Tensor,  # (R,) f32
@@ -105,12 +106,10 @@ def search_rows(
     max_peaks: int,
 ) -> AccelSearchPeaks:
     """Resample, packed DFT, interbin + normalise, harmonic sums and
-    cluster peaks for R (DM, accel) rows."""
+    cluster peaks for R (DM, accel) rows of one DM block."""
     size = xd.shape[-1]
     nbins = size // 2 + 1
-    xr = resample_accel(xd, afs[:, None])[:, 0]
-    z = packed_dft_z(xr)
-    del xr
+    z = packed_dft_z(resample_rows(xd, row_dm, afs))
     s = untwist_interbin_normalise(z, mean, std, npad=padded_bins(size))
     del z
     return AccelSearchPeaks(

@@ -8,10 +8,12 @@ device. Blocks of DM trials are preprocessed together, and their
 peaks come back to the host, where candidate building, distilling and
 scoring run on small arrays, as in the reference.
 
-Not ported yet, and refused with NotImplementedError: folding
-(npdmp > 0), subband or matmul dedispersion, checkpoints, the tuning
-cache, more than one device, and the JAX package's out-of-memory
-degradation ladder.
+With npdmp > 0 the top candidates are folded and optimised
+(pipeline/folder.py) from the dedispersed trials the device still holds.
+
+Not ported yet, and refused with NotImplementedError: subband or matmul
+dedispersion, checkpoints, the tuning cache, more than one device, and
+the JAX package's out-of-memory degradation ladder.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..device import resolve_device
 from ..io.masks import read_killfile, read_zapfile
 from ..io.sigproc import Filterbank
 from ..ops.dedisperse import dedisperse, fil_to_device, output_scale
-from ..ops.resample import MAX_SELECT_SPAN, accel_factor, select_span
+from ..ops.resample import accel_factor
 from ..ops.zap import birdie_mask
 from ..plan.accel_plan import AccelerationPlan
 from ..plan.dm_plan import DMPlan
@@ -38,6 +40,7 @@ from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
 from .accel_search import preprocess_block, search_rows
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
+from .folder import MultiFolder
 from .score import CandidateScorer
 
 log = logging.getLogger("peasoup_tpu_torch.search")
@@ -123,6 +126,8 @@ class PartialSearchResult:
     size: int
     n_accel_trials: int
     t_total_start: float
+    trials: torch.Tensor | None = None  # (ndm, out_nsamps) u8, kept on
+    # the search's device for folding when npdmp > 0
 
 
 def _level_windows(
@@ -341,8 +346,6 @@ def _max_abs_quad_f32(size: int) -> np.float32:
 
 
 def _unsupported(cfg: SearchConfig) -> str | None:
-    if cfg.npdmp > 0:
-        return "folding (npdmp > 0) is ROADMAP item A.9"
     if cfg.subbands > 0 or cfg.dedisp_engine == "matmul":
         return "subband and matmul dedispersion are ROADMAP item A.3"
     if cfg.checkpoint_file:
@@ -480,24 +483,13 @@ class PeasoupSearch:
             )
         else:
             dispatch_lists, expand = list(accel_lists), [None] * plan.ndm
-        af_max = max(
-            (float(np.abs(accel_factor(a, fil.tsamp)).max())
-             for a in dispatch_lists if len(a)),
-            default=0.0,
-        )
-        smax = select_span(af_max, size)
-        if dev.type == "cuda" and not 0 < smax <= MAX_SELECT_SPAN:
-            raise NotImplementedError(
-                "not ported yet: acceleration ranges whose resample shift "
-                f"span exceeds {MAX_SELECT_SPAN} samples need the resample "
-                "kernel (ROADMAP item B.2)"
-            )
 
         t0 = time.perf_counter()
         per_dm = self._search_trials(
             trials, plan, dispatch_lists, fil.tsamp, geometry
         )
-        del trials
+        if cfg.npdmp <= 0:
+            trials = None  # only the folder reads the trials again
         self._sync()
         timers["search_device"] = time.perf_counter() - t0
 
@@ -550,6 +542,7 @@ class PeasoupSearch:
             size=size,
             n_accel_trials=sum(len(a) for a in accel_lists),
             t_total_start=t_total,
+            trials=trials,
         )
         return self.finalize(fil, part)
 
@@ -581,14 +574,16 @@ class PeasoupSearch:
             results = []
             for r0 in range(0, len(rows), row_blk):
                 batch = rows[r0 : r0 + row_blk]
-                dsel = torch.tensor([d for d, _ in batch], device=dev)
+                row_dm = torch.tensor(
+                    [d for d, _ in batch], dtype=torch.int32, device=dev
+                )
                 afs = torch.from_numpy(
                     np.asarray([afs_all[lo + d][a] for d, a in batch], np.float32)
                 ).to(dev)
                 results.append(
                     self._search_batch(
-                        xd[dsel], afs, mean[dsel], std[dsel], plan.windows,
-                        threshold,
+                        xd, row_dm, afs, mean[row_dm], std[row_dm],
+                        plan.windows, threshold,
                     )
                 )
             del xd, mean, std
@@ -618,16 +613,16 @@ class PeasoupSearch:
                 r0 = r1
         return per_dm
 
-    def _search_batch(self, xd, afs, mean, std, windows, threshold):
-        """One row batch, re-dispatched at the next power of two while a
-        cluster count overflows the slots (the reference sizes for
-        100000 up front, peakfinder.hpp:61). Returns numpy (idxs, snrs,
-        cluster counts) of the batch's rows."""
+    def _search_batch(self, xd, row_dm, afs, mean, std, windows, threshold):
+        """One row batch of the DM block ``xd``, re-dispatched at the next
+        power of two while a cluster count overflows the slots (the
+        reference sizes for 100000 up front, peakfinder.hpp:61). Returns
+        numpy (idxs, snrs, cluster counts) of the batch's rows."""
         cfg = self.config
         max_peaks = max(cfg.max_peaks, self._learned_max_peaks)
         while True:
             peaks = search_rows(
-                xd, afs, mean, std, windows, threshold=threshold,
+                xd, row_dm, afs, mean, std, windows, threshold=threshold,
                 nharms=cfg.nharmonics, max_peaks=max_peaks,
             )
             cc = peaks.ccounts.cpu().numpy()
@@ -643,7 +638,9 @@ class PeasoupSearch:
         return peaks.idxs.cpu().numpy(), peaks.snrs.cpu().numpy(), cc
 
     def finalize(self, fil: Filterbank, part: PartialSearchResult) -> SearchResult:
-        """Global distilling and scoring over the per-DM-trial candidates."""
+        """Global distilling and scoring over the per-DM-trial candidates,
+        then folding of the top ``npdmp`` (the JAX package's
+        PeasoupSearch.finalize)."""
         cfg = self.config
         timers = part.timers
         t0 = time.perf_counter()
@@ -660,7 +657,16 @@ class PeasoupSearch:
         )
         scorer.score_all(cands)
         timers["scoring"] = time.perf_counter() - t0
-        timers["folding"] = 0.0
+
+        t0 = time.perf_counter()
+        if cfg.npdmp > 0:
+            folder = MultiFolder(
+                part.trials, fil.tsamp,
+                pos5_freq=cfg.boundary_5_freq, pos25_freq=cfg.boundary_25_freq,
+            )
+            cands = folder.fold_n(cands, cfg.npdmp)
+            self._sync()
+        timers["folding"] = time.perf_counter() - t0
         timers["total"] = time.perf_counter() - part.t_total_start
         return SearchResult(
             candidates=cands[: cfg.limit],

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small shapes with the edge cases (odd widths, birdies at block edges,
-garbage padding, cluster overflow) that the main path's inputs may not
-hold. `chip_smoke.py` holds the kernels at the main path's shapes and
+garbage padding, cluster overflow, rows out of order, offsets past 2^31)
+that the main path's inputs may not hold. `chip_smoke.py` holds the kernels at the main path's shapes and
 the card's search against the CPU's. Every test here needs an NVIDIA
 card and skips without one.
 
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from peasoup_tpu_torch.ops import dedisperse, fft, harmonics, peaks, spectrum
+from peasoup_tpu_torch.ops import dedisperse, fft, harmonics, peaks, resample, spectrum
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +44,36 @@ def test_dedisperse(dev):
     want = dedisperse.dedisperse_block(x, dl, kl, out_nsamps=out_nsamps, scale=0.7)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_resample(dev):
+    rng = np.random.default_rng(4)
+    d, n = 4, 100003  # odd N
+    x = rng.normal(size=(d, n)).astype(np.float32)
+    row_dm = np.asarray([2, 0, 3, 3, 1, 0, 2, 1], dtype=np.int32)
+    # both signs, spans from none to ~40 samples, and |af|*N > 1 (clipped)
+    afs = np.asarray([0.0, 1e-10, -1e-10, 1.6e-8, -1.6e-8, 2e-5, -2e-5, 3e-9],
+                     dtype=np.float32)
+    args = _on(dev, x, row_dm, afs)
+    got = resample.resample_rows(*args)
+    want = resample.resample_rows_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_resample_offsets_past_2_31(dev):
+    # 1,100 rows of 2^21 samples: r*N passes 2^31 from row 1,024 on
+    rows, n = 1100, 1 << 21
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, n)).astype(np.float32)
+    row_dm = (np.arange(rows) % 3).astype(np.int32)
+    afs = np.linspace(-2e-11, 2e-11, rows).astype(np.float32)
+    xs, rd, af = _on(dev, x, row_dm, afs)
+    got = resample.resample_rows(xs, rd, af)
+    tail = slice(rows - 4, rows)
+    want = resample.resample_rows_plain(xs, rd[tail], af[tail])
+    torch.cuda.synchronize()
+    assert torch.equal(got[tail], want)
 
 
 def test_specchain(dev):

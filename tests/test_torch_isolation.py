@@ -41,7 +41,10 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "peasoup_tpu_torch.pipeline.search" in mods and len(mods) > 20
+    assert len(mods) > 20
+    for name in ("pipeline.search", "pipeline.folder", "ops.fold", "ops.fold_optimise",
+                 "ops.resample", "ops.rednoise"):
+        assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -86,3 +89,14 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_every_kernel_source_is_built_and_notes_what_it_replaces():
+    from peasoup_tpu_torch import kernels
+
+    sources = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert sources == sorted(kernels.KERNELS)
+    assert set(kernels.launches) == set(kernels.launch_shapes) == set(sources)
+    for name in sources:
+        text = kernels.source(name).read_text()
+        assert "peasoup_tpu/ops/pallas/" in text and "bounds it" in text, name

@@ -125,7 +125,6 @@ def test_cli_writes_both_files(synthetic, tmp_path, port_result):
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(npdmp=5), "A.9"),
         (dict(subbands=4), "A.3"),
         (dict(checkpoint_file="ck.json"), "A.8"),
         (dict(tune=True), "A.16"),
@@ -136,6 +135,198 @@ def test_unported_options_are_refused(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         PeasoupSearch(SearchConfig(**overrides), device="cpu")
 
+
+# --- an accelerated pulsar, searched with folding -------------------------
+#
+# tests/test_accel_recovery.py's recipe, shrunk: the pulse phase follows the
+# inverse of the resample map, so the matching accel trial resamples it
+# back to an exactly periodic series. At 2^15 samples of 1 ms the injected
+# acceleration drifts the pulse by 9.8 samples at mid-series, 2.5 pulse
+# widths, and the widest trial's resample span is 19 samples.
+ACC_NCHANS, ACC_TSAMP, ACC_FCH1, ACC_FOFF = 16, 0.001, 1500.0, -20.0
+ACC_SIZE = 1 << 15
+P_INJ, DM_INJ, ACC_INJ = 0.05003, 20.0, 22000.0
+ACC_KW = dict(
+    dm_end=40.0, acc_start=-40000.0, acc_end=40000.0, acc_pulse_width=2000.0,
+    npdmp=5, limit=50,
+)
+
+
+@pytest.fixture(scope="module")
+def acc_fil(tmp_path_factory):
+    from peasoup_tpu_torch.io.sigproc import Filterbank, SigprocHeader, write_filterbank
+    from peasoup_tpu_torch.ops.resample import accel_factor
+    from peasoup_tpu_torch.plan.dm_plan import DMPlan
+
+    rng = np.random.default_rng(11)
+    plan = DMPlan.create(
+        ACC_SIZE + 64, ACC_NCHANS, ACC_TSAMP, ACC_FCH1, ACC_FOFF, 0.0, ACC_KW["dm_end"]
+    )
+    # 64 samples past the FFT size survive dedispersion, so the search
+    # and the folder both transform ACC_SIZE samples
+    nsamps = ACC_SIZE + 64 + plan.max_delay
+    af = float(accel_factor(np.array([ACC_INJ]), ACC_TSAMP)[0])
+    j = np.arange(nsamps, dtype=np.float64)
+    ginv = j - af * j * (j - ACC_SIZE)
+    pulse = (((ginv * ACC_TSAMP / P_INJ) % 1.0) < 0.08) * 12.0
+    delays = np.rint(
+        (np.float32(DM_INJ) * np.abs(plan.delays)).astype(np.float32)
+    ).astype(int)
+    data = rng.normal(100, 8, size=(nsamps, ACC_NCHANS))
+    for c in range(ACC_NCHANS):
+        src = np.clip(j - delays[c], 0, nsamps - 1).astype(int)
+        data[:, c] += pulse[src]
+    hdr = SigprocHeader(
+        source_name="acc_pulsar", data_type=1, nchans=ACC_NCHANS, nbits=8,
+        nifs=1, tsamp=ACC_TSAMP, tstart=50000.0, fch1=ACC_FCH1, foff=ACC_FOFF,
+    )
+    path = tmp_path_factory.mktemp("torch_acc") / "acc_pulsar.fil"
+    write_filterbank(
+        path, Filterbank(header=hdr, data=np.clip(data, 0, 255).astype(np.uint8))
+    )
+    return path
+
+
+@pytest.fixture(scope="module")
+def acc_results(acc_fil):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(peasoup_tpu.native, "_load", lambda: None)
+        want = JaxSearch(JaxConfig(**ACC_KW)).run(jax_read_filterbank(acc_fil))
+    got = PeasoupSearch(SearchConfig(**ACC_KW), device="cpu").run(read_filterbank(acc_fil))
+    return want, got
+
+
+def _assert_folded_recall(want, got):
+    """The recall standard, and the fold fields: the optimised period
+    equal (it moves in whole phase-bin shifts), the folded S/N within a
+    relative 1e-3 (the dereddening and optimiser FFTs round differently)
+    and the folds within 1e-3 of their peak."""
+    assert len(got.candidates) == len(want.candidates)
+    for rank, (a, b) in enumerate(zip(want.candidates, got.candidates)):
+        assert _identity(b) == _identity(a), f"rank {rank}: {b} vs {a}"
+        assert abs(b.snr - a.snr) <= 1e-3 * abs(a.snr), f"rank {rank}"
+        assert b.opt_period == a.opt_period, f"rank {rank}"
+        assert abs(b.folded_snr - a.folded_snr) <= 1e-3 * abs(a.folded_snr), f"rank {rank}"
+        assert (a.fold is None) == (b.fold is None), f"rank {rank}"
+        if a.fold is not None:
+            np.testing.assert_allclose(
+                b.fold, a.fold, rtol=0, atol=1e-3 * np.abs(a.fold).max()
+            )
+
+
+def test_folded_candidates_match_jax(acc_results):
+    want, got = acc_results
+    assert len(want.candidates) > 10
+    assert got.size == want.size == ACC_SIZE
+    _assert_folded_recall(want, got)
+    assert sum(c.fold is not None for c in got.candidates) == ACC_KW["npdmp"]
+    assert got.timers["folding"] > 0
+
+
+def test_recovers_the_injected_acceleration(acc_fil, acc_results):
+    from peasoup_tpu_torch.plan.accel_plan import AccelerationPlan
+
+    _, got = acc_results
+    best = max(got.candidates, key=lambda c: c.snr)
+    assert abs(1.0 / best.freq - P_INJ) / P_INJ < 1e-4
+    assert abs(best.dm - DM_INJ) < 5.0
+    step = AccelerationPlan(
+        acc_lo=ACC_KW["acc_start"], acc_hi=ACC_KW["acc_end"], tol=1.10,
+        pulse_width=ACC_KW["acc_pulse_width"], nsamps=ACC_SIZE, tsamp=ACC_TSAMP,
+        cfreq=ACC_FCH1 + (ACC_NCHANS / 2) * ACC_FOFF, bw=ACC_FOFF,
+    ).step(best.dm)
+    assert best.acc != 0.0  # a non-zero trial won
+    assert abs(best.acc - ACC_INJ) <= 1.5 * step, (best.acc, step)
+    assert best.folded_snr > 15.0
+    assert abs(best.opt_period - P_INJ) / P_INJ < 2e-3
+    # the acc = 0 trials see the pulse smeared
+    zero = [c for c in got.candidates if c.acc == 0.0]
+    assert all(c.snr < 0.8 * best.snr for c in zero)
+
+
+def _read_candidates_file(path):
+    """(fold or None, pods) per candidate of a candidates.peasoup file."""
+    from peasoup_tpu_torch.core.candidates import CANDIDATE_POD_DTYPE
+
+    buf, pos, out = path.read_bytes(), 0, []
+    while pos < len(buf):
+        fold = None
+        if buf[pos : pos + 4] == b"FOLD":
+            nbins, nints = np.frombuffer(buf, "<i4", 2, pos + 4)
+            pos += 12
+            fold = np.frombuffer(buf, "<f4", nbins * nints, pos).reshape(nints, nbins)
+            pos += 4 * nbins * nints
+        (ndets,) = np.frombuffer(buf, "<i4", 1, pos)
+        pos += 4
+        pods = np.frombuffer(buf, CANDIDATE_POD_DTYPE, ndets, pos)
+        pos += pods.nbytes
+        out.append((fold, pods))
+    return out
+
+
+def test_cli_writes_folds_like_jax(acc_fil, acc_results, tmp_path):
+    from peasoup_tpu.io.output import CandidateFileWriter as JaxWriter
+
+    want, _ = acc_results
+    out = tmp_path / "out"
+    flags = [f"--{k}={v}" for k, v in ACC_KW.items()]
+    assert cli_main(["-i", str(acc_fil), "-o", str(out), "--device", "cpu", *flags]) == 0
+    JaxWriter(str(tmp_path)).write_binary(want.candidates, "jax.peasoup")
+    got = _read_candidates_file(out / "candidates.peasoup")
+    ref = _read_candidates_file(tmp_path / "jax.peasoup")
+    assert len(got) == len(ref) == len(want.candidates)
+    assert sum(f is not None for f, _ in got) == ACC_KW["npdmp"]
+    for (gf, gp), (rf, rp) in zip(got, ref):
+        assert (gf is None) == (rf is None)
+        if rf is not None:
+            assert gf.shape == rf.shape == (16, 64)
+            np.testing.assert_allclose(gf, rf, rtol=0, atol=1e-3 * np.abs(rf).max())
+        for key in ("dm", "dm_idx", "acc", "nh", "freq"):
+            np.testing.assert_array_equal(gp[key], rp[key])
+        np.testing.assert_allclose(gp["snr"], rp["snr"], rtol=1e-3)
+    root = ET.parse(out / "overview.xml").getroot()
+    top = root.find("candidates/candidate")
+    # the XML carries 16 significant digits
+    assert float(top.find("opt_period").text) == pytest.approx(
+        want.candidates[0].opt_period, rel=1e-15
+    )
+    assert float(top.find("folded_snr").text) == pytest.approx(
+        want.candidates[0].folded_snr, rel=1e-3
+    )
+    assert float(root.find("execution_times/folding").text) > 0
+
+
+# --- chip_smoke.py's binary grid at full length, at the pulsar's DM -------
+#
+# 2^21 + 8192 samples of 64 channels: about 5 GB and 45 s on the CPU for
+# both duties, hence the slow marker. Run it with
+#   JAX_PLATFORMS=cpu python -m pytest tests/test_torch_search.py -m slow -s
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("duty,folds_above_15", [(0.10, False), (0.03, True)])
+def test_binary_grid_pulse_duty(tmp_path, duty, folds_above_15):
+    """Both packages search the binary grid's filterbank at the pulsar's
+    DM over the grid's accel range and agree, folds included; the
+    pulsar's fundamental tops at a non-zero accel trial either way, but
+    folds above S/N 15 (the smoke test's bar) only for the narrow pulse."""
+    import chip_smoke
+
+    path = tmp_path / "binary.fil"
+    chip_smoke.binary_grid_fil(str(path), duty=duty)
+    kw = dict(dm_start=10.0, dm_end=10.0, acc_start=-150.0, acc_end=150.0, npdmp=3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(peasoup_tpu.native, "_load", lambda: None)
+        want = JaxSearch(JaxConfig(**kw)).run(jax_read_filterbank(path))
+    got = PeasoupSearch(SearchConfig(**kw), device="cpu").run(read_filterbank(path))
+    _assert_folded_recall(want, got)
+    for c in got.candidates[:3]:
+        print(f"duty {duty}: P {1.0 / c.freq!r} s, acc {c.acc!r}, nh {c.nh}, "
+              f"snr {c.snr!r}, folded_snr {c.folded_snr!r}, opt_period {c.opt_period!r}")
+    top = got.candidates[0]
+    assert abs(1.0 / top.freq - chip_smoke.BIN_PERIOD) / chip_smoke.BIN_PERIOD < 2e-3
+    assert top.acc != 0.0
+    assert (top.folded_snr > 15.0) == folds_above_15
 
 
 @pytest.mark.parametrize("nbits", [2, 8])
