@@ -10,8 +10,8 @@ Phases, each fatal on failure:
   3. The port's `peasoup` CLI on a synthesized big-grid filterbank
      (64 channels x 2^21+8192 2-bit samples, 64 us, P = 31.4 ms pulsar
      at DM 10; dm_end 20, acc +-0.5, every accel trial searched): the
-     top candidate must be the pulsar and every kernel must have run.
-     With --profile this run and the next are traced by torch.profiler,
+     top candidate must be the pulsar and each kernel of the path must
+     have run. With --profile every CLI run is traced by torch.profiler,
      which prints device time by kernel and the device's busy share (and
      slows the host, so the stage timers of a profiled run are not the
      search's).
@@ -20,14 +20,24 @@ Phases, each fatal on failure:
      +100 m/s^2 acceleration, searched with dm_end 20, acc -150..150
      (resample shifts of up to 17.6 samples) and --npdmp 10: the top
      candidate must be the pulsar at a non-zero accel trial near
-     +100 m/s^2, folded, and every kernel must have run.
-  5. Hold each kernel against its plain torch version on the card at the
-     launch shape a CLI run used most (resample: the binary grid's; the
+     +100 m/s^2, folded, and each kernel of the path must have run.
+  5. The port's `spsearch` CLI on the single-pulse grid: the big grid's
+     geometry and noise with three dispersed top-hat pulses (widths 16,
+     128 and 2 samples at DM trials near 30, 120 and 220), searched with
+     dm_end 250 and -m 7 (179 DM trials): the top three candidates must
+     be the three pulses at their DM trials, samples and widths, with
+     S/N within 15% of the matched filter, and dedisperse and spchain
+     must have run.
+  6. Hold each kernel against its plain torch version on the card at the
+     launch shape a CLI run used most (resample: the binary grid's;
+     spchain and boxcar: the single-pulse grid's spchain shape; the
      others: the big grid's), and time both (CUDA events, median of a
      few runs) beside the least time the card could take.
-  6. The card's search against the CPU search (plain versions) on a
+  7. The card's search against the CPU search (plain versions) on a
      small 8-bit filterbank, folding its top 5: the strong candidates
-     and the fold outcomes must agree.
+     and the fold outcomes must agree; and the card's single-pulse
+     search against the CPU's on a small 8-bit filterbank with a narrow
+     and a broad pulse.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -72,8 +82,16 @@ from peasoup_tpu_torch.ops.spectrum import (  # noqa: E402
 from peasoup_tpu_torch.pipeline.accel_search import (  # noqa: E402
     _pre_spectrum_parts, padded_bins, preprocess_block,
 )
+from peasoup_tpu_torch.ops.singlepulse import (  # noqa: E402
+    boxcar_best, boxcar_best_plain, boxcar_dec_best, boxcar_dec_best_plain,
+    dec_fold, matched_filter_snr, normalise_trials, plan_pad, prefix_sum_padded,
+    width_extent, width_scales,
+)
 from peasoup_tpu_torch.pipeline.search import (  # noqa: E402
     PeasoupSearch, SearchConfig,
+)
+from peasoup_tpu_torch.pipeline.single_pulse import (  # noqa: E402
+    SinglePulseConfig, SinglePulseSearch,
 )
 from peasoup_tpu_torch.plan.accel_plan import AccelerationPlan  # noqa: E402
 from peasoup_tpu_torch.plan.dm_plan import delay_table  # noqa: E402
@@ -109,12 +127,33 @@ BINARY_FLAGS = [
 ]
 BINARY_CONFIG = SearchConfig(dm_end=20.0, acc_start=-150.0, acc_end=150.0, npdmp=10)
 
+# the single-pulse grid: the big grid's geometry, noise and seed, with
+# three dispersed top-hat pulses (each +1 on the 2-bit samples of its
+# channels) at exact DM trials of the search's own delay table, searched
+# with the JAX CLI's usage example (cli/spsearch.py:8), every other flag
+# at its default
+SP_FLAGS = ["--dm_end", "250", "-m", "7"]
+SP_CONFIG = SinglePulseConfig(dm_end=250.0, min_snr=7.0)
+# (label, DM the trial is nearest, width, dedispersed start, channel stride)
+SP_PULSES = (
+    ("A", 30.0, 16, 400_000, 1),
+    ("B", 120.0, 128, 1_000_000, 4),
+    ("C", 220.0, 2, 1_600_000, 1),
+)
+SP_CHANNEL_SIGMA = float(np.sqrt(2.0 / 3.0))  # std of uniform {0, 1, 2}
+
+# the kernels each CLI path launches
+PEASOUP_KERNELS = ("dedisperse", "resample", "specchain", "interbin", "harmpeaks")
+SP_KERNELS = ("dedisperse", "spchain")
+
 SOURCES = {
     "dedisperse": "peasoup_tpu/ops/pallas/dedisperse.py:157",
     "resample": "peasoup_tpu/ops/pallas/resample.py:167",
     "specchain": "peasoup_tpu/ops/pallas/specchain.py:139",
     "interbin": "peasoup_tpu/ops/pallas/interbin.py:152",
     "harmpeaks": "peasoup_tpu/ops/pallas/harmpeaks.py:202",
+    "boxcar": "peasoup_tpu/ops/pallas/boxcar.py:120",
+    "spchain": "peasoup_tpu/ops/pallas/spchain.py:135",
 }
 
 
@@ -195,6 +234,38 @@ def binary_grid_fil(path: str, duty: float = BIN_DUTY) -> None:
         nifs=1, tsamp=TSAMP, tstart=51000.0, fch1=FCH1, foff=FOFF,
     )
     write_filterbank(path, Filterbank(header=hdr, data=data))
+
+
+def sp_grid_fil(path: str) -> list[dict]:
+    """Synthesize the single-pulse grid's filterbank: the big grid's
+    geometry and noise (seed 7) with SP_PULSES injected through the
+    search's own delay table, so each pulse is an exact top-hat at its DM
+    trial. Returns each pulse with its DM trial and the matched-filter S/N
+    it should reach there (channel noise std sqrt(2/3))."""
+    nchans, nsamps = NCHANS, NSAMPS
+    rng = np.random.default_rng(7)
+    data = rng.integers(0, 3, size=(nsamps, nchans), dtype=np.uint8)
+    hdr = SigprocHeader(
+        source_name="sp_grid_synth", data_type=1, nchans=nchans, nbits=2,
+        nifs=1, tsamp=TSAMP, tstart=51000.0, fch1=FCH1, foff=FOFF,
+    )
+    fil = Filterbank(header=hdr, data=data)
+    plan = SinglePulseSearch(SP_CONFIG, device="cpu").build_dm_plan(fil)
+    delays = plan.delay_samples()
+    pulses = []
+    for label, dm, width, start, stride in SP_PULSES:
+        idx = int(np.argmin(np.abs(plan.dm_list - dm)))
+        chans = range(0, nchans, stride)
+        for c in chans:
+            lo = start + int(delays[idx, c])
+            data[lo : lo + width, c] += 1
+        pulses.append(dict(
+            label=label, dm_idx=idx, dm=float(plan.dm_list[idx]), width=width,
+            start=start, snr=matched_filter_snr(
+                len(chans), width, SP_CHANNEL_SIGMA * np.sqrt(nchans)),
+        ))
+    write_filterbank(path, fil)
+    return pulses
 
 
 def small_fil(path: str) -> None:
@@ -424,15 +495,12 @@ def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dic
     return out
 
 
-def cli_phase(path: str, outdir: str, flags: list, period: float,
+def cli_phase(main, argv: list, outdir: str, outputs: tuple, path_kernels: tuple,
               profile: bool = False) -> dict:
-    """The port's CLI on one grid; checks that it wrote its files, that
-    the top candidate has the pulsar's period (within 2e-3) and that
-    every kernel ran, and returns the launches, launch shapes, timers and
-    the top candidate of the run."""
-    from peasoup_tpu_torch.cli.peasoup import main
-
-    argv = ["-i", path, "-o", outdir, *flags]
+    """One CLI run of the port (``main(argv)``): checks its exit code, that
+    it wrote ``outputs`` into ``outdir`` and that every kernel of
+    ``path_kernels`` ran, and returns the launches, launch shapes, timers,
+    wall time and parsed overview.xml of the run."""
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as tracer
@@ -449,10 +517,27 @@ def cli_phase(path: str, outdir: str, flags: list, period: float,
     if profile:
         prof.stop()
         print_profile(prof, wall)
-    require(rc == 0, "peasoup CLI exit code 0")
-    for name in ("candidates.peasoup", "overview.xml"):
+    require(rc == 0, "CLI exit code 0")
+    for name in outputs:
         require(os.path.exists(os.path.join(outdir, name)), f"{name} written")
+    for name in path_kernels:
+        require(launches[name] > 0, f"kernel {name} launched on the main path")
     root = ET.parse(os.path.join(outdir, "overview.xml")).getroot()
+    timers = {e.tag: float(e.text) for e in root.find("execution_times")}
+    return dict(launches=launches, shapes=shapes, timers=timers, wall=wall, root=root)
+
+
+def periodicity_phase(path: str, outdir: str, flags: list, period: float,
+                      profile: bool = False) -> dict:
+    """The port's `peasoup` CLI on one grid; checks that it wrote its
+    files, that its kernels ran and that the top candidate has the
+    pulsar's period (within 2e-3). Returns cli_phase's record and the top
+    candidate."""
+    from peasoup_tpu_torch.cli.peasoup import main
+
+    run = cli_phase(main, ["-i", path, "-o", outdir, *flags], outdir,
+                    ("candidates.peasoup", "overview.xml"), PEASOUP_KERNELS, profile)
+    root = run["root"]
     top = root.find("candidates/candidate")
     require(top is not None, "at least one candidate")
     for e in root.findall("candidates/candidate")[:5]:
@@ -466,11 +551,7 @@ def cli_phase(path: str, outdir: str, flags: list, period: float,
         f"snr {top.find('snr').text}")
     require(abs(top_period - period) / period < 2e-3,
             f"top candidate period {top_period} within 2e-3 of {period}")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} launched on the main path")
-    timers = {e.tag: float(e.text) for e in root.find("execution_times")}
-    return dict(launches=launches, shapes=shapes, timers=timers, wall=wall,
-                top=top)
+    return dict(run, top=top)
 
 
 def binary_checks(run: dict, plan, tsamp: float, outdir: str) -> None:
@@ -541,6 +622,162 @@ def agreement_phase(tmp: str) -> tuple[int, int]:
     return len(strong), len(folded)
 
 
+def sp_grid_phase(path: str, outdir: str, profile: bool = False) -> dict:
+    """The port's `spsearch` CLI on the single-pulse grid: checks that it
+    wrote its files and ran its kernels, and that its top three candidates
+    are the three injected pulses, each at its DM trial, within 2 + w/8
+    samples of its start, within one width step of its width and with S/N
+    within 15% of the matched-filter expectation."""
+    from peasoup_tpu_torch.cli.spsearch import main
+
+    pulses = sp_grid_fil(path)
+    run = cli_phase(main, ["-i", path, "-o", outdir, *SP_FLAGS], outdir,
+                    ("candidates.singlepulse", "overview.xml"), SP_KERNELS, profile)
+    cands = run["root"].findall("single_pulse_search/candidates/candidate")
+    require(len(cands) >= 3, "at least three single-pulse candidates")
+    fields = ("dm", "dm_idx", "snr", "sample", "width", "width_idx", "members")
+    top = [{k: float(e.find(k).text) for k in fields} for e in cands[:3]]
+    for c in top:
+        say("  sp candidate " + ", ".join(f"{k} {c[k]:g}" for k in fields))
+    unmatched = list(pulses)
+    for c in top:
+        near = [p for p in unmatched if abs(c["sample"] - p["start"]) <= 2 + p["width"] / 8]
+        require(len(near) == 1, f"top candidate at sample {c['sample']:g} is an injected pulse")
+        p = near[0]
+        unmatched.remove(p)
+        say(f"pulse {p['label']}: DM trial {p['dm_idx']} (DM {p['dm']:.3f}), width "
+            f"{p['width']}, start {p['start']}: found at trial {c['dm_idx']:g}, "
+            f"sample {c['sample']:g}, width {c['width']:g}, S/N {c['snr']:g} "
+            f"(matched filter {p['snr']:.3f}, ratio {c['snr'] / p['snr']:.4f})")
+        require(c["dm_idx"] == p["dm_idx"], f"pulse {p['label']} at its DM trial")
+        require(abs(c["width_idx"] - np.log2(p["width"])) <= 1,
+                f"pulse {p['label']} width within one step")
+        require(abs(c["snr"] / p["snr"] - 1.0) <= 0.15,
+                f"pulse {p['label']} S/N within 15% of the matched filter")
+    return dict(run, pulses=pulses)
+
+
+def max_abs_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |got - ref|, with equal entries (-inf among them) at 0."""
+    diff = torch.where(got == ref, 0.0, (got.double() - ref.double()).abs())
+    return float(diff.max())
+
+
+def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
+    """spchain and boxcar against their plain versions at the single-pulse
+    grid's modal spchain launch shape: the prefix sums of the first block
+    of DM trials, built as the search builds them. Also checks that the
+    plain dec-fold of boxcar's output is spchain's, bit for bit."""
+    search = SinglePulseSearch(SP_CONFIG, device=dev)
+    plan = search.build_dm_plan(fil)
+    widths = search.widths_for(plan.out_nsamps)
+    n = plan.out_nsamps
+    d, tpad, wext, nw, dec = main_shape(shapes, "spchain")
+    require((tpad, wext, nw, dec) == (plan_pad(n)[0], width_extent(widths),
+                                      len(widths), SP_CONFIG.decimate),
+            "spchain ran at the plan's geometry")
+    trials = dedisperse(
+        fil_to_device(fil, dev), torch.from_numpy(plan.delay_samples()[:d]).to(dev),
+        torch.from_numpy(plan.killmask).to(dev), n,
+        scale=output_scale(fil.nbits, int(plan.killmask.sum())),
+    )
+    csum = prefix_sum_padded(normalise_trials(trials), tpad, wext)
+    del trials
+    scales = width_scales(widths)
+    args = (csum, widths, scales, n, tpad)
+    out = {}
+
+    got = boxcar_dec_best(*args, dec)
+    ref = boxcar_dec_best_plain(*args, dec)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, ref, ("bmax", "barg", "bwidx")):
+        require(torch.equal(a, b), f"spchain {name} bitwise equal to its plain version")
+    ops = 5.0 * d * tpad * nw
+    out["spchain"] = dict(
+        max_abs_err=max_abs_err(got[0], ref[0]),
+        ms=time_ms(lambda: boxcar_dec_best(*args, dec)),
+        plain_ms=time_ms(lambda: boxcar_dec_best_plain(*args, dec), reps=3),
+        # the prefix sums read once, the three planes written once
+        bound=bound(d * (tpad + wext) * 4 + 3 * d * (tpad // dec) * 4, ops),
+        shape=f"({d}, {tpad + wext}) f32, {nw} widths, dec {dec} -> "
+              f"3 x ({d}, {tpad // dec})",
+    )
+    del ref
+
+    before = kernels.launches["boxcar"]
+    best, bw = boxcar_best(*args)
+    ref = boxcar_best_plain(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(best, ref[0]) and torch.equal(bw, ref[1]),
+            "boxcar bitwise equal to its plain version")
+    err = max_abs_err(best, ref[0])
+    del ref
+    folded = dec_fold(best, bw, dec)
+    require(all(torch.equal(a, b) for a, b in zip(folded, got)),
+            "the dec-fold of boxcar's output is spchain's")
+    del best, bw, folded, got
+    out["boxcar"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: boxcar_best(*args)),
+        plain_ms=time_ms(lambda: boxcar_best_plain(*args), reps=3),
+        bound=bound(d * (tpad + wext) * 4 + d * tpad * 8, ops),
+        shape=f"({d}, {tpad + wext}) f32, {nw} widths -> 2 x ({d}, {tpad})",
+    )
+    # boxcar is not on the search's path: its entry counts this phase's
+    # launches (the check, the warm-up and the timed runs)
+    out["boxcar"]["launches"] = kernels.launches["boxcar"] - before
+    return out
+
+
+def sp_small_fil(path: str) -> tuple[int, list]:
+    """8-bit 16-channel filterbank with one narrow (8 samples) and one
+    broad (64 samples) dispersed top-hat pulse at the middle DM trial of
+    a dm_end 60 plan (tests/test_singlepulse.py:make_sp_fil's recipe)."""
+    nsamps, nchans, tsamp, fch1, foff = 1 << 15, 16, 0.000256, 1400.0, -8.0
+    hdr = SigprocHeader(
+        source_name="SPFAKE", tsamp=tsamp, tstart=55000.0, fch1=fch1, foff=foff,
+        nchans=nchans, nbits=8, nifs=1, data_type=1,
+    )
+    rng = np.random.default_rng(3)
+    data = rng.normal(32.0, 4.0, size=(nsamps, nchans))
+    fil = Filterbank(header=hdr, data=np.zeros((nsamps, nchans), np.uint8))
+    plan = SinglePulseSearch(SinglePulseConfig(dm_end=60.0), device="cpu").build_dm_plan(fil)
+    idx = plan.ndm // 2
+    delays = plan.delay_samples()[idx]
+    for start, width, amp in ((9000, 8, 9.0), (20000, 64, 4.0)):
+        for c in range(nchans):
+            data[start + delays[c] : start + delays[c] + width, c] += amp
+    fil.data[:] = np.clip(np.rint(data), 0, 255).astype(np.uint8)
+    write_filterbank(path, fil)
+    return idx, [9000, 20000]
+
+
+def sp_agreement_phase(tmp: str) -> int:
+    """SinglePulseSearch on the card against the CPU on a small input: the
+    same candidates clear of the threshold, (dm_idx, sample, width_idx)
+    exactly and S/N within 1e-4 relative (the two sum in other orders)."""
+    path = os.path.join(tmp, "sp_small.fil")
+    idx, starts = sp_small_fil(path)
+    fil = read_filterbank(path)
+    cfg = SinglePulseConfig(dm_end=60.0, min_snr=7.0, n_widths=8)
+    gpu = SinglePulseSearch(cfg, device="cuda").run(fil).candidates
+    cpu = SinglePulseSearch(cfg, device="cpu").run(fil).candidates
+    strong = [c for c in cpu if c.snr >= 1.1 * cfg.min_snr]
+    got = [c for c in gpu if c.snr >= 1.1 * cfg.min_snr]
+    require(len(strong) >= 2, "small input yields both pulses")
+    require(len(got) == len(strong), "same number of strong single-pulse candidates")
+    for a, b in zip(strong, got):
+        require(
+            (a.dm_idx, a.sample, a.width_idx) == (b.dm_idx, b.sample, b.width_idx)
+            and abs(a.snr - b.snr) <= 1e-4 * a.snr,
+            f"single-pulse candidate agrees: cpu {a} vs cuda {b}",
+        )
+    for s in starts:
+        require(any(c.dm_idx == idx and abs(c.sample - s) <= 2 for c in strong),
+                f"the pulse at sample {s} is found at DM trial {idx}")
+    return len(strong)
+
+
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
     busy share of the run's wall time."""
@@ -599,7 +836,7 @@ def main() -> int:
                 float(np.abs(accel_factor(a, fil.tsamp)).max()) for a in plan.accel_lists
             ) * (plan.size / 2.0) ** 2
             outdir = os.path.join(tmp, label.replace(" ", "_"))
-            run = cli_phase(path, outdir, flags, period, profile=args.profile)
+            run = periodicity_phase(path, outdir, flags, period, profile=args.profile)
             runs[label] = run
             say(f"{label}: {plan.ndm} DM trials, {ntrials} DM x accel trials, "
                 f"largest resample shift {max_shift:.2f} samples, "
@@ -623,6 +860,33 @@ def main() -> int:
             del fil
             os.remove(path)
             torch.cuda.empty_cache()
+
+        label = "single-pulse grid"
+        path = os.path.join(tmp, "grid.fil")
+        outdir = os.path.join(tmp, "single_pulse_grid")
+        t0 = time.perf_counter()
+        run = sp_grid_phase(path, outdir, profile=args.profile)
+        runs[label] = run
+        fil = read_filterbank(path)
+        search = SinglePulseSearch(SP_CONFIG, device=dev)
+        plan = search.build_dm_plan(fil)
+        widths = search.widths_for(plan.out_nsamps)
+        say(f"{label}: {plan.ndm} DM trials of {plan.out_nsamps} samples, "
+            f"tpad {plan_pad(plan.out_nsamps)[0]}, wext {width_extent(widths)}, "
+            f"{len(widths)} widths {widths[0]}..{widths[-1]}, dec {SP_CONFIG.decimate}; "
+            f"{run['wall']:.3f} s CLI wall ({time.perf_counter() - t0:.1f} s with "
+            "the synthesis)")
+        say(f"{label} stage timers (s): " + json.dumps(run["timers"], sort_keys=True))
+        say(f"{label} kernel launches: " + json.dumps(run["launches"]))
+        say(f"{label} launch shapes: " + json.dumps(
+            {k: {str(s): n for s, n in v.items()} for k, v in run["shapes"].items()}
+        ))
+        for name, c in sp_kernel_phase(dev, fil, run["shapes"]).items():
+            checks[name] = dict(c, path=label)
+        del fil
+        os.remove(path)
+        torch.cuda.empty_cache()
+
         for name in SOURCES:
             c = checks[name]
             say(f"{name} ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
@@ -632,16 +896,19 @@ def main() -> int:
         n, nfold = agreement_phase(tmp)
         say(f"small input: {n} strong candidates and {nfold} fold outcomes "
             "agree between cuda and cpu")
+        n = sp_agreement_phase(tmp)
+        say(f"small single-pulse input: {n} strong candidates agree between "
+            "cuda and cpu")
 
     # each kernel with the launches of the run whose launch shape it was
-    # checked and timed at
+    # checked and timed at (boxcar, off the search's path, with its own)
     entries = [
         {
             "name": name,
             "route": "cuda",
             "source": f"peasoup_tpu_torch/csrc/{name}.cu",
             "replaces": SOURCES[name],
-            "launches": runs[c["path"]]["launches"][name],
+            "launches": c.get("launches", runs[c["path"]]["launches"][name]),
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],

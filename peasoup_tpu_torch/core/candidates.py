@@ -67,6 +67,33 @@ class Candidate:
         return np.array(pods, dtype=CANDIDATE_POD_DTYPE)
 
 
+@dataclass
+class SinglePulseCandidate:
+    """One clustered single-pulse detection in the DM-time plane: the
+    peak detection (dm, time, width, snr) plus the cluster's extent in
+    every search dimension, so one broad pulse detected at many (DM
+    trial, width, sample) cells reports as one candidate with its
+    footprint. The reference searches periodicity only; the row follows
+    GPU single-pulse pipelines (Heimdall/GSP), as the JAX package's
+    does."""
+
+    dm: float = 0.0
+    dm_idx: int = 0
+    snr: float = 0.0
+    time_s: float = 0.0  # peak boxcar START time (sample * tsamp)
+    sample: int = 0  # peak boxcar start sample in the dedispersed series
+    width: int = 1  # matched boxcar width (samples) at the peak
+    width_idx: int = 0  # index into the run's width list
+    members: int = 1  # events merged into this cluster
+    # cluster extent (inclusive) over the friends-of-friends members
+    dm_idx_lo: int = 0
+    dm_idx_hi: int = 0
+    sample_lo: int = 0
+    sample_hi: int = 0
+    width_lo: int = 1  # narrowest member width (samples)
+    width_hi: int = 1  # widest member width (samples)
+
+
 class CandidateCollection:
     def __init__(self, cands: Optional[List[Candidate]] = None):
         self.cands: List[Candidate] = list(cands) if cands else []
@@ -85,3 +112,8 @@ class CandidateCollection:
 
     def __getitem__(self, i):
         return self.cands[i]
+
+
+class SinglePulseCandidateCollection(CandidateCollection):
+    """List container for SinglePulseCandidate (the base collection is
+    type-agnostic; the subclass names the intent in signatures)."""

@@ -8,6 +8,11 @@ with a byte-offset map recorded for the XML. The XML mirrors the
 reference's section set: misc_info, header_parameters,
 search_parameters, dedispersion_trials, acceleration_trials, device
 info, candidates, execution_times.
+
+The single-pulse search (no reference equivalent) writes the JAX
+package's ``.singlepulse`` text table (PRESTO's first five columns, then
+the cluster footprint) and a ``<single_pulse_search>`` overview.xml
+section; the JAX package's tools.parsers read both.
 """
 
 from __future__ import annotations
@@ -53,6 +58,31 @@ class CandidateFileWriter:
         fo.write(struct.pack("<i", len(pods)))
         fo.write(pods.tobytes())
 
+
+
+# .singlepulse column order: PRESTO's five, then the cluster footprint
+SINGLEPULSE_COLUMNS = (
+    "dm", "snr", "time_s", "sample", "width",
+    "width_idx", "dm_idx", "members",
+    "sample_lo", "sample_hi", "dm_idx_lo", "dm_idx_hi",
+    "width_lo", "width_hi",
+)
+
+
+def write_singlepulse(path: str, candidates: Sequence) -> str:
+    """Write SinglePulseCandidates as a whitespace-delimited text table
+    (one row per cluster, in the order given) under a '#' header that
+    names every column, the JAX package's ``.singlepulse`` format."""
+    with open(path, "w", encoding="ascii") as f:
+        f.write("# " + " ".join(SINGLEPULSE_COLUMNS) + "\n")
+        for c in candidates:
+            f.write(
+                f"{c.dm:.6f} {c.snr:.4f} {c.time_s:.9f} {c.sample:d} "
+                f"{c.width:d} {c.width_idx:d} {c.dm_idx:d} {c.members:d} "
+                f"{c.sample_lo:d} {c.sample_hi:d} {c.dm_idx_lo:d} "
+                f"{c.dm_idx_hi:d} {c.width_lo:d} {c.width_hi:d}\n"
+            )
+    return path
 
 
 class OutputFileWriter:
@@ -193,6 +223,59 @@ class OutputFileWriter:
             e.append(Element("ddm_snr_ratio", float(np.float32(c.ddm_snr_ratio))))
             e.append(Element("nassoc", c.count_assoc()))
             e.append(Element("byte_offset", byte_map.get(ii, 0)))
+            cands.append(e)
+
+    def add_single_pulse_section(
+        self,
+        cfg,
+        infilename: str,
+        widths: Iterable[int],
+        candidates: Sequence,
+    ) -> None:
+        """The single-pulse search parameters, width trials and
+        candidates, nested under one <single_pulse_search> element (the
+        JAX package's layout)."""
+        sp = self.root.append(Element("single_pulse_search"))
+        params = sp.append(Element("search_parameters"))
+        params.append(Element("infilename", infilename))
+        params.append(Element("outdir", cfg.outdir))
+        params.append(Element("killfilename", cfg.killfilename))
+        params.append(Element("dm_start", float(np.float32(cfg.dm_start))))
+        params.append(Element("dm_end", float(np.float32(cfg.dm_end))))
+        params.append(Element("dm_tol", float(np.float32(cfg.dm_tol))))
+        params.append(Element("dm_pulse_width", float(np.float32(cfg.dm_pulse_width))))
+        params.append(Element("min_snr", float(np.float32(cfg.min_snr))))
+        params.append(Element("n_widths", cfg.n_widths))
+        params.append(Element("max_events", cfg.max_events))
+        params.append(Element("decimate", cfg.decimate))
+        params.append(Element("time_link", float(np.float32(cfg.time_link))))
+        params.append(Element("dm_link", cfg.dm_link))
+        widths = [int(w) for w in widths]
+        trials = sp.append(Element("width_trials"))
+        trials.add_attribute("count", len(widths))
+        for ii, w in enumerate(widths):
+            t = Element("trial", w)
+            t.add_attribute("id", ii)
+            trials.append(t)
+        cands = sp.append(Element("candidates"))
+        cands.add_attribute("count", len(candidates))
+        for ii, c in enumerate(candidates):
+            e = Element("candidate")
+            e.add_attribute("id", ii)
+            e.append(Element("dm", float(np.float32(c.dm))))
+            e.append(Element("dm_idx", c.dm_idx))
+            e.append(Element("snr", float(np.float32(c.snr))))
+            e.append(Element("time_s", float(c.time_s)))
+            e.append(Element("sample", c.sample))
+            e.append(Element("width", c.width))
+            e.append(Element("width_idx", c.width_idx))
+            e.append(Element("members", c.members))
+            e.append(Element("sample_lo", c.sample_lo))
+            e.append(Element("sample_hi", c.sample_hi))
+            e.append(Element("dm_idx_lo", c.dm_idx_lo))
+            e.append(Element("dm_idx_hi", c.dm_idx_hi))
+            e.append(Element("width_lo", c.width_lo))
+            e.append(Element("width_hi", c.width_hi))
             cands.append(e)
 
     def add_timing_info(self, timers: dict[str, float]) -> None:

@@ -49,6 +49,10 @@ _ENTRIES = {
         "harmpeaks",
         [_P, _L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
     ),
+    "boxcar": ("boxcar_best", [_P, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P]),
+    "spchain": (
+        "boxcar_dec_best", [_P, _P, _P, _I, _L, _L, _L, _L, _I, _P, _P, _P, _P],
+    ),
 }
 KERNELS = tuple(_ENTRIES)
 

@@ -1,0 +1,358 @@
+"""The host side of the single-pulse search on one CUDA device: the JAX
+package's transient search (peasoup_tpu/pipeline/single_pulse.py) over
+the dedispersed DM-time plane.
+
+The DM trials are dedispersed in one kernel launch (csrc/dedisperse.cu)
+and stay on the device. Blocks of them, sized from the device's free
+memory, are normalised, swept by the boxcar bank with its dec-fold
+(csrc/spchain.cu) and compacted to per-trial events
+(ops/singlepulse.single_pulse_search_block). The events come back to the
+host, where a friends-of-friends pass in (time, DM, width) merges the
+detections of one pulse at many DM trials, widths and samples into one
+candidate with its footprint (the clustering stage of Heimdall and GSP,
+arXiv:2110.12749).
+
+Not ported yet, and refused with NotImplementedError: checkpoints, the
+tuning cache, and more than one device or host. An out-of-memory error
+on the card raises: the JAX package's memory ladder, which ends on the
+CPU backend, has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.candidates import SinglePulseCandidate, SinglePulseCandidateCollection
+from ..device import resolve_device
+from ..io.masks import read_killfile
+from ..io.sigproc import Filterbank
+from ..ops.dedisperse import dedisperse, fil_to_device, output_scale
+from ..ops.singlepulse import default_widths, plan_pad, single_pulse_search_block
+from ..plan.dm_plan import DMPlan
+
+log = logging.getLogger("peasoup_tpu_torch.single_pulse")
+
+
+@dataclass
+class SinglePulseConfig:
+    """The JAX package's SinglePulseConfig with its defaults
+    (Heimdall/GSP practice; the reference has no single-pulse search),
+    less its TPU knobs dedisp_block and use_pallas. Fields of features
+    the port does not have yet must keep their defaults
+    (SinglePulseSearch refuses others); max_num_threads and
+    tuning_cache, which the CLI takes for the JAX CLI's flags, have no
+    effect here."""
+
+    outdir: str = "."
+    killfilename: str = ""
+    limit: int = 1000
+    dm_start: float = 0.0
+    dm_end: float = 100.0
+    dm_tol: float = 1.10
+    dm_pulse_width: float = 64.0
+    min_snr: float = 6.0
+    n_widths: int = 12  # octave-spaced boxcar widths 1..2^(n-1) samples
+    max_width: int = 0  # cap on the widest boxcar (samples); 0 = none
+    max_events: int = 256  # events kept per DM trial
+    decimate: int = 32  # best-plane max-decimation before the compaction
+    time_link: float = 1.0  # friends-of-friends: events link when
+    # |dt| <= time_link * max(width_i, width_j) + decimate
+    dm_link: int = 2  # ... and |d dm_idx| <= dm_link
+    verbose: bool = False
+    progress_bar: bool = False
+    max_num_threads: int = 14
+    dm_block: int = 0  # DM trials per device block; 0 = auto from memory
+    hbm_bytes: int = 0  # device memory budget override; 0 = ask the device
+    checkpoint_file: str = ""
+    shard_devices: int = 0
+    tune: bool = False
+    tuning_cache: str = ""
+
+
+@dataclass
+class SinglePulseResult:
+    candidates: list
+    dm_list: np.ndarray
+    widths: tuple[int, ...]
+    timers: dict
+    nsamps: int
+    n_events: int = 0  # raw above-threshold events before clustering
+    n_overflowed: int = 0  # trials whose event count exceeded max_events
+
+
+@dataclass
+class PartialSinglePulseResult:
+    """A search stopped before clustering: what finalize needs."""
+
+    events: np.ndarray  # _EVENT_DTYPE records
+    dm_list: np.ndarray
+    widths: tuple[int, ...]
+    timers: dict
+    nsamps: int
+    n_overflowed: int
+    t_total_start: float
+
+
+_EVENT_DTYPE = np.dtype(
+    [
+        ("dm_idx", np.int64),
+        ("sample", np.int64),
+        ("width_idx", np.int64),
+        ("snr", np.float64),
+    ]
+)
+
+
+def cluster_events_fof(
+    events: np.ndarray,  # _EVENT_DTYPE records
+    widths: tuple[int, ...],
+    *,
+    time_link: float = 1.0,
+    dm_link: int = 2,
+    dec: int = 32,
+) -> list[np.ndarray]:
+    """Friends-of-friends in (time, DM, width): two events are friends
+    when their start samples lie within ``time_link * max(w_i, w_j) +
+    dec`` and their DM trials within ``dm_link``. Width enters through
+    the time tolerance, which links the width ladder a bright pulse
+    climbs. Returns index arrays, one per cluster.
+
+    The pair scan slides over time-sorted events (the time tolerance is
+    bounded by the widest filter), so cost is O(n * window)."""
+    n = len(events)
+    if n == 0:
+        return []
+    order = np.argsort(events["sample"], kind="stable")
+    ev = events[order]
+    wmax_link = time_link * float(max(widths)) + dec
+    parent = np.arange(n, dtype=np.int64)
+
+    def find(a: int) -> int:
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    w_of = np.asarray(widths, dtype=np.float64)[ev["width_idx"]]
+    lo = 0
+    for j in range(n):
+        while ev["sample"][j] - ev["sample"][lo] > wmax_link:
+            lo += 1
+        for i in range(lo, j):
+            dt = ev["sample"][j] - ev["sample"][i]
+            if dt > time_link * max(w_of[i], w_of[j]) + dec:
+                continue
+            if abs(ev["dm_idx"][j] - ev["dm_idx"][i]) > dm_link:
+                continue
+            ra, rb = find(i), find(j)
+            if ra != rb:
+                parent[rb] = ra
+    roots: dict[int, list[int]] = {}
+    for i in range(n):
+        roots.setdefault(find(i), []).append(i)
+    return [order[np.asarray(members)] for members in roots.values()]
+
+
+def candidates_from_clusters(
+    events: np.ndarray,  # _EVENT_DTYPE records
+    clusters: list[np.ndarray],  # index arrays from cluster_events_fof
+    widths: tuple[int, ...],
+    dm_list: np.ndarray,
+    tsamp: float,
+) -> list[SinglePulseCandidate]:
+    """Package friends-of-friends clusters as SinglePulseCandidates: the
+    peak member and the footprint's extents."""
+    w_arr = np.asarray(widths, dtype=np.int64)
+    out = []
+    for members in clusters:
+        ev = events[members]
+        peak = int(np.argmax(ev["snr"]))
+        widx = int(ev["width_idx"][peak])
+        out.append(
+            SinglePulseCandidate(
+                dm=float(dm_list[int(ev["dm_idx"][peak])]),
+                dm_idx=int(ev["dm_idx"][peak]),
+                snr=float(ev["snr"][peak]),
+                time_s=float(ev["sample"][peak]) * tsamp,
+                sample=int(ev["sample"][peak]),
+                width=int(w_arr[widx]),
+                width_idx=widx,
+                members=len(members),
+                dm_idx_lo=int(ev["dm_idx"].min()),
+                dm_idx_hi=int(ev["dm_idx"].max()),
+                sample_lo=int(ev["sample"].min()),
+                sample_hi=int(ev["sample"].max()),
+                width_lo=int(w_arr[ev["width_idx"]].min()),
+                width_hi=int(w_arr[ev["width_idx"]].max()),
+            )
+        )
+    return out
+
+
+def _unsupported(cfg: SinglePulseConfig) -> str | None:
+    if cfg.checkpoint_file:
+        return "checkpoints are ROADMAP item A.8"
+    if cfg.tune:
+        return "the tuning cache is ROADMAP item A.2/A.16"
+    if cfg.shard_devices > 1:
+        return "searching on more than one device is ROADMAP item A.15"
+    return None
+
+
+class SinglePulseSearch:
+    # bytes of device memory one DM trial of a block holds per padded
+    # sample: ~4 f32 planes (normalised series, prefix sums, and their
+    # temporaries); the auto block keeps 4x headroom and at most 256
+    # trials, as the JAX package sizes it
+    BYTES_PER_SAMPLE = 16
+    MAX_DM_BLOCK = 256
+    # the JAX package's budget where the device reports none (the CPU)
+    DEFAULT_MEMORY = 12_000_000_000
+
+    def __init__(self, config: SinglePulseConfig, device: str | torch.device = "cuda"):
+        why = _unsupported(config)
+        if why:
+            raise NotImplementedError(f"not ported yet: {why}")
+        self.config = config
+        self.device = resolve_device(device)
+
+    def build_dm_plan(self, fil: Filterbank) -> DMPlan:
+        """The dedispersion plan: the same construction as the
+        periodicity search's."""
+        cfg = self.config
+        killmask = None
+        if cfg.killfilename:
+            killmask = read_killfile(cfg.killfilename, fil.nchans)
+        return DMPlan.create(
+            nsamps=fil.nsamps, nchans=fil.nchans, tsamp=fil.tsamp,
+            fch1=fil.fch1, foff=fil.foff, dm_start=cfg.dm_start,
+            dm_end=cfg.dm_end, pulse_width=cfg.dm_pulse_width,
+            tol=cfg.dm_tol, killmask=killmask,
+        )
+
+    def widths_for(self, out_nsamps: int) -> tuple[int, ...]:
+        """The run's boxcar bank: octave-spaced, capped so the widest
+        filter is at most a quarter of the trial, and by cfg.max_width."""
+        cap = max(1, out_nsamps // 4)
+        if self.config.max_width:
+            cap = min(cap, self.config.max_width)
+        return default_widths(self.config.n_widths, max_width=cap)
+
+    def dm_block(self, tpad: int) -> int:
+        """DM trials per device block: cfg.dm_block, else a quarter of the
+        memory budget over BYTES_PER_SAMPLE * tpad, at most MAX_DM_BLOCK."""
+        cfg = self.config
+        if cfg.dm_block > 0:
+            return cfg.dm_block
+        if cfg.hbm_bytes:
+            total = cfg.hbm_bytes
+        elif self.device.type == "cuda":
+            total, _ = torch.cuda.mem_get_info(self.device)
+        else:
+            total = self.DEFAULT_MEMORY
+        per_trial = self.BYTES_PER_SAMPLE * tpad
+        return int(max(1, min(self.MAX_DM_BLOCK, (total // 4) // max(1, per_trial))))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, fil: Filterbank) -> SinglePulseResult:
+        """Full search of ``fil``: plan, dedisperse, search the DM trials
+        block by block, then cluster (:meth:`finalize`)."""
+        cfg = self.config
+        dev = self.device
+        timers: dict[str, float] = {}
+        t_total = time.perf_counter()
+
+        t0 = time.perf_counter()
+        plan = self.build_dm_plan(fil)
+        widths = self.widths_for(plan.out_nsamps)
+        timers["plan"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        trials = dedisperse(
+            fil_to_device(fil, dev),
+            torch.from_numpy(plan.delay_samples()).to(dev),
+            torch.from_numpy(plan.killmask).to(dev),
+            plan.out_nsamps,
+            scale=output_scale(fil.nbits, int(plan.killmask.sum())),
+        )
+        self._sync()
+        timers["dedispersion"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        tpad, _ = plan_pad(plan.out_nsamps)
+        blk = self.dm_block(tpad)
+        threshold = float(cfg.min_snr)
+        recs = []
+        n_overflowed = 0
+        for lo in range(0, plan.ndm, blk):
+            hi = min(lo + blk, plan.ndm)
+            samples, widx, snrs, counts = (
+                a.cpu().numpy()
+                for a in single_pulse_search_block(
+                    trials[lo:hi], widths, threshold, cfg.max_events, cfg.decimate
+                )
+            )
+            # the first max_events events of each trial, in ascending time
+            for j in range(hi - lo):
+                k = min(int(counts[j]), cfg.max_events)
+                n_overflowed += int(counts[j]) > cfg.max_events
+                recs.extend(
+                    (lo + j, int(samples[j, i]), int(widx[j, i]), float(snrs[j, i]))
+                    for i in range(k)
+                )
+            log.debug("DM trials %d..%d searched", lo, hi - 1)
+        del trials
+        self._sync()
+        timers["searching"] = time.perf_counter() - t0
+
+        events = np.asarray(recs, dtype=_EVENT_DTYPE)
+        if n_overflowed:
+            log.warning(
+                "%d DM trials overflowed the %d-event compaction; keeping the "
+                "first %d (ascending time) per trial",
+                n_overflowed, cfg.max_events, cfg.max_events,
+            )
+        part = PartialSinglePulseResult(
+            events=events, dm_list=plan.dm_list, widths=widths, timers=timers,
+            nsamps=fil.nsamps, n_overflowed=n_overflowed, t_total_start=t_total,
+        )
+        return self.finalize(fil, part)
+
+    def finalize(
+        self, fil: Filterbank, part: PartialSinglePulseResult
+    ) -> SinglePulseResult:
+        """Cluster the events and package the strongest ``cfg.limit``
+        candidates, highest S/N first."""
+        cfg = self.config
+        timers = part.timers
+        t0 = time.perf_counter()
+        clusters = cluster_events_fof(
+            part.events, part.widths, time_link=cfg.time_link,
+            dm_link=cfg.dm_link, dec=cfg.decimate,
+        )
+        cands = SinglePulseCandidateCollection()
+        cands.append(
+            candidates_from_clusters(
+                part.events, clusters, part.widths, part.dm_list, fil.tsamp
+            )
+        )
+        out = sorted(cands, key=lambda c: -c.snr)[: cfg.limit]
+        timers["clustering"] = time.perf_counter() - t0
+        timers["total"] = time.perf_counter() - part.t_total_start
+        log.info(
+            "single-pulse search: %d events -> %d clusters -> %d candidates",
+            len(part.events), len(clusters), len(out),
+        )
+        return SinglePulseResult(
+            candidates=out, dm_list=part.dm_list, widths=part.widths,
+            timers=timers, nsamps=part.nsamps, n_events=len(part.events),
+            n_overflowed=part.n_overflowed,
+        )

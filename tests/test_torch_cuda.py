@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small shapes with the edge cases (odd widths, birdies at block edges,
-garbage padding, cluster overflow, rows out of order, offsets past 2^31)
-that the main path's inputs may not hold. `chip_smoke.py` holds the kernels at the main path's shapes and
-the card's search against the CPU's. Every test here needs an NVIDIA
+garbage padding, cluster overflow, rows out of order, offsets past 2^31,
+boxcars past the trial's end, a tile shorter than the kernel's, -inf
+blocks, flat stretches) that the main path's inputs may not hold.
+`chip_smoke.py` holds the kernels at the main path's shapes and the
+card's search against the CPU's. Every test here needs an NVIDIA
 card and skips without one.
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -15,7 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from peasoup_tpu_torch.ops import dedisperse, fft, harmonics, peaks, resample, spectrum
+from peasoup_tpu_torch.ops import (
+    dedisperse, fft, harmonics, peaks, resample, singlepulse, spectrum,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +132,45 @@ def test_harmpeaks(dev, nharms, mx):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[3].max()) > 0
+
+
+def _boxcar_inputs(dev, nsamps, n_widths, seed):
+    """Prefix sums of normalised noise with a bright pulse, a flat stretch
+    (ties between widths and samples) and a tail short of tpad."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(5, nsamps)).astype(np.float32)
+    x[1, nsamps // 3 : nsamps // 3 + 40] += 8.0
+    x[2, 100:900] = 0.0
+    widths = singlepulse.default_widths(n_widths)
+    tpad, _ = singlepulse.plan_pad(nsamps)
+    norm = singlepulse.normalise_trials(torch.from_numpy(x).to(dev))
+    csum = singlepulse.prefix_sum_padded(norm, tpad, singlepulse.width_extent(widths))
+    return csum, widths, singlepulse.width_scales(widths), nsamps, tpad
+
+
+@pytest.mark.parametrize("nsamps,n_widths", [(20000, 12), (5000, 5), (70001, 14)])
+def test_boxcar(dev, nsamps, n_widths):
+    args = _boxcar_inputs(dev, nsamps, n_widths, 6)
+    got = singlepulse.boxcar_best(*args)
+    want = singlepulse.boxcar_best_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(torch.isneginf(got[0][:, nsamps:]).all())
+
+
+@pytest.mark.parametrize("dec", [1, 8, 32, 64, 1024])
+def test_spchain(dev, dec):
+    args = _boxcar_inputs(dev, 30000, 12, 7)
+    got = singlepulse.boxcar_dec_best(*args, dec)
+    want = singlepulse.boxcar_dec_best_plain(*args, dec)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the blocks past the trial's end are all -inf: max -inf, argmax 0,
+    # width 0; and the dec-fold of boxcar's output is spchain's
+    tail = args[3] // dec + 1
+    assert bool(torch.isneginf(got[0][:, tail:]).all())
+    assert not bool(got[1][:, tail:].any()) and not bool(got[2][:, tail:].any())
+    best, bw = singlepulse.boxcar_best(*args)
+    for f, g in zip(singlepulse.dec_fold(best, bw, dec), got):
+        assert torch.equal(f, g)

@@ -15,6 +15,7 @@ import torch
 import peasoup_tpu_torch
 from peasoup_tpu_torch.device import resolve_device
 from peasoup_tpu_torch.pipeline.search import PeasoupSearch, SearchConfig
+from peasoup_tpu_torch.pipeline.single_pulse import SinglePulseConfig, SinglePulseSearch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "peasoup_tpu_torch"
@@ -43,7 +44,8 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     assert len(mods) > 20
     for name in ("pipeline.search", "pipeline.folder", "ops.fold", "ops.fold_optimise",
-                 "ops.resample", "ops.rednoise"):
+                 "ops.resample", "ops.rednoise", "ops.singlepulse",
+                 "pipeline.single_pulse", "cli.spsearch"):
         assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -76,6 +78,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="is_available"):
         PeasoupSearch(SearchConfig())  # the default device is the card
+    with pytest.raises(RuntimeError, match="is_available"):
+        SinglePulseSearch(SinglePulseConfig())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
