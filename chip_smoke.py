@@ -21,19 +21,33 @@ Phases, each fatal on failure:
      (resample shifts of up to 17.6 samples) and --npdmp 10: the top
      candidate must be the pulsar at a non-zero accel trial near
      +100 m/s^2, folded, and each kernel of the path must have run.
-  5. The port's `spsearch` CLI on the single-pulse grid: the big grid's
+  5. The CLI three times on the tutorial grid (the JAX package's primary
+     configuration: tutorial.fil's geometry, 64 channels x 187,520 2-bit
+     samples at 320 us, a 2^17-point FFT, a P = 250 ms pulsar at DM 30;
+     bench.py's flags, 59 DM x 44 accel trials), one run per route: the
+     default (dftspec and harmpeaks launch, interbin does not),
+     PEASOUP_MEGA_HARM=0 (peaks in place of harmpeaks; the candidates are
+     the default run's, field for field) and PEASOUP_FUSED_DFT=0 (cuFFT +
+     interbin in place of dftspec; the candidates with S/N >= 12 agree on
+     DM, accel, nh and period, S/N within 1e-3). The top candidate of each
+     must be the pulsar.
+  6. The port's `spsearch` CLI on the single-pulse grid: the big grid's
      geometry and noise with three dispersed top-hat pulses (widths 16,
      128 and 2 samples at DM trials near 30, 120 and 220), searched with
      dm_end 250 and -m 7 (179 DM trials): the top three candidates must
      be the three pulses at their DM trials, samples and widths, with
      S/N within 15% of the matched filter, and dedisperse and spchain
      must have run.
-  6. Hold each kernel against its plain torch version on the card at the
+  7. Hold each kernel against its plain torch version on the card at the
      launch shape a CLI run used most (resample: the binary grid's;
-     spchain and boxcar: the single-pulse grid's spchain shape; the
-     others: the big grid's), and time both (CUDA events, median of a
-     few runs) beside the least time the card could take.
-  7. The card's search against the CPU search (plain versions) on a
+     dftspec and peaks: the tutorial grid's; spchain and boxcar: the
+     single-pulse grid's spchain shape; the others: the big grid's), and
+     time both (CUDA events, median of a few runs) beside the least time
+     the card could take; dftspec also beside torch.fft.fft + the
+     interbin kernel, and at m = 2^14, 2^15 and 2^17; resample and
+     harmpeaks also at the tutorial grid's shapes (``other_shapes`` in
+     the kernels line).
+  8. The card's search against the CPU search (plain versions) on a
      small 8-bit filterbank, folding its top 5: the strong candidates
      and the fold outcomes must agree; and the card's single-pulse
      search against the CPU's on a small 8-bit filterbank with a narrow
@@ -66,11 +80,16 @@ from peasoup_tpu_torch.io.sigproc import (  # noqa: E402
 from peasoup_tpu_torch.ops.dedisperse import (  # noqa: E402
     dedisperse, dedisperse_block, fil_to_device, output_scale,
 )
+from peasoup_tpu_torch.ops.dftspec import (  # noqa: E402
+    ACC_MAX_REL, ACC_Q999_REL, accuracy, dft_untwist_interbin,
+    dft_untwist_interbin_plain, oracle_data,
+)
 from peasoup_tpu_torch.ops.fft import (  # noqa: E402
     packed_dft_z, untwist_interbin_normalise, untwist_interbin_normalise_plain,
 )
-from peasoup_tpu_torch.ops.harmonics import level_scales  # noqa: E402
+from peasoup_tpu_torch.ops.harmonics import harmonic_sums, level_scales  # noqa: E402
 from peasoup_tpu_torch.ops.peaks import (  # noqa: E402
+    find_cluster_peaks_multi, find_cluster_peaks_multi_plain,
     find_harmonic_cluster_peaks, find_harmonic_cluster_peaks_plain,
 )
 from peasoup_tpu_torch.ops.resample import (  # noqa: E402
@@ -142,8 +161,27 @@ SP_PULSES = (
 )
 SP_CHANNEL_SIGMA = float(np.sqrt(2.0 / 3.0))  # std of uniform {0, 1, 2}
 
-# the kernels each CLI path launches
+# the tutorial grid: the JAX package's primary configuration, the
+# geometry of the reference's tutorial.fil (64 channels x 187,520 2-bit
+# samples at 320 us, a 2^17-point FFT) with a P = 250 ms pulsar at DM 30,
+# searched with bench.py's pinned flags (bench.py:505-526): 59 DM trials x
+# the dense +-5 m/s^2 accel list, every accel trial dispatched
+TUT_NCHANS, TUT_NSAMPS, TUT_TSAMP, TUT_FCH1, TUT_FOFF = 64, 187_520, 320e-6, 1510.0, -1.09375
+TUT_PERIOD, TUT_DM, TUT_DUTY = 0.25, 30.0, 0.05
+TUT_FLAGS = [
+    "--dm_end", "250", "--acc_start", "-5", "--acc_end", "5",
+    "--acc_pulse_width", "0.064", "--npdmp", "0", "--limit", "1000",
+    "--no_accel_dedupe",
+]
+TUT_CONFIG = SearchConfig(
+    dm_end=250.0, acc_start=-5.0, acc_end=5.0, acc_pulse_width=0.064, npdmp=0,
+    limit=1000, dedupe_accel=False,
+)
+
+# the kernels each CLI path launches: the survey-sized grids take cuFFT +
+# interbin (m = 2^20 is past the dftspec gate), the tutorial grid dftspec
 PEASOUP_KERNELS = ("dedisperse", "resample", "specchain", "interbin", "harmpeaks")
+TUT_KERNELS = ("dedisperse", "resample", "specchain", "dftspec", "harmpeaks")
 SP_KERNELS = ("dedisperse", "spchain")
 
 SOURCES = {
@@ -151,6 +189,8 @@ SOURCES = {
     "resample": "peasoup_tpu/ops/pallas/resample.py:167",
     "specchain": "peasoup_tpu/ops/pallas/specchain.py:139",
     "interbin": "peasoup_tpu/ops/pallas/interbin.py:152",
+    "dftspec": "peasoup_tpu/ops/pallas/dftspec.py:444",
+    "peaks": "peasoup_tpu/ops/pallas/peaks.py:535",
     "harmpeaks": "peasoup_tpu/ops/pallas/harmpeaks.py:202",
     "boxcar": "peasoup_tpu/ops/pallas/boxcar.py:120",
     "spchain": "peasoup_tpu/ops/pallas/spchain.py:135",
@@ -205,6 +245,29 @@ def big_grid_fil(path: str) -> None:
     hdr = SigprocHeader(
         source_name="big_grid_synth", data_type=1, nchans=nchans, nbits=2,
         nifs=1, tsamp=TSAMP, tstart=51000.0, fch1=FCH1, foff=FOFF,
+    )
+    write_filterbank(path, Filterbank(header=hdr, data=data))
+
+
+def tutorial_grid_fil(path: str, duty: float = TUT_DUTY) -> None:
+    """Synthesize the tutorial grid's filterbank: the tutorial.fil header
+    geometry, rng.integers(0, 3) noise from seed 7, and a P = 250 ms
+    top-hat pulse (on for a fraction ``duty`` of the period, +1 on every
+    channel) at DM 30 with whole-sample delays."""
+    nchans, nsamps = TUT_NCHANS, TUT_NSAMPS
+    rng = np.random.default_rng(7)
+    delays = np.rint(
+        np.float32(TUT_DM) * np.abs(delay_table(TUT_FCH1, TUT_FOFF, nchans, TUT_TSAMP))
+    ).astype(np.int64)
+    t = np.arange(nsamps, dtype=np.float64)
+    pulse = (((t * TUT_TSAMP / TUT_PERIOD) % 1.0) < duty).astype(np.uint8)
+    data = rng.integers(0, 3, size=(nsamps, nchans), dtype=np.uint8)
+    for c in range(nchans):
+        src = np.clip(t - delays[c], 0, nsamps - 1).astype(np.int64)
+        data[:, c] += pulse[src]
+    hdr = SigprocHeader(
+        source_name="tutorial_grid_synth", data_type=1, nchans=nchans, nbits=2,
+        nifs=1, tsamp=TUT_TSAMP, tstart=51000.0, fch1=TUT_FCH1, foff=TUT_FOFF,
     )
     write_filterbank(path, Filterbank(header=hdr, data=data))
 
@@ -297,12 +360,13 @@ def main_shape(shapes: dict, name: str) -> tuple:
     return max(shapes[name].items(), key=lambda kv: (kv[1], kv[0]))[0]
 
 
-def pulsar_rows(plan, dms, rows: int) -> list:
+def pulsar_rows(plan, dms, rows: int, dm: float = PULSAR_DM) -> list:
     """``rows`` consecutive (DM, accel) rows of the DM trials ``dms``,
-    centred on the pulsar's DM trial, in the search's row order."""
+    centred on the pulsar's DM trial (the one nearest ``dm``), in the
+    search's row order."""
     all_rows = [(d, a) for d in dms for a in range(len(plan.accel_lists[d]))]
     require(rows <= len(all_rows), "the row batch fits the grid")
-    dp = int(np.argmin(np.abs(plan.dm_list - PULSAR_DM)))
+    dp = int(np.argmin(np.abs(plan.dm_list - dm)))
     mid = all_rows.index((dp, 0)) + len(plan.accel_lists[dp]) // 2
     r0 = max(0, min(mid - rows // 2, len(all_rows) - rows))
     return all_rows[r0 : r0 + rows]
@@ -528,7 +592,8 @@ def cli_phase(main, argv: list, outdir: str, outputs: tuple, path_kernels: tuple
 
 
 def periodicity_phase(path: str, outdir: str, flags: list, period: float,
-                      profile: bool = False) -> dict:
+                      profile: bool = False,
+                      path_kernels: tuple = PEASOUP_KERNELS) -> dict:
     """The port's `peasoup` CLI on one grid; checks that it wrote its
     files, that its kernels ran and that the top candidate has the
     pulsar's period (within 2e-3). Returns cli_phase's record and the top
@@ -536,7 +601,7 @@ def periodicity_phase(path: str, outdir: str, flags: list, period: float,
     from peasoup_tpu_torch.cli.peasoup import main
 
     run = cli_phase(main, ["-i", path, "-o", outdir, *flags], outdir,
-                    ("candidates.peasoup", "overview.xml"), PEASOUP_KERNELS, profile)
+                    ("candidates.peasoup", "overview.xml"), path_kernels, profile)
     root = run["root"]
     top = root.find("candidates/candidate")
     require(top is not None, "at least one candidate")
@@ -580,6 +645,237 @@ def binary_checks(run: dict, plan, tsamp: float, outdir: str) -> None:
     require(nfolds > 0, "candidates.peasoup holds FOLD blocks")
 
 
+# the tutorial grid's three runs: (label, environment, kernels that must
+# launch, kernels that must not)
+TUT_RUNS = (
+    ("tutorial grid", {}, TUT_KERNELS, ("interbin", "peaks")),
+    ("tutorial grid, PEASOUP_MEGA_HARM=0", {"PEASOUP_MEGA_HARM": "0"},
+     ("dedisperse", "resample", "specchain", "dftspec", "peaks"),
+     ("interbin", "harmpeaks")),
+    ("tutorial grid, PEASOUP_FUSED_DFT=0", {"PEASOUP_FUSED_DFT": "0"},
+     PEASOUP_KERNELS, ("dftspec", "peaks")),
+)
+
+
+def xml_candidates(root) -> list[dict]:
+    """Every field of every candidate in an overview.xml, as text."""
+    return [{f.tag: f.text for f in e} for e in root.findall("candidates/candidate")]
+
+
+def tutorial_phase(path: str, tmp: str, profile: bool = False) -> dict:
+    """The port's `peasoup` CLI three times on the tutorial grid, in one
+    process, each route as the JAX package's switches select it: the
+    default (dftspec and harmpeaks), PEASOUP_MEGA_HARM=0 (dftspec, torch
+    harmonic sums and peaks) and PEASOUP_FUSED_DFT=0 (cuFFT + interbin,
+    harmpeaks). Each run's top candidate must be the pulsar and each must
+    launch its route's kernels and not the others'; the harmonic-sum route
+    must give the default run's candidates field for field, and the cuFFT
+    route those with S/N >= 12 on DM, accel, nh and period, S/N within
+    1e-3 relative. Returns each run by label."""
+    runs = {}
+    for label, env, must, must_not in TUT_RUNS:
+        outdir = os.path.join(tmp, label.split(", ")[-1].replace(" ", "_"))
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            run = periodicity_phase(path, outdir, TUT_FLAGS, TUT_PERIOD,
+                                    profile=profile, path_kernels=must)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        for name in must_not:
+            require(run["launches"][name] == 0, f"{label}: kernel {name} not launched")
+        with open(os.path.join(outdir, "candidates.peasoup"), "rb") as f:
+            run["cands_file"] = f.read()
+        run["cands"] = xml_candidates(run["root"])
+        runs[label] = run
+    base, split, cufft = (runs[label] for label, *_ in TUT_RUNS)
+    require(split["cands"] == base["cands"] and split["cands_file"] == base["cands_file"],
+            "PEASOUP_MEGA_HARM=0 gives the default run's candidates field for field")
+
+    def strong(cands):
+        return {(c["dm"], c["acc"], c["nh"], c["period"]): float(c["snr"])
+                for c in cands if float(c["snr"]) >= 12.0}
+
+    a, b = strong(base["cands"]), strong(cufft["cands"])
+    require(len(a) > 0, "the tutorial grid yields candidates with S/N >= 12")
+    for one, other in ((a, b), (b, a)):
+        for key, snr in one.items():
+            require(key in other and abs(other[key] - snr) <= 1e-3 * snr,
+                    f"PEASOUP_FUSED_DFT=0 agrees with the default run on {key}, {snr}")
+    say(f"tutorial grid: {len(base['cands'])} candidates, identical under "
+        f"PEASOUP_MEGA_HARM=0; {len(a)} with S/N >= 12 agree under PEASOUP_FUSED_DFT=0")
+    return runs
+
+
+def dftspec_check(x, mean, std, npad: int, label: str) -> dict:
+    """dftspec against its plain version within the accuracy gate (pad
+    bins exactly 0), timed beside the plain version and the port's other
+    route for the same function (torch.fft.fft + the interbin kernel)."""
+    rows, n = x.shape
+    m = n // 2
+    got = dft_untwist_interbin(x, mean, std, npad=npad)
+    ref = dft_untwist_interbin_plain(x, mean, std, npad=npad)
+    torch.cuda.synchronize()
+    require(not bool(got[:, m + 1 :].any()), f"dftspec pad bins exactly zero ({label})")
+    acc_max, q999 = accuracy(got, ref, mean, std, m)
+    err = float((got[:, : m + 1] - ref[:, : m + 1]).abs().max())
+    del got, ref
+    say(f"dftspec {label}: accuracy max {acc_max!r}, q99.9 {q999!r}, max |err| {err!r}")
+    require(acc_max <= ACC_MAX_REL and q999 <= ACC_Q999_REL,
+            f"dftspec within the accuracy gate ({label})")
+    nbins = m + 1
+    flops = rows * (5.0 * m * np.log2(m) + 30.0 * nbins)
+    return dict(
+        max_abs_err=err, accuracy_max=acc_max, accuracy_q999=q999,
+        ms=time_ms(lambda: dft_untwist_interbin(x, mean, std, npad=npad)),
+        plain_ms=time_ms(lambda: dft_untwist_interbin_plain(x, mean, std, npad=npad),
+                         reps=3),
+        library_ms=time_ms(
+            lambda: untwist_interbin_normalise(packed_dft_z(x), mean, std, npad=npad)
+        ),
+        # each series read once, each spectrum written once
+        bound=bound(rows * (n * 4 + npad * 4 + 8), flops),
+        shape=f"({rows}, {n}) f32 -> ({rows}, {npad}) f32, {label}",
+    )
+
+
+def other_shape(c: dict) -> dict:
+    """The record of a kernel checked at a launch shape besides its modal
+    one, as the kernels line lists it under ``other_shapes``."""
+    return {k: c[k] for k in ("path", "shape", "max_abs_err", "accuracy_max",
+                              "accuracy_q999", "ms", "plain_ms", "library_ms")
+            if k in c} | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
+
+
+def tutorial_kernel_phase(dev: torch.device, fil, runs: dict) -> tuple[dict, dict]:
+    """dftspec and peaks against their plain versions at the tutorial
+    grid's modal launch shapes (dftspec: the default run's; peaks: the
+    PEASOUP_MEGA_HARM=0 run's), on the (DM, accel) rows around the
+    pulsar's DM trial built as the search builds them; then dftspec at the
+    other factorisations (m = 2^14, 2^15, 2^17) on the accuracy gate's
+    tone + noise rows. Returns those two kernels' records, and the records
+    of resample and harmpeaks checked and timed on the same rows at the
+    default run's launch shapes (their modal shapes are other grids')."""
+    cfg = TUT_CONFIG
+    plan = PeasoupSearch(cfg, device=dev).build_plan(fil)
+    size = plan.size
+    nbins, npad = size // 2 + 1, padded_bins(size)
+    label, split_label = TUT_RUNS[0][0], TUT_RUNS[1][0]
+    rows, n, npad_main = main_shape(runs[label]["shapes"], "dftspec")
+    p_rows, p_npad, nlev, mx = main_shape(runs[split_label]["shapes"], "peaks")
+    r_rows, d_blk, r_n = main_shape(runs[label]["shapes"], "resample")
+    h_rows, h_npad, nharms, h_mx = main_shape(runs[label]["shapes"], "harmpeaks")
+    require((n, npad_main, p_rows, p_npad) == (size, npad, rows, npad),
+            "dftspec and peaks ran at one row batch of the plan's size")
+    require((r_rows, d_blk, r_n, h_rows, h_npad, nharms + 1) == (rows, plan.ndm, size,
+                                                                  rows, npad, nlev),
+            "resample and harmpeaks ran at that row batch over one DM block")
+    batch = pulsar_rows(plan, range(plan.ndm), rows, dm=TUT_DM)
+    lo, hi = batch[0][0], batch[-1][0] + 1
+    trials = dedisperse(
+        fil_to_device(fil, dev), torch.from_numpy(plan.delays).to(dev),
+        torch.from_numpy(plan.killmask).to(dev), plan.out_nsamps,
+        scale=output_scale(fil.nbits, int(plan.killmask.sum())),
+    )
+    tobs = float(np.float32(size) * np.float32(fil.tsamp))
+    bin_width = float(np.float32(1.0 / tobs))
+    xd, mean_d, std_d = preprocess_block(
+        trials[lo:hi, :size], torch.from_numpy(plan.zapmask).to(dev), size=size,
+        nsamps_valid=min(plan.out_nsamps, size),
+        pos5=int(cfg.boundary_5_freq / bin_width),
+        pos25=int(cfg.boundary_25_freq / bin_width),
+    )
+    del trials
+    row_dm, afs = batch_rows(plan, batch, lo, fil.tsamp, dev)
+    x = resample_rows(xd, row_dm, afs)
+    ref = resample_rows_plain(xd, row_dm, afs)
+    torch.cuda.synchronize()
+    require(torch.equal(x, ref), "resample bitwise equal to its plain version (tutorial)")
+    del ref
+    other = {"resample": dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: resample_rows(xd, row_dm, afs)),
+        plain_ms=time_ms(lambda: resample_rows_plain(xd, row_dm, afs), reps=3),
+        bound=bound(rows * n * 4 + (hi - lo) * n * 4 + rows * 8, rows * n * 4.0),
+        shape=f"({hi - lo}, {n}) f32 DM trials {lo}..{hi - 1} -> ({rows}, {n}) f32",
+        path=label,
+    )}
+    mean, std = mean_d[row_dm], std_d[row_dm]
+    del xd
+    out = {"dftspec": dftspec_check(x, mean, std, npad, f"DM trials {lo}..{hi - 1}")}
+    out["dftspec"]["path"] = label
+
+    s = dft_untwist_interbin(x, mean, std, npad=npad)
+    del x
+    windows = plan.windows
+    kw = dict(threshold=float(np.float32(cfg.min_snr)), max_peaks=h_mx,
+              scales=level_scales(nharms), nbins=nbins)
+    k_out = find_harmonic_cluster_peaks(s, windows, nharms=nharms, **kw)
+    p_out = find_harmonic_cluster_peaks_plain(s, windows, nharms=nharms, **kw)
+    torch.cuda.synchronize()
+    for a, b, name in zip(k_out, p_out, ("idxs", "snrs", "counts", "ccounts")):
+        require(torch.equal(a, b), f"harmpeaks {name} equal to the plain version (tutorial)")
+    nclusters = int(k_out[3].sum())
+    other["harmpeaks"] = dict(
+        max_abs_err=float((k_out[1] - p_out[1]).abs().max()),
+        ms=time_ms(lambda: find_harmonic_cluster_peaks(s, windows, nharms=nharms, **kw)),
+        plain_ms=time_ms(
+            lambda: find_harmonic_cluster_peaks_plain(s, windows, nharms=nharms, **kw),
+            reps=3,
+        ),
+        bound=bound(rows * nbins * 4 + rows * nlev * (h_mx * 8 + 8),
+                    rows * nbins * (15 + 2 * nlev)),
+        shape=f"({rows}, {npad}) f32, nharms {nharms}, max_peaks {h_mx}, "
+              f"{nclusters} clusters",
+        path=label,
+    )
+    del k_out, p_out
+
+    levels = [s, *harmonic_sums(s, nharms=nlev - 1, scaled=False)]
+    kw = dict(kw, max_peaks=mx, scales=level_scales(nlev - 1))
+    # the bins each level's clamped window holds, summed over the levels
+    w = np.asarray(windows, np.int64).reshape(nlev, 2)
+    win_bins = int(np.clip(np.minimum(w[:, 1], nbins) - np.maximum(w[:, 0], 0), 0, None).sum())
+    k_out = find_cluster_peaks_multi(levels, windows, **kw)
+    p_out = find_cluster_peaks_multi_plain(levels, windows, **kw)
+    torch.cuda.synchronize()
+    for a, b, name in zip(k_out, p_out, ("idxs", "snrs", "counts", "ccounts")):
+        require(torch.equal(a, b), f"peaks {name} equal to the plain version")
+    nclusters = int(k_out[3].sum())
+    require(nclusters > 0, "peaks test rows hold clusters")
+    out["peaks"] = dict(
+        max_abs_err=float((k_out[1] - p_out[1]).abs().max()),
+        ms=time_ms(lambda: find_cluster_peaks_multi(levels, windows, **kw)),
+        plain_ms=time_ms(lambda: find_cluster_peaks_multi_plain(levels, windows, **kw),
+                         reps=3),
+        # the bins inside each level's window read once, the cluster slots
+        # and counts written
+        bound=bound(rows * (win_bins * 4 + nlev * (mx * 8 + 8)), rows * win_bins * 3.0),
+        shape=f"{nlev} x ({rows}, {npad}) f32, {win_bins} window bins a row, "
+              f"max_peaks {mx}, {nclusters} clusters",
+        path=split_label,
+    )
+    del levels, s, k_out, p_out
+
+    sizes = []
+    for n_o in (1 << 15, 1 << 16, 1 << 18):
+        r_o = 128
+        npad_o = padded_bins(n_o)
+        x_o, _, _, mean_o, std_o = oracle_data(n_o, r=r_o, seed=n_o.bit_length())
+        x_o, mean_o, std_o = (torch.from_numpy(a).to(dev) for a in (x_o, mean_o, std_o))
+        c = dftspec_check(x_o, mean_o, std_o, npad_o, f"m = 2^{n_o.bit_length() - 2}")
+        say(f"dftspec ({c['shape']}): {c['ms']:.4f} ms kernel, {c['plain_ms']:.4f} ms "
+            f"plain, {c['library_ms']:.4f} ms torch.fft.fft + interbin, bound "
+            f"{c['bound'][0]:.4f} ms ({c['bound'][1]})")
+        sizes.append(c)
+    out["dftspec"]["other_shapes"] = [other_shape(c) for c in sizes]
+    return out, other
+
+
 def agreement_phase(tmp: str) -> tuple[int, int]:
     """The card's search against the CPU search on a small input, folding
     the top 5 candidates in both."""
@@ -594,8 +890,9 @@ def agreement_phase(tmp: str) -> tuple[int, int]:
     def ident(c):
         return (c.dm_idx, c.acc, c.nh, c.freq)
 
-    # cuFFT and the CPU FFT round differently, so compare the candidates
-    # clear of the threshold: same identity, S/N within 1e-3
+    # the card's DFT (dftspec at this size) and the CPU FFT round
+    # differently, so compare the candidates clear of the threshold: same
+    # identity, S/N within 1e-3
     strong = [c for c in cpu if c.snr >= 1.1 * cfg.min_snr]
     require(len(strong) > 0, "small input yields strong candidates")
     got = [c for c in gpu if c.snr >= 1.1 * cfg.min_snr]
@@ -861,6 +1158,36 @@ def main() -> int:
             os.remove(path)
             torch.cuda.empty_cache()
 
+        path = os.path.join(tmp, "grid.fil")
+        t0 = time.perf_counter()
+        tutorial_grid_fil(path)
+        say(f"synthesized tutorial grid filterbank in {time.perf_counter() - t0:.1f} s")
+        fil = read_filterbank(path)
+        plan = PeasoupSearch(TUT_CONFIG, device=dev).build_plan(fil)
+        ntrials = sum(len(a) for a in plan.accel_lists)
+        tut = tutorial_phase(path, tmp, profile=args.profile)
+        for label, run in tut.items():
+            runs[label] = run
+            say(f"{label}: {plan.ndm} DM trials, {ntrials} DM x accel trials of "
+                f"{plan.size} samples, {run['wall']:.3f} s CLI wall, "
+                f"{ntrials / run['timers']['searching']:.1f} trials/s over the "
+                "searching stage")
+            say(f"{label} stage timers (s): " + json.dumps(run["timers"], sort_keys=True))
+            say(f"{label} kernel launches: " + json.dumps(run["launches"]))
+            say(f"{label} launch shapes: " + json.dumps(
+                {k: {str(s): n for s, n in v.items()} for k, v in run["shapes"].items()}
+            ))
+        modal, other = tutorial_kernel_phase(dev, fil, tut)
+        checks.update(modal)
+        for name, c in other.items():
+            say(f"{name} ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
+                f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
+                f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
+            checks[name].setdefault("other_shapes", []).append(other_shape(c))
+        del fil
+        os.remove(path)
+        torch.cuda.empty_cache()
+
         label = "single-pulse grid"
         path = os.path.join(tmp, "grid.fil")
         outdir = os.path.join(tmp, "single_pulse_grid")
@@ -889,9 +1216,12 @@ def main() -> int:
 
         for name in SOURCES:
             c = checks[name]
+            lib = c.get("library_ms")
             say(f"{name} ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
-                f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
-                f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
+                f"{c['plain_ms']:.4f} ms plain, "
+                + (f"{lib:.4f} ms library, " if lib is not None else "")
+                + f"bound {c['bound'][0]:.4f} ms ({c['bound'][1]}), "
+                f"max |err| {c['max_abs_err']}")
 
         n, nfold = agreement_phase(tmp)
         say(f"small input: {n} strong candidates and {nfold} fold outcomes "
@@ -914,9 +1244,13 @@ def main() -> int:
             "plain_ms": c["plain_ms"],
             "bound_ms": c["bound"][0],
             "bound_by": c["bound"][1],
-            "library_ms": None,
+            # dftspec's: torch.fft.fft + the interbin kernel, the port's
+            # other route for the same function (two calls)
+            "library_ms": c.get("library_ms"),
             "path": c["path"],
             "shape": c["shape"],
+            **{k: c[k] for k in ("accuracy_max", "accuracy_q999", "other_shapes")
+               if k in c},
         }
         for name, c in ((name, checks[name]) for name in SOURCES)
     ]

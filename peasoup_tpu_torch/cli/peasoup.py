@@ -10,6 +10,15 @@ The search runs on the CUDA device unless ``--device cpu`` is given;
 ``--npdmp N`` folds and optimises the top N candidates. Flags of
 features the port does not have yet (--subbands, --checkpoint, --tune,
 --dedisp_engine matmul) are refused.
+
+The acceleration chain takes the JAX package's routes: the dftspec
+kernel for the spectrum where its geometry gate holds (FFT sizes up to
+2^18 with small resample spans, such as the tutorial's 2^17) and cuFFT +
+the interbin kernel elsewhere; the harmpeaks kernel for harmonic sums
+and peaks. The JAX package's environment switches select the other
+routes: ``PEASOUP_FUSED_DFT=0`` or ``PEASOUP_FUSED_FFT=0`` (cuFFT +
+interbin at every size) and ``PEASOUP_MEGA_HARM=0`` (torch harmonic sums
++ the peaks kernel).
 """
 
 from __future__ import annotations
@@ -28,6 +37,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="peasoup",
         description="Peasoup - a GPU pulsar search pipeline (PyTorch/CUDA port)",
+        epilog="Environment: PEASOUP_FUSED_DFT=0 (or PEASOUP_FUSED_FFT=0) takes "
+        "cuFFT + the interbin kernel where the dftspec kernel would run; "
+        "PEASOUP_MEGA_HARM=0 takes "
+        "torch harmonic sums + the peaks kernel in place of the harmpeaks "
+        "kernel (the JAX package's switches).",
     )
     p.add_argument("-i", "--inputfile", required=True, help="File to process (.fil)")
     p.add_argument("-o", "--outdir", default=None, help="The output directory")

@@ -4,8 +4,9 @@ Each kernel is one source under ``csrc/`` with a plain C interface. At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``_build/`` (beside this file, ignored by git) and loaded
 with ``ctypes``; every pointer and the stream pass as ``c_void_p``.
-A library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused. :func:`build`
+A library's file name carries a hash of its source, of the headers
+under ``csrc/`` (``*.cuh``, which sources share) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is reused. :func:`build`
 compiles several sources at once, one ``nvcc`` process each.
 
 Each C entry returns ``cudaGetLastError()`` after its launch, and
@@ -45,6 +46,14 @@ _ENTRIES = {
     "interbin": (
         "untwist_interbin_normalise", [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P],
     ),
+    "dftspec": (
+        "dft_untwist_interbin",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
+    ),
+    "peaks": (
+        "cluster_peaks_multi",
+        [_P] * 6 + [_L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
+    ),
     "harmpeaks": (
         "harmpeaks",
         [_P, _L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
@@ -83,8 +92,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source(name).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

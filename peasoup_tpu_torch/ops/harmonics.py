@@ -6,9 +6,13 @@ rsqrt(2^h), accumulating across levels (level h reuses level h-1's sum
 and adds only the odd-k/2^h gathers). The float index expression is
 exact integer math: (i*k + 2^(h-1)) >> h.
 
-This is the plain version (the JAX package's ``method="take"`` order):
-the search runs harmonic summing fused into the peak walk, in the
-harmpeaks kernel (ops/peaks.py:find_harmonic_cluster_peaks).
+These are plain torch gathers (the JAX package's ``method="take"``
+order). The search sums harmonics inside the harmpeaks kernel
+(ops/peaks.py:find_harmonic_cluster_peaks) unless ``PEASOUP_MEGA_HARM=0``
+asks for the JAX package's other route: unscaled sums of the padded
+spectrum from here, then the peaks kernel
+(ops/peaks.py:find_cluster_peaks_multi).
+The JAX package computes those sums in XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +33,11 @@ def harmonic_sums(
     Gathers are added one ``+`` at a time in the reference order: levels
     h ascending, odd k ascending within a level. Returns ``nharms``
     arrays shaped like ``p``; entry h-1 is the 2^h-harmonic sum, scaled
-    by f32(rsqrt(2^h)) unless ``scaled=False``.
+    by f32(rsqrt(2^h)) unless ``scaled=False``. A gather for bin i reads
+    a bin at or below i, so on a spectrum zero-padded past its true bins
+    (as the spectrum kernels emit it) the true bins' sums are those of
+    the unpadded spectrum, and the padding holds sums of real low bins:
+    the JAX package's ``harmonic_sums(block_align=...)`` levels.
     """
     if not 0 < nharms <= 5:
         raise ValueError("nharms must be in 1..5")

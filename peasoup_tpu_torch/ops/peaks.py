@@ -12,6 +12,10 @@ and clustering of every level in one pass: the hand-written harmpeaks
 kernel (csrc/harmpeaks.cu) for CUDA tensors, the plain version
 :func:`find_harmonic_cluster_peaks_plain` (harmonic_sums +
 find_peaks_device + cluster_peaks_device) for CPU tensors.
+:func:`find_cluster_peaks_multi` thresholds and clusters levels formed
+apart (the search's ``PEASOUP_MEGA_HARM=0`` route): the peaks kernel
+(csrc/peaks.cu) for CUDA tensors, :func:`find_cluster_peaks_multi_plain`
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -102,29 +106,28 @@ def _clamped_windows(windows, nbins: int, nlev: int) -> np.ndarray:
     return w
 
 
-def find_harmonic_cluster_peaks_plain(
-    spec: torch.Tensor,
+def find_cluster_peaks_multi_plain(
+    levels,
     windows,
     *,
-    nharms: int,
     threshold: float,
     max_peaks: int,
     scales: tuple,
     min_gap: int = 30,
     nbins: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain version of :func:`find_harmonic_cluster_peaks`."""
-    nbins = spec.shape[-1] if nbins is None else nbins
-    nlev = nharms + 1
-    w = torch.from_numpy(_clamped_windows(windows, nbins, nlev)).to(spec.device)
-    rows = spec.shape[0]
-    s = spec[:, :nbins]
-    levels = [s, *harmonic_sums(s, nharms=nharms, scaled=False)]
-    levels = [
-        lv * torch.tensor(sc, dtype=torch.float32, device=spec.device)
+    """The plain version of :func:`find_cluster_peaks_multi`:
+    find_peaks_device + cluster_peaks_device on every scaled level."""
+    nlev = len(levels)
+    rows = levels[0].shape[0]
+    dev = levels[0].device
+    nbins = levels[0].shape[-1] if nbins is None else nbins
+    w = torch.from_numpy(_clamped_windows(windows, nbins, nlev)).to(dev)
+    scaled = [
+        lv[:, :nbins] * torch.tensor(sc, dtype=torch.float32, device=dev)
         for lv, sc in zip(levels, scales)
     ]
-    flat = torch.stack(levels, dim=1).reshape(rows * nlev, nbins)
+    flat = torch.stack(scaled, dim=1).reshape(rows * nlev, nbins)
     lo = w[:, 0].to(torch.int64).repeat(rows)
     hi = w[:, 1].to(torch.int64).repeat(rows)
     ri, rs, counts = find_peaks_device(flat, threshold, lo, hi)
@@ -138,6 +141,80 @@ def find_harmonic_cluster_peaks_plain(
         cs[:, :max_peaks].reshape(rows, nlev, max_peaks),
         counts.to(torch.int32).reshape(rows, nlev),
         cc.to(torch.int32).reshape(rows, nlev),
+    )
+
+
+def find_cluster_peaks_multi(
+    levels,  # nlev (rows, npad) f32 level rows, level 0 the spectrum
+    windows,  # (nlev, 2) int [start, limit) per level
+    *,
+    threshold: float,
+    max_peaks: int,
+    scales: tuple,  # per-level factors applied before the threshold
+    min_gap: int = 30,
+    nbins: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Threshold + cluster walk of every level. Returns (idxs (rows, nlev,
+    max_peaks) i32 padded with nbins, snrs f32 padded with 0, raw counts
+    (rows, nlev) i32, cluster counts (rows, nlev) i32). ``nbins`` is the
+    true bin count: windows are clamped to it, so the padding past it
+    (garbage in block-aligned harmonic sums) never crosses. Clusters past
+    ``max_peaks`` are counted and dropped. CUDA tensors go through the
+    peaks kernel (bitwise equal to the plain version), CPU tensors through
+    :func:`find_cluster_peaks_multi_plain`."""
+    nlev = len(levels)
+    if not 0 < nlev <= 6:
+        raise ValueError("levels must hold 1..6 level arrays")
+    if len(scales) != nlev:
+        raise ValueError("scales must cover every level")
+    if on_cpu(*levels):
+        return find_cluster_peaks_multi_plain(
+            levels, windows, threshold=threshold, max_peaks=max_peaks,
+            scales=scales, min_gap=min_gap, nbins=nbins,
+        )
+    for h, lv in enumerate(levels):
+        check(lv, f"levels[{h}]", torch.float32, 2)
+        if lv.shape != levels[0].shape:
+            raise ValueError("every level must have the shape of level 0")
+    rows, npad = levels[0].shape
+    nbins = npad if nbins is None else nbins
+    if not 0 < nbins <= npad:
+        raise ValueError(f"nbins={nbins} outside the row of {npad}")
+    dev = levels[0].device
+    w = torch.from_numpy(_clamped_windows(windows, nbins, nlev)).to(dev)
+    sc = torch.tensor(scales, dtype=torch.float32, device=dev)
+    idxs = torch.empty((rows, nlev, max_peaks), dtype=torch.int32, device=dev)
+    snrs = torch.empty((rows, nlev, max_peaks), dtype=torch.float32, device=dev)
+    counts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
+    ccounts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
+    ptrs = [lv.data_ptr() for lv in levels] + [None] * (6 - nlev)
+    kernels.launch(
+        "peaks", *ptrs, rows, npad, nbins, nlev, w.data_ptr(), sc.data_ptr(),
+        float(np.float32(threshold)), min_gap, max_peaks, idxs.data_ptr(),
+        snrs.data_ptr(), counts.data_ptr(), ccounts.data_ptr(), stream_ptr(dev),
+        shape=(rows, npad, nlev, max_peaks),
+    )
+    return idxs, snrs, counts, ccounts
+
+
+def find_harmonic_cluster_peaks_plain(
+    spec: torch.Tensor,
+    windows,
+    *,
+    nharms: int,
+    threshold: float,
+    max_peaks: int,
+    scales: tuple,
+    min_gap: int = 30,
+    nbins: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`find_harmonic_cluster_peaks`."""
+    nbins = spec.shape[-1] if nbins is None else nbins
+    s = spec[:, :nbins]
+    return find_cluster_peaks_multi_plain(
+        [s, *harmonic_sums(s, nharms=nharms, scaled=False)], windows,
+        threshold=threshold, max_peaks=max_peaks, scales=scales,
+        min_gap=min_gap, nbins=nbins,
     )
 
 

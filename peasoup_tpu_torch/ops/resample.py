@@ -14,6 +14,12 @@ resample: the hand-written kernel (csrc/resample.cu) for CUDA tensors,
 the plain version :func:`resample_rows_plain` for CPU tensors. Its output
 is bitwise that of every route the JAX package takes (its jnp gather,
 its gather-free select and its Pallas kernel), whatever the shift span.
+
+:func:`select_span` and :func:`choose_block` are copies of the JAX
+package's route tests (ops/resample.py:select_span and
+ops/pallas/resample.py:choose_block): the port resamples every span with
+one kernel, but the span decides whether the JAX package takes its fused
+DFT (ops/dftspec.py), and the search takes it where the JAX package does.
 """
 
 from __future__ import annotations
@@ -25,6 +31,32 @@ from .. import kernels
 from ..device import check, on_cpu, stream_ptr
 
 SPEED_OF_LIGHT = 299792458.0
+
+# sub-blocks per invocation of the JAX package's Pallas resample kernel
+_SUPER = 8
+
+
+def select_span(af_max: float, n: int, limit: int = 64) -> int:
+    """The JAX package's shift bound for its gather-free select resample:
+    ceil(max|af| * N^2 / 4) plus one guard sample, or 0 when the span
+    exceeds ``limit``."""
+    smax = int(np.ceil(af_max * (n / 2.0) ** 2)) + 1
+    return smax if smax <= limit else 0
+
+
+def choose_block(af_max: float, n: int) -> int:
+    """The JAX package's Pallas resample block: the largest power of two
+    in [128, 2048] whose shift spread stays within one sample and whose
+    super-block divides N, or 0 when none exists."""
+    if af_max < 0:
+        raise ValueError("af_max must be >= 0")
+    limit = 2.0 / (af_max * n) if af_max > 0 else float("inf")
+    blk = 128
+    if blk > limit or n % (_SUPER * blk):
+        return 0
+    while blk * 2 <= min(limit, 2048) and n % (_SUPER * blk * 2) == 0:
+        blk *= 2
+    return blk
 
 
 def accel_factor(accs: np.ndarray, tsamp: float) -> np.ndarray:

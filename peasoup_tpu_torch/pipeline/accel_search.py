@@ -9,14 +9,20 @@ trial of the block is one row of a batched chain:
   (174) -> |.| (178) -> running median (182) -> [specchain kernel:
   deredden (186), zap (188-192), interbin (196)] -> stats (200) ->
   irfft (204);
-  per row: [resample kernel (212)] -> packed DFT, cuFFT (216) -> [interbin
-  kernel: untwist, interbin (220), normalise (224)] -> [harmpeaks
-  kernel: harmonic sums (228), peaks (233-234), clustering
-  (peakfinder.hpp:27-56)].
+  per row: [resample kernel (212)] -> spectrum -> peaks.
+
+The spectrum route (rfft (216), interbin (220), normalise (224)) is
+either the dftspec kernel, which computes the packed DFT itself and fuses
+the untwist, interbin and normalise, or cuFFT + the interbin kernel. The
+peaks route (harmonic sums (228), peaks (233-234), clustering
+(peakfinder.hpp:27-56)) is either the harmpeaks kernel, which sums the
+harmonics inside the walk, or torch harmonic sums + the peaks kernel. The
+search (pipeline/search.py:choose_routes) picks both where the JAX package
+does.
 
 This is the JAX package's fused chain (pipeline/accel_search.py:
-_preprocess_block_fused and the ``fused_interbin and mega_harm`` branch
-of _spectra_and_peaks), with rows in place of its (D, A) grid.
+_preprocess_block_fused and the ``fused_interbin`` branches of
+_spectra_and_peaks), with rows in place of its (D, A) grid.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.dftspec import dft_untwist_interbin
 from ..ops.fft import packed_dft_z, untwist_interbin_normalise
-from ..ops.harmonics import level_scales
-from ..ops.peaks import find_harmonic_cluster_peaks
+from ..ops.harmonics import harmonic_sums, level_scales
+from ..ops.peaks import find_cluster_peaks_multi, find_harmonic_cluster_peaks
 from ..ops.rednoise import running_median
 from ..ops.resample import resample_rows
 from ..ops.spectrum import form_power, specchain, spectrum_stats
@@ -104,17 +111,32 @@ def search_rows(
     threshold: float,
     nharms: int,
     max_peaks: int,
+    fused_dft: bool,
+    mega_harm: bool,
 ) -> AccelSearchPeaks:
-    """Resample, packed DFT, interbin + normalise, harmonic sums and
-    cluster peaks for R (DM, accel) rows of one DM block."""
+    """Resample, spectrum, harmonic sums and cluster peaks for R (DM,
+    accel) rows of one DM block. ``fused_dft`` takes the dftspec kernel
+    for the spectrum, else cuFFT + the interbin kernel; ``mega_harm`` the
+    harmpeaks kernel for sums and peaks, else torch sums + the peaks
+    kernel."""
     size = xd.shape[-1]
     nbins = size // 2 + 1
-    z = packed_dft_z(resample_rows(xd, row_dm, afs))
-    s = untwist_interbin_normalise(z, mean, std, npad=padded_bins(size))
-    del z
-    return AccelSearchPeaks(
-        *find_harmonic_cluster_peaks(
-            s, windows, nharms=nharms, threshold=threshold,
-            max_peaks=max_peaks, scales=level_scales(nharms), nbins=nbins,
-        )
+    npad = padded_bins(size)
+    x = resample_rows(xd, row_dm, afs)
+    if fused_dft:
+        s = dft_untwist_interbin(x, mean, std, npad=npad)
+    else:
+        s = untwist_interbin_normalise(packed_dft_z(x), mean, std, npad=npad)
+    del x
+    kw = dict(
+        threshold=threshold, max_peaks=max_peaks, scales=level_scales(nharms),
+        nbins=nbins,
     )
+    if mega_harm:
+        peaks = find_harmonic_cluster_peaks(s, windows, nharms=nharms, **kw)
+    else:
+        # s is padded to SPEC_ALIGN, so its sums are the JAX package's
+        # block-aligned levels
+        sums = harmonic_sums(s, nharms=nharms, scaled=False)
+        peaks = find_cluster_peaks_multi([s, *sums], windows, **kw)
+    return AccelSearchPeaks(*peaks)

@@ -11,6 +11,12 @@ scoring run on small arrays, as in the reference.
 With npdmp > 0 the top candidates are folded and optimised
 (pipeline/folder.py) from the dedispersed trials the device still holds.
 
+The spectrum and peaks routes of the acceleration chain are decided once
+per run (:func:`choose_routes`), as the JAX package decides them on a
+TPU whose kernel probes pass; its switches ``PEASOUP_FUSED_DFT=0`` (or
+``PEASOUP_FUSED_FFT=0``) and ``PEASOUP_MEGA_HARM=0`` turn the fused
+routes off here too.
+
 Not ported yet, and refused with NotImplementedError: subband or matmul
 dedispersion, checkpoints, the tuning cache, more than one device, and
 the JAX package's out-of-memory degradation ladder.
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from dataclasses import dataclass
 from functools import lru_cache
@@ -32,13 +39,14 @@ from ..device import resolve_device
 from ..io.masks import read_killfile, read_zapfile
 from ..io.sigproc import Filterbank
 from ..ops.dedisperse import dedisperse, fil_to_device, output_scale
-from ..ops.resample import accel_factor
+from ..ops.dftspec import dftspec_supported
+from ..ops.resample import accel_factor, choose_block, select_span
 from ..ops.zap import birdie_mask
 from ..plan.accel_plan import AccelerationPlan
 from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
-from .accel_search import preprocess_block, search_rows
+from .accel_search import padded_bins, preprocess_block, search_rows
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .folder import MultiFolder
 from .score import CandidateScorer
@@ -345,6 +353,34 @@ def _max_abs_quad_f32(size: int) -> np.float32:
     return np.float32(np.abs(_quad_f32(size)).max())
 
 
+def choose_routes(size: int, af_max: float) -> dict[str, bool]:
+    """The acceleration chain's routes for FFT size ``size`` and largest
+    |acceleration factor| ``af_max``, as the JAX package picks them
+    (its pipeline/search.py:850-945, every probe passing):
+
+    - ``fused_dft``, the dftspec kernel for the spectrum, where its
+      geometry gate holds and the JAX package resamples by its packed
+      select (a span of at most 64 samples that is at most 8 or has no
+      Pallas resample block), unless ``PEASOUP_FUSED_DFT=0`` or
+      ``PEASOUP_FUSED_FFT=0`` (which in the JAX package turns off the
+      fused interbin step that the fused DFT builds on); otherwise cuFFT
+      + the interbin kernel;
+    - ``mega_harm``, the harmpeaks kernel for harmonic sums and peaks,
+      unless ``PEASOUP_MEGA_HARM=0``; otherwise torch sums + the peaks
+      kernel.
+    """
+    smax = select_span(af_max, size)
+    fused_dft = (
+        dftspec_supported(size, padded_bins(size))
+        and smax > 0
+        and (smax <= 8 or choose_block(af_max, size) == 0)
+        and os.environ.get("PEASOUP_FUSED_DFT", "1") != "0"
+        and os.environ.get("PEASOUP_FUSED_FFT", "1") != "0"
+    )
+    mega_harm = os.environ.get("PEASOUP_MEGA_HARM", "1") != "0"
+    return dict(fused_dft=fused_dft, mega_harm=mega_harm)
+
+
 def _unsupported(cfg: SearchConfig) -> str | None:
     if cfg.subbands > 0 or cfg.dedisp_engine == "matmul":
         return "subband and matmul dedispersion are ROADMAP item A.3"
@@ -483,10 +519,22 @@ class PeasoupSearch:
             )
         else:
             dispatch_lists, expand = list(accel_lists), [None] * plan.ndm
+        af_max = max(
+            (float(np.abs(accel_factor(a, fil.tsamp)).max())
+             for a in dispatch_lists if len(a)),
+            default=0.0,
+        )
+        routes = choose_routes(size, af_max)
+        log.info(
+            "spectrum: %s; peaks: %s",
+            "dftspec kernel" if routes["fused_dft"] else "cuFFT + interbin kernel",
+            "harmpeaks kernel" if routes["mega_harm"]
+            else "harmonic sums + peaks kernel",
+        )
 
         t0 = time.perf_counter()
         per_dm = self._search_trials(
-            trials, plan, dispatch_lists, fil.tsamp, geometry
+            trials, plan, dispatch_lists, fil.tsamp, geometry, routes
         )
         if cfg.npdmp <= 0:
             trials = None  # only the folder reads the trials again
@@ -546,8 +594,9 @@ class PeasoupSearch:
         )
         return self.finalize(fil, part)
 
-    def _search_trials(self, trials, plan, dispatch_lists, tsamp, geometry):
-        """Run every dispatched (DM, accel) trial. Returns per DM trial its
+    def _search_trials(self, trials, plan, dispatch_lists, tsamp, geometry, routes):
+        """Run every dispatched (DM, accel) trial on the acceleration
+        chain's ``routes`` (:func:`choose_routes`). Returns per DM trial its
         ragged cluster stream (bins, snrs, counts (nlev, n_dispatch)):
         the valid cluster slots of every (level, accel) cell in C order,
         as the JAX package packs them."""
@@ -583,7 +632,7 @@ class PeasoupSearch:
                 results.append(
                     self._search_batch(
                         xd, row_dm, afs, mean[row_dm], std[row_dm],
-                        plan.windows, threshold,
+                        plan.windows, threshold, routes,
                     )
                 )
             del xd, mean, std
@@ -613,7 +662,7 @@ class PeasoupSearch:
                 r0 = r1
         return per_dm
 
-    def _search_batch(self, xd, row_dm, afs, mean, std, windows, threshold):
+    def _search_batch(self, xd, row_dm, afs, mean, std, windows, threshold, routes):
         """One row batch of the DM block ``xd``, re-dispatched at the next
         power of two while a cluster count overflows the slots (the
         reference sizes for 100000 up front, peakfinder.hpp:61). Returns
@@ -623,7 +672,7 @@ class PeasoupSearch:
         while True:
             peaks = search_rows(
                 xd, row_dm, afs, mean, std, windows, threshold=threshold,
-                nharms=cfg.nharmonics, max_peaks=max_peaks,
+                nharms=cfg.nharmonics, max_peaks=max_peaks, **routes,
             )
             cc = peaks.ccounts.cpu().numpy()
             worst = int(cc.max()) if cc.size else 0

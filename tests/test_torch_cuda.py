@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small shapes with the edge cases (odd widths, birdies at block edges,
-garbage padding, cluster overflow, rows out of order, offsets past 2^31,
+every dftspec factorisation, garbage padding, cluster overflow, rows out of order, offsets past 2^31,
 boxcars past the trial's end, a tile shorter than the kernel's, -inf
 blocks, flat stretches) that the main path's inputs may not hold.
 `chip_smoke.py` holds the kernels at the main path's shapes and the
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from peasoup_tpu_torch.ops import (
-    dedisperse, fft, harmonics, peaks, resample, singlepulse, spectrum,
+    dedisperse, dftspec, fft, harmonics, peaks, resample, singlepulse, spectrum,
 )
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +111,49 @@ def test_interbin(dev):
     rms = torch.sqrt(torch.mean(ref * ref, dim=1, keepdim=True))
     assert bool(((body - ref).abs() <= 1e-5 * (ref.abs() + rms)).all())
     assert not bool(got[:, n // 2 + 1 :].any())
+
+
+@pytest.mark.parametrize(
+    "rows,n", [(5, 1 << 15), (9, 1 << 16), (3, 1 << 17), (2, 1 << 18)]
+)
+def test_dftspec(dev, rows, n):
+    # m = 2^14 .. 2^17 (n1 x n2 = 128x128, 256x128... up to 256x512), held
+    # to the JAX package's accuracy gate against the plain version (cuFFT)
+    m = n // 2
+    npad = -(-(m + 1) // 4096) * 4096
+    x, _, _, mean, std = dftspec.oracle_data(n, r=rows, seed=rows)
+    xs, ms, ss = _on(dev, x, mean, std)
+    got = dftspec.dft_untwist_interbin(xs, ms, ss, npad=npad)
+    want = dftspec.dft_untwist_interbin_plain(xs, ms, ss, npad=npad)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, npad)
+    assert not bool(got[:, m + 1 :].any())
+    acc_max, q999 = dftspec.accuracy(got, want, ms, ss, m)
+    assert acc_max <= dftspec.ACC_MAX_REL
+    assert q999 <= dftspec.ACC_Q999_REL
+
+
+@pytest.mark.parametrize("nlev,mx", [(5, 64), (3, 4)])
+def test_peaks(dev, nlev, mx):
+    rng = np.random.default_rng(8)
+    rows, nbins = 7, 20000
+    npad = -(-nbins // 4096) * 4096
+    levels = []
+    for lv in range(nlev):
+        s = np.abs(rng.normal(size=(rows, nbins))).astype(np.float32)
+        s[::3, lv::61] += 30.0
+        s[1, 9000 + lv : 9400 : 4] += 20.0
+        levels.append(np.pad(s, ((0, 0), (0, npad - nbins)), constant_values=1e9))
+    windows = np.tile(np.asarray([[nbins // 10, nbins + 500]], np.int32), (nlev, 1))
+    kw = dict(threshold=9.0, max_peaks=mx, scales=harmonics.level_scales(nlev - 1),
+              nbins=nbins)
+    lv = _on(dev, *levels)
+    got = peaks.find_cluster_peaks_multi(lv, windows, **kw)
+    want = peaks.find_cluster_peaks_multi_plain(lv, windows, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3].max()) > (mx if mx == 4 else 0)
 
 
 @pytest.mark.parametrize("nharms,mx", [(4, 16), (2, 2)])

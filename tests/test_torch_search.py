@@ -329,6 +329,150 @@ def test_binary_grid_pulse_duty(tmp_path, duty, folds_above_15):
     assert (top.folded_snr > 15.0) == folds_above_15
 
 
+# --- the tutorial grid: the JAX package's primary configuration ----------
+#
+# chip_smoke.py's synthesized tutorial.fil geometry (64 channels x 187,520
+# 2-bit samples at 320 us, a 2^17-point FFT, a P = 250 ms pulsar at DM 30)
+# with bench.py's accel flags, cut to the three DM trials around the
+# pulsar's (27, 30.29, 33.58) x the 44-trial +-5 m/s^2 list, every trial
+# dispatched. Here the JAX package routes its spectrum through the fused
+# DFT kernel and the port through dftspec's plain version.
+TUT_KW = dict(
+    dm_start=27.0, dm_end=33.0, acc_start=-5.0, acc_end=5.0,
+    acc_pulse_width=0.064, dedupe_accel=False,
+)
+
+
+@pytest.fixture(scope="module")
+def tutorial_fil(tmp_path_factory):
+    import chip_smoke
+
+    path = tmp_path_factory.mktemp("torch_tutorial") / "tutorial.fil"
+    chip_smoke.tutorial_grid_fil(str(path))
+    return path
+
+
+@pytest.fixture(scope="module")
+def tutorial_results(tutorial_fil):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(peasoup_tpu.native, "_load", lambda: None)
+        want = JaxSearch(JaxConfig(**TUT_KW)).run(jax_read_filterbank(tutorial_fil))
+    got = PeasoupSearch(SearchConfig(**TUT_KW), device="cpu").run(
+        read_filterbank(tutorial_fil)
+    )
+    return want, got
+
+
+def test_tutorial_grid_matches_jax(tutorial_results):
+    want, got = tutorial_results
+    assert got.size == want.size == 1 << 17
+    assert len(got.dm_list) == 3 and got.n_accel_trials == 132
+    assert len(want.candidates) > 10
+    assert len(got.candidates) == len(want.candidates)
+    for rank, (a, b) in enumerate(zip(want.candidates, got.candidates)):
+        assert _identity(b) == _identity(a), f"rank {rank}: {b} vs {a}"
+        assert abs(b.snr - a.snr) <= 1e-3 * abs(a.snr), f"rank {rank}"
+    top = got.candidates[0]
+    assert abs(1.0 / top.freq - 0.25) / 0.25 < 2e-3
+
+
+@pytest.mark.parametrize(
+    "env,routes",
+    [
+        ({}, (True, True)),
+        ({"PEASOUP_MEGA_HARM": "0"}, (True, False)),
+        ({"PEASOUP_FUSED_DFT": "0"}, (False, True)),
+        ({"PEASOUP_FUSED_FFT": "0"}, (False, True)),
+    ],
+)
+def test_tutorial_routes_give_identical_candidates(
+    tutorial_fil, tutorial_results, monkeypatch, env, routes
+):
+    # on the CPU both spectrum routes are torch.fft + the plain epilogue and
+    # both peaks routes the take-order sums + the plain walk, so every route
+    # gives the default run's candidates exactly
+    from peasoup_tpu_torch.pipeline import search as port_search
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    seen = set()
+    real = port_search.search_rows
+
+    def spy(*args, fused_dft, mega_harm, **kw):
+        seen.add((fused_dft, mega_harm))
+        return real(*args, fused_dft=fused_dft, mega_harm=mega_harm, **kw)
+
+    monkeypatch.setattr(port_search, "search_rows", spy)
+    res = PeasoupSearch(SearchConfig(**TUT_KW), device="cpu").run(
+        read_filterbank(tutorial_fil)
+    )
+    assert seen == {routes}
+    _, want = tutorial_results
+    assert [(_identity(c), c.snr) for c in res.candidates] == [
+        (_identity(c), c.snr) for c in want.candidates
+    ]
+
+
+def _jax_routes(size, af_max, env):
+    """The JAX package's route on a TPU whose probes pass: the Pallas
+    resample where the span is past the select's 8 and a block exists, the
+    packed select otherwise (while the span is at most 64); the fused DFT
+    needs the packed planes, the fused interbin step and its geometry gate
+    (its pipeline/search.py:855-945 and pipeline/accel_search.py:170,
+    419-441)."""
+    from peasoup_tpu.ops.fft import _MIN_N
+    from peasoup_tpu.ops.pallas.dftspec import dftspec_supported
+    from peasoup_tpu.ops.pallas.peaks import PEAKS_BLOCK
+    from peasoup_tpu.ops.pallas.resample import choose_block
+    from peasoup_tpu.ops.resample import select_span
+
+    smax = select_span(af_max, size)
+    pallas_block = 0 if 0 < smax <= 8 else choose_block(af_max, size)
+    packed = pallas_block == 0 and smax > 0
+    fused_interbin = (
+        env.get("PEASOUP_FUSED_FFT", "1") != "0"
+        and size >= _MIN_N and not size & (size - 1)
+        and (size // 2) % PEAKS_BLOCK == 0
+    )
+    npad = -(-(size // 2 + 1) // PEAKS_BLOCK) * PEAKS_BLOCK
+    fused_dft = (
+        packed and fused_interbin and dftspec_supported(size, npad)
+        and env.get("PEASOUP_FUSED_DFT", "1") != "0"
+    )
+    return fused_dft, env.get("PEASOUP_MEGA_HARM", "1") != "0"
+
+
+@pytest.mark.parametrize(
+    "env",
+    [{}, {"PEASOUP_FUSED_DFT": "0"}, {"PEASOUP_FUSED_FFT": "0"},
+     {"PEASOUP_MEGA_HARM": "0"}],
+)
+@pytest.mark.parametrize(
+    "size,tsamp,acc,fused",
+    [
+        (1 << 17, 320e-6, 5.0, True),  # the tutorial grid: span 2
+        (1 << 21, 64e-6, 0.5, False),  # the big grid: m = 2^20 past the gate
+        (1 << 21, 64e-6, 150.0, False),  # the binary grid
+        (1 << 17, 320e-6, 0.0, True),  # no acceleration: span 1
+        (1 << 17, 320e-6, 3000.0, True),  # span 8, the select's limit
+        (1 << 17, 320e-6, 10000.0, False),  # span 24: the Pallas resample
+        (1 << 17, 320e-6, 40000.0, False),  # span 93, past the select
+    ],
+)
+def test_routes_match_jax(monkeypatch, size, tsamp, acc, fused, env):
+    from peasoup_tpu_torch.ops.resample import accel_factor
+    from peasoup_tpu_torch.pipeline.search import choose_routes
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    af_max = float(np.abs(accel_factor(np.array([acc]), tsamp)).max())
+    got = choose_routes(size, af_max)
+    want = _jax_routes(size, af_max, env)
+    assert (got["fused_dft"], got["mega_harm"]) == want
+    switched_off = "0" in (env.get("PEASOUP_FUSED_DFT"), env.get("PEASOUP_FUSED_FFT"))
+    assert want[0] == (fused and not switched_off)
+
+
 @pytest.mark.parametrize("nbits", [2, 8])
 def test_filterbank_files_cross_read(tmp_path, nbits):
     from peasoup_tpu.io import Filterbank as JaxFilterbank
