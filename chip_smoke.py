@@ -44,9 +44,11 @@ Phases, each fatal on failure:
      single-pulse grid's spchain shape; the others: the big grid's), and
      time both (CUDA events, median of a few runs) beside the least time
      the card could take; dftspec also beside torch.fft.fft + the
-     interbin kernel, and at m = 2^14, 2^15 and 2^17; resample and
+     interbin kernel, at m = 2^14, 2^15 and 2^17, and with the memory it
+     allocates beside its output (no T or Z scratch); resample and
      harmpeaks also at the tutorial grid's shapes (``other_shapes`` in
-     the kernels line).
+     the kernels line). Under --profile the CLI runs' device time names
+     harmpeaks' two kernels (harm_mask, harm_walk) and dftspec's one.
   8. The card's search against the CPU search (plain versions) on a
      small 8-bit filterbank, folding its top 5: the strong candidates
      and the fold outcomes must agree; and the card's single-pulse
@@ -717,7 +719,16 @@ def dftspec_check(x, mean, std, npad: int, label: str) -> dict:
     route for the same function (torch.fft.fft + the interbin kernel)."""
     rows, n = x.shape
     m = n // 2
+    dft_untwist_interbin(x, mean, std, npad=npad)  # the cached untwist tables
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = dft_untwist_interbin(x, mean, std, npad=npad)
+    torch.cuda.synchronize()
+    # one launch keeps T and Z on chip: the call allocates its output only
+    scratch = torch.cuda.max_memory_allocated() - base - got.nbytes
+    require(scratch < rows * m * 8,
+            f"dftspec allocates no (rows, m) complex scratch ({label}: {scratch} B)")
     ref = dft_untwist_interbin_plain(x, mean, std, npad=npad)
     torch.cuda.synchronize()
     require(not bool(got[:, m + 1 :].any()), f"dftspec pad bins exactly zero ({label})")
@@ -730,7 +741,7 @@ def dftspec_check(x, mean, std, npad: int, label: str) -> dict:
     nbins = m + 1
     flops = rows * (5.0 * m * np.log2(m) + 30.0 * nbins)
     return dict(
-        max_abs_err=err, accuracy_max=acc_max, accuracy_q999=q999,
+        max_abs_err=err, accuracy_max=acc_max, accuracy_q999=q999, scratch_bytes=scratch,
         ms=time_ms(lambda: dft_untwist_interbin(x, mean, std, npad=npad)),
         plain_ms=time_ms(lambda: dft_untwist_interbin_plain(x, mean, std, npad=npad),
                          reps=3),
@@ -747,7 +758,8 @@ def other_shape(c: dict) -> dict:
     """The record of a kernel checked at a launch shape besides its modal
     one, as the kernels line lists it under ``other_shapes``."""
     return {k: c[k] for k in ("path", "shape", "max_abs_err", "accuracy_max",
-                              "accuracy_q999", "ms", "plain_ms", "library_ms")
+                              "accuracy_q999", "scratch_bytes", "ms", "plain_ms",
+                              "library_ms")
             if k in c} | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
 
 
@@ -1249,7 +1261,8 @@ def main() -> int:
             "library_ms": c.get("library_ms"),
             "path": c["path"],
             "shape": c["shape"],
-            **{k: c[k] for k in ("accuracy_max", "accuracy_q999", "other_shapes")
+            **{k: c[k] for k in ("accuracy_max", "accuracy_q999", "scratch_bytes",
+                                 "other_shapes")
                if k in c},
         }
         for name, c in ((name, checks[name]) for name in SOURCES)

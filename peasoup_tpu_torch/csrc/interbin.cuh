@@ -1,9 +1,11 @@
 // Packed half-length DFT Z -> real-input spectrum X (untwist) -> interbin
 // amplitude -> (s - mean) / std, zero past the Nyquist bin m.
 //
-// The epilogue of two kernels: interbin.cu runs it on cuFFT's Z, dftspec.cu
-// on the Z of its own DFT passes. Included by both; kernels.py hashes every
-// header into each library's name, so an edit here rebuilds both.
+// The epilogue of two kernels: interbin.cu runs this kernel on cuFFT's Z;
+// dftspec.cu runs its arithmetic (untwist_values, interbin_value) on the Z
+// of its own DFT, held in its cluster's shared memory. Included by both;
+// kernels.py hashes every header into each library's name, so an edit here
+// rebuilds both.
 //
 // Input: Z = DFT_m(x[0::2] + i x[1::2]) as interleaved complex64 rows
 // (R, m). Output (R, npad) f32.
@@ -30,21 +32,34 @@ namespace interbin {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void untwist(const float2* __restrict__ z,
-                                        const float* __restrict__ unc,
-                                        const float* __restrict__ uns,
-                                        int64_t m, int64_t k, float& xr,
-                                        float& xi) {
-  const float2 zk = z[k == m ? 0 : k];
-  const float2 zm = z[k == 0 ? 0 : m - k];
+// The rfft bin X[k] from Z[k], the mirror Z[m-k] and the untwist phasor
+// (c, s) = (unc[k], uns[k]). dftspec.cu runs the same terms on the Z its
+// cluster holds in shared memory.
+__device__ __forceinline__ float2 untwist_values(float2 zk, float2 zm, float c,
+                                                 float s) {
   const float arr = 0.5f * (zk.x + zm.x);
   const float aii = 0.5f * (zk.y - zm.y);
   const float br = zk.x - zm.x;
   const float bi = zk.y + zm.y;
-  const float c = unc[k];
-  const float s = uns[k];
-  xr = arr + 0.5f * (c * bi - s * br);
-  xi = aii - 0.5f * (c * br + s * bi);
+  return make_float2(arr + 0.5f * (c * bi - s * br), aii - 0.5f * (c * br + s * bi));
+}
+
+// The normalised interbin amplitude of bin k from X[k] and X[k-1].
+__device__ __forceinline__ float interbin_value(float2 x, float2 xl, float mean,
+                                                float stdev) {
+  const float ampsq = x.x * x.x + x.y * x.y;
+  const float dr = x.x - xl.x;
+  const float di = x.y - xl.y;
+  const float dsq = 0.5f * (dr * dr + di * di);
+  const float amp = sqrtf(fmaxf(ampsq, dsq));
+  return (amp - mean) / stdev;
+}
+
+__device__ __forceinline__ float2 untwist(const float2* __restrict__ z,
+                                          const float* __restrict__ unc,
+                                          const float* __restrict__ uns,
+                                          int64_t m, int64_t k) {
+  return untwist_values(z[k == m ? 0 : k], z[k == 0 ? 0 : m - k], unc[k], uns[k]);
 }
 
 __global__ void interbin_kernel(const float2* __restrict__ z,
@@ -65,16 +80,9 @@ __global__ void interbin_kernel(const float2* __restrict__ z,
       continue;
     }
     const float2* zr = z + r * m;
-    float xr, xi;
-    untwist(zr, unc, uns, m, k, xr, xi);
-    float xl = 0.f, il = 0.f;
-    if (k > 0) untwist(zr, unc, uns, m, k - 1, xl, il);
-    const float ampsq = xr * xr + xi * xi;
-    const float dr = xr - xl;
-    const float di = xi - il;
-    const float dsq = 0.5f * (dr * dr + di * di);
-    const float amp = sqrtf(fmaxf(ampsq, dsq));
-    out[g] = (amp - mean[r]) / stdev[r];
+    const float2 x = untwist(zr, unc, uns, m, k);
+    const float2 xl = k > 0 ? untwist(zr, unc, uns, m, k - 1) : make_float2(0.f, 0.f);
+    out[g] = interbin_value(x, xl, mean[r], stdev[r]);
   }
 }
 

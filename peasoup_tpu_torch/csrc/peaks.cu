@@ -3,9 +3,9 @@
 // Replaces the TPU kernel
 // peasoup_tpu/ops/pallas/peaks.py:find_cluster_peaks_multi (its plain twin
 // is ops/peaks.py:find_peaks_device + cluster_peaks_device per scaled
-// level). It is harmpeaks.cu's walk (walk.cuh) without the harmonic
-// gathers: the search takes it when the harmonic sums are formed apart
-// (PEASOUP_MEGA_HARM=0).
+// level). The search takes it when the harmonic sums are formed apart
+// (PEASOUP_MEGA_HARM=0); its walk (walk.cuh) takes each crossing through
+// the step that harmpeaks.cu's walk shares (cluster_step.cuh).
 //
 // Per spectrum row and level h < nlev: v_h = level_h[i] * scales[h], then
 // walk.cuh's threshold + cluster walk. Outputs: cluster idxs padded with

@@ -1,16 +1,14 @@
-// Threshold + cluster walk of every harmonic level of one spectrum row.
-//
-// The body of two kernels: harmpeaks.cu forms the level values from the
-// spectrum (harmonic sums), peaks.cu reads them from level rows formed
-// apart. Included by both; kernels.py hashes every header into each
-// library's name, so an edit here rebuilds both.
+// Threshold + cluster walk of every level of one spectrum row, the level
+// rows given: the body of peaks.cu. (harmpeaks.cu, which forms the levels
+// itself, spreads its rows over the whole card in two phases instead.)
 //
 // Per row and level h < nlev: v_h = val_h[i] * scales[h], a crossing is
 // lo_h <= i < hi_h with v_h > thr, and the crossings of each level feed, in
-// ascending bin order, the identify_unique_peaks state machine (min_gap,
-// the lastidx quirk). Outputs: cluster idxs padded with nbins, cluster snrs
-// padded with 0 (both (nlev, mx) for the row), raw crossing counts and
-// cluster counts (nlev); clusters past mx are counted and dropped.
+// ascending bin order, the identify_unique_peaks state machine
+// (cluster_step.cuh: min_gap, the lastidx quirk). Outputs: cluster idxs
+// padded with nbins, cluster snrs padded with 0 (both (nlev, mx) for the
+// row), raw crossing counts and cluster counts (nlev); clusters past mx are
+// counted and dropped.
 //
 // Design: one block per row. The TPU kernels walk row stripes in 4096-bin
 // blocks with the machine state in VMEM scratch; here the block walks its
@@ -29,6 +27,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "cluster_step.cuh"
 
 namespace walk {
 
@@ -76,8 +76,7 @@ __device__ __forceinline__ void cluster_walk(
 
   // level (warp)'s identify_unique_peaks state, held by lane 0 of that warp
   const bool walker = lane == 0 && warp < nlev;
-  int cursor = 0, raw = 0, open = 0, cpeakidx = 0, lastidx = 0;
-  float cpeak = 0.f;
+  cluster::State st;
 
   for (int64_t base = static_cast<int64_t>(bin_lo / kTile) * kTile;
        base < bin_hi; base += kTile) {
@@ -107,21 +106,12 @@ __device__ __forceinline__ void cluster_walk(
           const int p = w * 32 + b;
           const int idx = static_cast<int>(base + p);
           const float snr = vals[h][p];
-          ++raw;
-          const bool close = open && (idx - lastidx >= min_gap);
-          if (close) {
-            if (cursor < mx) {
-              oi[h * mx + cursor] = cpeakidx;
-              os[h * mx + cursor] = cpeak;
+          cluster::step(st, idx, snr, min_gap, [&](int slot, int ci, float cs) {
+            if (slot < mx) {
+              oi[h * mx + slot] = ci;
+              os[h * mx + slot] = cs;
             }
-            ++cursor;
-          }
-          if (!open || close || snr > cpeak) {
-            cpeak = snr;
-            cpeakidx = idx;
-            lastidx = idx;
-          }
-          open = 1;
+          });
         }
       }
     }
@@ -129,12 +119,12 @@ __device__ __forceinline__ void cluster_walk(
   }
   if (walker) {
     const int h = warp;
-    if (open && cursor < mx) {
-      oi[h * mx + cursor] = cpeakidx;
-      os[h * mx + cursor] = cpeak;
+    if (cluster::last_fits(st, mx)) {
+      oi[h * mx + st.cursor] = st.cpeakidx;
+      os[h * mx + st.cursor] = st.cpeak;
     }
-    count[h] = raw;
-    ccount[h] = cursor + open;
+    count[h] = st.raw;
+    ccount[h] = cluster::clusters(st);
   }
 }
 

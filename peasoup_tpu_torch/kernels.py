@@ -46,17 +46,14 @@ _ENTRIES = {
     "interbin": (
         "untwist_interbin_normalise", [_P, _P, _P, _P, _P, _P, _L, _L, _L, _P],
     ),
-    "dftspec": (
-        "dft_untwist_interbin",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
-    ),
+    "dftspec": ("dft_untwist_interbin", [_P] * 6 + [_L, _I, _L, _P]),
     "peaks": (
         "cluster_peaks_multi",
         [_P] * 6 + [_L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
     ),
     "harmpeaks": (
         "harmpeaks",
-        [_P, _L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
+        [_P, _L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _P, _L, _P, _P, _P, _P, _P],
     ),
     "boxcar": ("boxcar_best", [_P, _P, _P, _I, _L, _L, _L, _L, _P, _P, _P]),
     "spchain": (

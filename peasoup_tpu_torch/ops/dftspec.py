@@ -6,8 +6,10 @@ takes this route where its geometry gate holds (pow2 m = n/2 <= 2^17, an
 output pad that n1 divides) and its select resample serves the shift
 span; elsewhere the search takes cuFFT + the interbin kernel
 (ops/fft.py). :func:`dft_untwist_interbin` is the hand-written dftspec
-kernel (csrc/dftspec.cu, which computes the DFT itself) for CUDA tensors,
-and the plain version :func:`dft_untwist_interbin_plain` for CPU tensors.
+kernel (csrc/dftspec.cu: the DFT and the epilogue in one launch, one
+thread-block cluster a row, no scratch in device memory) for CUDA
+tensors, and the plain version :func:`dft_untwist_interbin_plain` for
+CPU tensors.
 
 The geometry helpers and the accuracy oracle (:func:`oracle_data`,
 :func:`accuracy_rel`, ``ACC_MAX_REL``, ``ACC_Q999_REL``) are copies of the
@@ -17,8 +19,6 @@ tests and for the on-card check alike.
 """
 
 from __future__ import annotations
-
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -116,15 +116,6 @@ def accuracy(
     return float(top[0]), v_lo + (pos - lo) * (v_hi - v_lo)
 
 
-@lru_cache(maxsize=4)
-def dft_twiddles(m: int, device: torch.device) -> torch.Tensor:
-    """(m,) complex64 W_m^p = e^{-2 pi i p / m}, computed in f64 and
-    rounded once: every twiddle of the kernel's two sub-DFTs and of the
-    step between them is one of these."""
-    w = np.exp(-2j * np.pi * np.arange(m, dtype=np.float64) / m)
-    return torch.from_numpy(w.astype(np.complex64)).to(device)
-
-
 def dft_untwist_interbin_plain(
     x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor, *, npad: int
 ) -> torch.Tensor:
@@ -150,7 +141,7 @@ def dft_untwist_interbin(
     rows, n = x.shape
     if n % 2:
         raise ValueError(f"series length must be even, got {n}")
-    n1, n2, _ = _geometry(n // 2, npad)
+    _geometry(n // 2, npad)
     if on_cpu(x, mean, std):
         return dft_untwist_interbin_plain(x, mean, std, npad=npad)
     check(x, "x", torch.float32, 2)
@@ -162,15 +153,11 @@ def dft_untwist_interbin(
         raise ValueError("x must be 8-byte aligned (read as complex pairs)")
     m = n // 2
     dev = x.device
-    tw = dft_twiddles(m, dev)
     unc, uns = untwist_tables(m, dev)
-    t = torch.empty((rows, m), dtype=torch.complex64, device=dev)
-    z = torch.empty((rows, m), dtype=torch.complex64, device=dev)
     out = torch.empty((rows, npad), dtype=torch.float32, device=dev)
     kernels.launch(
-        "dftspec", x.data_ptr(), tw.data_ptr(), unc.data_ptr(), uns.data_ptr(),
-        mean.data_ptr(), std.data_ptr(), t.data_ptr(), z.data_ptr(),
-        out.data_ptr(), rows, n1, n2, npad, stream_ptr(dev),
+        "dftspec", x.data_ptr(), unc.data_ptr(), uns.data_ptr(), mean.data_ptr(),
+        std.data_ptr(), out.data_ptr(), rows, m, npad, stream_ptr(dev),
         shape=(rows, n, npad),
     )
     return out

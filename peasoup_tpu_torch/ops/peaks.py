@@ -8,8 +8,9 @@ include/transforms/peakfinder.hpp:27-56), with the quirk that
 [start_idx, limit) mirrors find_candidates (peakfinder.hpp:82-84).
 
 :func:`find_harmonic_cluster_peaks` runs harmonic summing, thresholding
-and clustering of every level in one pass: the hand-written harmpeaks
-kernel (csrc/harmpeaks.cu) for CUDA tensors, the plain version
+and clustering of every level in one call: the hand-written harmpeaks
+kernel (csrc/harmpeaks.cu: sums and a crossing mask over the whole card,
+then one warp walks each row's level) for CUDA tensors, the plain version
 :func:`find_harmonic_cluster_peaks_plain` (harmonic_sums +
 find_peaks_device + cluster_peaks_device) for CPU tensors.
 :func:`find_cluster_peaks_multi` thresholds and clusters levels formed
@@ -26,6 +27,11 @@ import torch
 from .. import kernels
 from ..device import check, on_cpu, stream_ptr
 from .harmonics import harmonic_sums
+
+# the harmpeaks kernel's bin indices stay in int32, and its phase A takes
+# tiles of 1,024 bins (csrc/levels.cuh: kTile)
+HARMPEAKS_MAX_BINS = 1 << 26
+HARMPEAKS_TILE = 1024
 
 
 def find_peaks_device(
@@ -249,19 +255,30 @@ def find_harmonic_cluster_peaks(
     nbins = npad if nbins is None else nbins
     if not 0 < nbins <= npad:
         raise ValueError(f"nbins={nbins} outside the row of {npad}")
+    if npad >= HARMPEAKS_MAX_BINS:
+        raise ValueError(f"harmpeaks takes rows of fewer than {HARMPEAKS_MAX_BINS} bins")
     nlev = nharms + 1
     dev = spec.device
-    w = torch.from_numpy(_clamped_windows(windows, nbins, nlev)).to(dev)
-    sc = torch.tensor(scales, dtype=torch.float32, device=dev)
+    # windows and scales go to the kernels by value, from host memory
+    w = np.ascontiguousarray(_clamped_windows(windows, nbins, nlev))
+    sc = np.asarray(scales, dtype=np.float32)
     idxs = torch.empty((rows, nlev, max_peaks), dtype=torch.int32, device=dev)
     snrs = torch.empty((rows, nlev, max_peaks), dtype=torch.float32, device=dev)
     counts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
     ccounts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
+    # the kernel's scratch, in one allocation, over tiles of HARMPEAKS_TILE
+    # bins: the crossing mask (one bit a bin and level, ldm words a level)
+    # and the values of the first crossings of each level in each span of
+    # 128 bins (8 slots, 2 ldm a level)
+    ldm = 32 * (-(-npad // HARMPEAKS_TILE))
+    scratch = torch.empty(rows * nlev * 3 * ldm, dtype=torch.int32, device=dev)
+    mask = scratch.data_ptr()
+    vals = mask + 4 * rows * nlev * ldm
     kernels.launch(
-        "harmpeaks", spec.data_ptr(), rows, npad, nbins, nharms, w.data_ptr(),
-        sc.data_ptr(), float(np.float32(threshold)), min_gap, max_peaks,
-        idxs.data_ptr(), snrs.data_ptr(), counts.data_ptr(),
-        ccounts.data_ptr(), stream_ptr(dev),
+        "harmpeaks", spec.data_ptr(), rows, npad, nbins, nharms, w.ctypes.data,
+        sc.ctypes.data, float(np.float32(threshold)), min_gap, max_peaks,
+        mask, vals, ldm, idxs.data_ptr(), snrs.data_ptr(),
+        counts.data_ptr(), ccounts.data_ptr(), stream_ptr(dev),
         shape=(rows, npad, nharms, max_peaks),
     )
     return idxs, snrs, counts, ccounts

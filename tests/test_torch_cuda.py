@@ -2,7 +2,8 @@
 small shapes with the edge cases (odd widths, birdies at block edges,
 every dftspec factorisation, garbage padding, cluster overflow, rows out of order, offsets past 2^31,
 boxcars past the trial's end, a tile shorter than the kernel's, -inf
-blocks, flat stretches) that the main path's inputs may not hold.
+blocks, flat stretches, more harmpeaks rows than SMs, dense crossing
+runs) that the main path's inputs may not hold.
 `chip_smoke.py` holds the kernels at the main path's shapes and the
 card's search against the CPU's. Every test here needs an NVIDIA
 card and skips without one.
@@ -133,6 +134,24 @@ def test_dftspec(dev, rows, n):
     assert q999 <= dftspec.ACC_Q999_REL
 
 
+def test_dftspec_allocates_no_scratch(dev):
+    # one launch, T and Z kept on chip: the call allocates its output and
+    # nothing the size of a (rows, m) complex array
+    rows, n = 64, 1 << 17
+    m = n // 2
+    npad = m + 4096
+    x, _, _, mean, std = dftspec.oracle_data(n, r=rows, seed=3)
+    xs, ms, ss = _on(dev, x, mean, std)
+    dftspec.dft_untwist_interbin(xs, ms, ss, npad=npad)  # the cached tables
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = dftspec.dft_untwist_interbin(xs, ms, ss, npad=npad)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated() - base
+    assert out.nbytes <= grew < out.nbytes + rows * m * 8
+
+
 @pytest.mark.parametrize("nlev,mx", [(5, 64), (3, 4)])
 def test_peaks(dev, nlev, mx):
     rng = np.random.default_rng(8)
@@ -166,6 +185,38 @@ def test_harmpeaks(dev, nharms, mx):
     npad = -(-nbins // 4096) * 4096
     sp = np.pad(s, ((0, 0), (0, npad - nbins)), constant_values=1e9)
     windows = np.tile(np.asarray([[nbins // 10, nbins + 500]], np.int32), (nharms + 1, 1))
+    kw = dict(nharms=nharms, threshold=9.0, max_peaks=mx,
+              scales=harmonics.level_scales(nharms), nbins=nbins)
+    (spec,) = _on(dev, sp)
+    got = peaks.find_harmonic_cluster_peaks(spec, windows, **kw)
+    want = peaks.find_harmonic_cluster_peaks_plain(spec, windows, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3].max()) > 0
+
+
+@pytest.mark.parametrize(
+    "rows,nbins,nharms,mx",
+    [(300, 20000, 4, 16),   # more rows than the card has SMs
+     (3, (1 << 20) + 1, 4, 64),  # a big-grid row
+     (5, 50000, 5, 32)],  # nharms 5
+)
+def test_harmpeaks_whole_card(dev, rows, nbins, nharms, mx):
+    rng = np.random.default_rng(rows)
+    s = np.abs(rng.normal(size=(rows, nbins))).astype(np.float32)
+    s[::3, ::61] += 30.0
+    # dense runs of crossings across mask words and phase A's 1,024-bin
+    # tiles, and crossings on bits 0 and 31 of mask words
+    s[1, 1000:3100] += 15.0
+    s[-1, 4000:9000:3] += 25.0
+    s[:, [4096, 4127, 8191, 8192]] += 40.0
+    npad = -(-nbins // 4096) * 4096
+    sp = np.pad(s, ((0, 0), (0, npad - nbins)), constant_values=1e9)
+    nlev = nharms + 1
+    windows = np.tile(np.asarray([[nbins // 10, nbins + 500]], np.int32), (nlev, 1))
+    windows[0] = [1000, nbins - 7]
+    windows[1] = [4096, 8192]
     kw = dict(nharms=nharms, threshold=9.0, max_peaks=mx,
               scales=harmonics.level_scales(nharms), nbins=nbins)
     (spec,) = _on(dev, sp)
