@@ -38,6 +38,9 @@ Phases, each fatal on failure:
      be the three pulses at their DM trials, samples and widths, with
      S/N within 15% of the matched filter, and dedisperse and spchain
      must have run.
+  Every `peasoup` run (3-5) must distil its candidates in the native
+  library (peasoup_tpu_torch/native, whose calls are counted), and prints
+  which distil ran and its `search_host` and `total` timers.
   7. Hold each kernel against its plain torch version on the card at the
      launch shape a CLI run used most (resample: the binary grid's;
      dftspec and peaks: the tutorial grid's; spchain and boxcar: the
@@ -47,7 +50,8 @@ Phases, each fatal on failure:
      interbin kernel, at m = 2^14, 2^15 and 2^17, and with the memory it
      allocates beside its output (no T or Z scratch); resample and
      harmpeaks also at the tutorial grid's shapes (``other_shapes`` in
-     the kernels line). Under --profile the CLI runs' device time names
+     the kernels line), and dedisperse also at the single-pulse grid's
+     179-trial shape (``other_shapes``). Under --profile the CLI runs' device time names
      harmpeaks' two kernels (harm_mask, harm_walk) and dftspec's one.
   8. The card's search against the CPU search (plain versions) on a
      small 8-bit filterbank, folding its top 5: the strong candidates
@@ -75,7 +79,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from peasoup_tpu_torch import kernels  # noqa: E402
+from peasoup_tpu_torch import kernels, native  # noqa: E402
 from peasoup_tpu_torch.io.sigproc import (  # noqa: E402
     Filterbank, SigprocHeader, read_filterbank, write_filterbank,
 )
@@ -399,8 +403,7 @@ def resample_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> d
     lo = dp // d_blk * d_blk
     require(lo + d_blk <= plan.ndm, "the modal DM block holds the pulsar's trial")
     trials = dedisperse(
-        fil_to_device(fil, dev), torch.from_numpy(plan.delays).to(dev),
-        torch.from_numpy(plan.killmask).to(dev), plan.out_nsamps,
+        fil_to_device(fil, dev), plan.delays, plan.killmask, plan.out_nsamps,
         scale=output_scale(fil.nbits, int(plan.killmask.sum())),
     )
     tobs = float(np.float32(size) * np.float32(fil.tsamp))
@@ -434,6 +437,34 @@ def resample_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> d
     )
 
 
+def dedisperse_check(x, nbits: int, delays, kill, out_n: int) -> tuple:
+    """dedisperse on the (T, C) filterbank ``x`` with the plan's host
+    delays and kill mask, bitwise against its plain version and timed with
+    its wrapper (the host tables and their upload). Returns the trials and
+    the check's record."""
+    scale = output_scale(nbits, int(kill.sum()))
+    trials = dedisperse(x, delays, kill, out_n, scale=scale)
+    ref = dedisperse_block(x, delays, kill, out_nsamps=out_n, scale=scale)
+    torch.cuda.synchronize()
+    err = float((trials.int() - ref.int()).abs().max())
+    require(err == 0, f"dedisperse bitwise equal to its plain version ({delays.shape[0]} trials)")
+    del ref
+    ndm, nchans = delays.shape
+    return trials, dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: dedisperse(x, delays, kill, out_n, scale=scale)),
+        plain_ms=time_ms(
+            lambda: dedisperse_block(x, delays, kill, out_nsamps=out_n, scale=scale),
+            reps=3,
+        ),
+        # the f32 reckoning: a multiply and an add per (trial, sample,
+        # channel), as the plain version does them
+        bound=bound(x.numel() + delays.size * 4 + ndm * out_n,
+                    2.0 * ndm * out_n * nchans),
+        shape=f"({x.shape[0]}, {nchans}) u8 -> ({ndm}, {out_n}) u8",
+    )
+
+
 def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dict:
     """Each kernel against its plain version, on the inputs the big-grid
     search gives it: the filterbank and the search plan, the spectra of
@@ -448,31 +479,14 @@ def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dic
 
     # dedisperse: every DM trial of the plan over the 2-bit filterbank
     x = fil_to_device(fil, dev)
-    delays = torch.from_numpy(plan.delays).to(dev)
-    kill = torch.from_numpy(plan.killmask).to(dev)
     ndm, out_n = plan.ndm, plan.out_nsamps
     require(main_shape(shapes, "dedisperse") == (fil.nsamps, fil.nchans, ndm, out_n),
             "dedisperse checked at the main path's shape")
     require(main_shape(shapes, "specchain") == (ndm, nbins),
             "specchain checked at the main path's shape (one DM block)")
-    scale = output_scale(fil.nbits, int(plan.killmask.sum()))
-    trials = dedisperse(x, delays, kill, out_n, scale=scale)
-    ref = dedisperse_block(x, delays, kill, out_nsamps=out_n, scale=scale)
-    torch.cuda.synchronize()
-    err = float((trials.int() - ref.int()).abs().max())
-    require(err == 0, "dedisperse bitwise equal to its plain version")
-    out["dedisperse"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: dedisperse(x, delays, kill, out_n, scale=scale)),
-        plain_ms=time_ms(
-            lambda: dedisperse_block(x, delays, kill, out_nsamps=out_n, scale=scale),
-            reps=3,
-        ),
-        bound=bound(x.numel() + delays.numel() * 4 + ndm * out_n,
-                    2.0 * ndm * out_n * fil.nchans),
-        shape=f"({fil.nsamps}, {fil.nchans}) u8 -> ({ndm}, {out_n}) u8",
-    )
-    del x, ref
+    trials, out["dedisperse"] = dedisperse_check(x, fil.nbits, plan.delays, plan.killmask,
+                                                 out_n)
+    del x
 
     # specchain: the raw spectra of every DM trial
     tobs = float(np.float32(size) * np.float32(fil.tsamp))
@@ -574,11 +588,13 @@ def cli_phase(main, argv: list, outdir: str, outputs: tuple, path_kernels: tuple
         prof = tracer(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         prof.start()
     kernels.reset_launches()
+    native.calls.clear()
     t0 = time.perf_counter()
     rc = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.launches)
+    native_calls = dict(native.calls)
     shapes = {k: v.copy() for k, v in kernels.launch_shapes.items()}
     if profile:
         prof.stop()
@@ -590,7 +606,8 @@ def cli_phase(main, argv: list, outdir: str, outputs: tuple, path_kernels: tuple
         require(launches[name] > 0, f"kernel {name} launched on the main path")
     root = ET.parse(os.path.join(outdir, "overview.xml")).getroot()
     timers = {e.tag: float(e.text) for e in root.find("execution_times")}
-    return dict(launches=launches, shapes=shapes, timers=timers, wall=wall, root=root)
+    return dict(launches=launches, shapes=shapes, timers=timers, wall=wall, root=root,
+                native_calls=native_calls)
 
 
 def periodicity_phase(path: str, outdir: str, flags: list, period: float,
@@ -604,6 +621,13 @@ def periodicity_phase(path: str, outdir: str, flags: list, period: float,
 
     run = cli_phase(main, ["-i", path, "-o", outdir, *flags], outdir,
                     ("candidates.peasoup", "overview.xml"), path_kernels, profile)
+    calls = run["native_calls"]
+    distil = ("native segmented" if calls.get("ps_harmonic_distill_seg") and
+              calls.get("ps_accel_distill_seg") else "python per-trial")
+    say(f"distil: {distil} (native library calls {json.dumps(calls, sort_keys=True)}); "
+        f"search_host {run['timers']['search_host']!r} s of total "
+        f"{run['timers']['total']!r} s")
+    require(distil == "native segmented", "the per-DM distil ran in the native library")
     root = run["root"]
     top = root.find("candidates/candidate")
     require(top is not None, "at least one candidate")
@@ -789,8 +813,7 @@ def tutorial_kernel_phase(dev: torch.device, fil, runs: dict) -> tuple[dict, dic
     batch = pulsar_rows(plan, range(plan.ndm), rows, dm=TUT_DM)
     lo, hi = batch[0][0], batch[-1][0] + 1
     trials = dedisperse(
-        fil_to_device(fil, dev), torch.from_numpy(plan.delays).to(dev),
-        torch.from_numpy(plan.killmask).to(dev), plan.out_nsamps,
+        fil_to_device(fil, dev), plan.delays, plan.killmask, plan.out_nsamps,
         scale=output_scale(fil.nbits, int(plan.killmask.sum())),
     )
     tobs = float(np.float32(size) * np.float32(fil.tsamp))
@@ -985,16 +1008,17 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     require((tpad, wext, nw, dec) == (plan_pad(n)[0], width_extent(widths),
                                       len(widths), SP_CONFIG.decimate),
             "spchain ran at the plan's geometry")
-    trials = dedisperse(
-        fil_to_device(fil, dev), torch.from_numpy(plan.delay_samples()[:d]).to(dev),
-        torch.from_numpy(plan.killmask).to(dev), n,
-        scale=output_scale(fil.nbits, int(plan.killmask.sum())),
-    )
-    csum = prefix_sum_padded(normalise_trials(trials), tpad, wext)
+    # dedisperse at the search's own launch shape, every DM trial of the plan
+    x = fil_to_device(fil, dev)
+    require(main_shape(shapes, "dedisperse") == (fil.nsamps, fil.nchans, plan.ndm, n),
+            "dedisperse checked at the single-pulse search's shape")
+    trials, dd = dedisperse_check(x, fil.nbits, plan.delay_samples(), plan.killmask, n)
+    del x
+    out = {"dedisperse": dict(dd, path="single-pulse grid")}
+    csum = prefix_sum_padded(normalise_trials(trials[:d]), tpad, wext)
     del trials
     scales = width_scales(widths)
     args = (csum, widths, scales, n, tpad)
-    out = {}
 
     got = boxcar_dec_best(*args, dec)
     ref = boxcar_dec_best_plain(*args, dec)
@@ -1221,7 +1245,13 @@ def main() -> int:
             {k: {str(s): n for s, n in v.items()} for k, v in run["shapes"].items()}
         ))
         for name, c in sp_kernel_phase(dev, fil, run["shapes"]).items():
-            checks[name] = dict(c, path=label)
+            if name == "dedisperse":  # the main path's second dedisperse shape
+                say(f"dedisperse ({label}): {c['shape']}: {c['ms']:.4f} ms kernel, "
+                    f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
+                    f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
+                checks[name].setdefault("other_shapes", []).append(other_shape(c))
+            else:
+                checks[name] = dict(c, path=label)
         del fil
         os.remove(path)
         torch.cuda.empty_cache()

@@ -1,78 +1,276 @@
-// Incoherent dedispersion: out[d, t] = q(scale * sum_c kill[c] * x[c, t + delay[d, c]]).
+// Incoherent dedispersion: out[d, t] = q(scale * sum_c kill[c] * x[t + delay[d, c], c]).
 //
 // Replaces the TPU kernel peasoup_tpu/ops/pallas/dedisperse.py:dedisperse_pallas
 // (its plain twin is ops/dedisperse.py:dedisperse_block).
 //
-// What bounds it on the H100: each output sample sums every channel, so at
-// 2-bit survey input the work is 2*D*C operations per output sample against
-// one byte in per (channel, sample) and one byte out per (trial, sample):
-// at 64 channels the f32 adds, not the bytes, set the floor. The input rows
-// are re-read once per DM trial tile, and L2 (50 MB) holds a channel's
-// window across neighbouring trials.
+// What bounds it on the H100: each output sample sums every kept channel,
+// so at 64 channels the adds, not the bytes (one in per (sample, channel),
+// one out per (trial, sample)), set the floor.
 //
-// Design: one thread owns one output sample for kTrials DM trials, loops over
-// the channels in ascending order (the reference's summation order, so the
-// f32 sums of small integers are bitwise those of the plain version) and
-// keeps the kTrials accumulators in registers. The filterbank arrives
-// channel-major, so neighbouring threads read neighbouring times. Ragged
-// edges (trials past D, samples past out_nsamps) are masked, not padded.
+// Design (dedisp_map.cuh has the maps). The filterbank is read as it lies,
+// time-major (T, C) u8: no transposed copy. A block owns 16 DM trials and
+// 2,048 output samples and walks the kept channels in chunks of up to 16.
+// For each chunk it stages the input rows its trials reach (the time window
+// plus the chunk's delay spread) channel-major in shared memory, one byte
+// per sample, together with each trial's delay on each channel, 16 bits
+// relative to the chunk's least delay. A chunk of 16 neighbouring channels
+// on a 16-byte boundary (every chunk of a filterbank with nothing killed
+// and a multiple of 16 channels) is staged with one 16-byte load a row and
+// a 4x4 byte transpose in registers; any other chunk a byte at a time.
+// Each thread then sums 8 samples (two groups of 4) for each of the 16
+// trials: per trial and channel it reads two neighbouring words, shifts
+// the four samples it needs out of them and adds them as two pairs of
+// 16-bit lanes, bytes 0 and 2 in one 32-bit add and bytes 1 and 3 in
+// another. A lane holds 256 channels of 8-bit samples; past 256 kept
+// channels the lanes are flushed to 32-bit sums every 256. Every term is a
+// small non-negative integer (the kill mask is 0/1 and killed channels are
+// skipped), so the sums are exact and equal the plain version's f32 sums
+// (exact below 2^24); each is scaled, rounded half to even and clipped as
+// the plain version does, so the output is its bit for bit. The output
+// tile goes through shared memory and out in aligned 32-bit words.
 // Multiply and add stay separate (the build passes -fmad=false).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dedisp_map.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTrials = 8;
+using ddmap::kGroups;
+using ddmap::kRecs;
+using ddmap::kThreads;
+using ddmap::kTile;
+using ddmap::kTrials;
 
-__global__ void dedisperse_kernel(const uint8_t* __restrict__ x_ct,
-                                  const int32_t* __restrict__ delays,
-                                  const float* __restrict__ kill,
-                                  uint8_t* __restrict__ out, int64_t t_in,
-                                  int nchans, int ndm, int64_t out_nsamps,
-                                  float scale, int apply_scale) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int d0 = blockIdx.y * kTrials;
-  if (t >= out_nsamps) return;
-  const int nd = min(kTrials, ndm - d0);
-  float acc[kTrials];
-#pragma unroll
-  for (int i = 0; i < kTrials; ++i) acc[i] = 0.f;
-  for (int c = 0; c < nchans; ++c) {
-    const uint8_t* row = x_ct + static_cast<int64_t>(c) * t_in + t;
-    const float k = kill[c];
+constexpr int kStageLoads = 8;
+
+struct Args {
+  const uint8_t* x;        // (t_in, nchans) u8
+  const int32_t* chans;    // (nkept,) kept channels, ascending
+  const uint4* rel;        // (ntiles, nchunks, 2^log_chunk) records of 8 u16
+  const int2* lo_spread;   // (ntiles, nchunks) least delay, spread
+  uint8_t* out;            // (ndm, out_n) u8
+  int64_t t_in, out_n;
+  int nchans, nkept, ndm, log_chunk, nchunks, pitch, ntime;
+  float scale;
+  int apply_scale;
+};
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int g) {
+  return g == 0 ? v.x : g == 1 ? v.y : g == 2 ? v.z : v.w;
+}
+
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
+  extern __shared__ uint4 smem[];
+  uint4* srel = smem;  // the chunk's channels' records
+  uint32_t* win = reinterpret_cast<uint32_t*>(smem + (kRecs << ddmap::kMaxLogChunk));
+  uint8_t* winb = reinterpret_cast<uint8_t*>(win);
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  const int d0 = tile * kTrials;
+  const int nd = min(kTrials, a.ndm - d0);
+  const int chunk = 1 << a.log_chunk;
+  const bool x_aligned = (reinterpret_cast<uintptr_t>(a.x) & 15u) == 0;
+
+  for (int tt = blockIdx.y; tt < a.ntime; tt += gridDim.y) {
+    const int64_t t0 = static_cast<int64_t>(tt) * kTile;
+    uint32_t lanes[kTrials][kGroups][2];  // even, odd 16-bit lane pairs
+    uint32_t wide[kWide ? kTrials : 1][kGroups][4];
 #pragma unroll
     for (int i = 0; i < kTrials; ++i) {
-      if (i < nd) {
-        const int dl = delays[static_cast<int64_t>(d0 + i) * nchans + c];
-        acc[i] = acc[i] + static_cast<float>(row[dl]) * k;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        lanes[i][g][0] = lanes[i][g][1] = 0u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wide[kWide ? i : 0][g][q] = 0u;
       }
     }
-  }
+    int in_lanes = 0;  // channels summed into the 16-bit lanes
+    for (int ck = 0; ck < a.nchunks; ++ck) {
+      const int c0 = ck << a.log_chunk;
+      const int kc = min(chunk, a.nkept - c0);
+      const int2 ls = a.lo_spread[tile * a.nchunks + ck];
+      const int rows = ddmap::window_rows(ls.y);
+      if (tid < chunk * kRecs) {
+        srel[tid] = a.rel[(static_cast<int64_t>(tile) * a.nchunks + ck) * chunk * kRecs + tid];
+      }
+      const int64_t row0 = t0 + ls.x;  // the window's first input row
+      if (x_aligned && ddmap::dense_chunk(a.chans, c0, kc, a.log_chunk, a.nchans)) {
+        // a quad of rows a thread: four 16-byte loads, a byte transpose,
+        // one word a channel
+        const uint8_t* src = a.x + row0 * a.nchans + a.chans[c0];
+        for (int q = tid; 4 * q < rows; q += kThreads) {
+          uint4 v[4];
 #pragma unroll
-  for (int i = 0; i < kTrials; ++i) {
-    if (i < nd) {
-      float v = acc[i];
-      if (apply_scale) v = v * scale;
-      v = fminf(fmaxf(rintf(v), 0.f), 255.f);
-      out[static_cast<int64_t>(d0 + i) * out_nsamps + t] = static_cast<uint8_t>(v);
+          for (int u = 0; u < 4; ++u) {
+            v[u] = row0 + 4 * q + u < a.t_in
+                       ? __ldg(reinterpret_cast<const uint4*>(src + (4 * q + u) * static_cast<int64_t>(a.nchans)))
+                       : make_uint4(0u, 0u, 0u, 0u);
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            uint32_t cw[4];
+            ddmap::transpose4(word(v[0], g), word(v[1], g), word(v[2], g), word(v[3], g), cw);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) win[(4 * g + i) * a.pitch + q] = cw[i];
+          }
+        }
+      } else {
+        // one byte a load: each thread keeps one channel (256 is a
+        // multiple of the chunk) and keeps kStageLoads loads in flight
+        // before their stores, or the staging waits on each in turn
+        int cl, r;
+        ddmap::stage_coords(tid, a.log_chunk, cl, r);
+        const int step = kThreads >> a.log_chunk;
+        const int64_t chan = cl < kc ? a.chans[c0 + cl] : 0;
+        const uint8_t* src = a.x + row0 * a.nchans + chan;
+        uint8_t* dst = winb + static_cast<int64_t>(cl) * a.pitch * 4;
+        for (; r < rows; r += kStageLoads * step) {
+          uint8_t v[kStageLoads];
+#pragma unroll
+          for (int u = 0; u < kStageLoads; ++u) {
+            const int ru = r + u * step;
+            const bool ok = cl < kc && ru < rows && row0 + ru < a.t_in;
+            v[u] = ok ? __ldg(src + static_cast<int64_t>(ru) * a.nchans) : uint8_t{0};
+          }
+#pragma unroll
+          for (int u = 0; u < kStageLoads; ++u) {
+            if (r + u * step < rows) dst[r + u * step] = v[u];
+          }
+        }
+      }
+      __syncthreads();
+      for (int c = 0; c < kc; ++c) {
+        uint32_t rec[kTrials / 2];
+#pragma unroll
+        for (int e = 0; e < kRecs; ++e) {
+          const uint4 rv = srel[c * kRecs + e];
+          rec[4 * e] = rv.x;
+          rec[4 * e + 1] = rv.y;
+          rec[4 * e + 2] = rv.z;
+          rec[4 * e + 3] = rv.w;
+        }
+        const uint32_t* row = win + c * a.pitch;
+#pragma unroll
+        for (int i = 0; i < kTrials; ++i) {
+          const int rel = ddmap::rel_of(rec, i);
+          const int shift = ddmap::read_shift(rel);
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g) {
+            const int w = ddmap::read_word(tid, g, rel);
+            const uint32_t b = ddmap::funnel(row[w], row[w + 1], shift);
+            lanes[i][g][0] += ddmap::even_lanes(b);
+            lanes[i][g][1] += ddmap::odd_lanes(b);
+          }
+        }
+      }
+      in_lanes += kc;
+      if (kWide && (in_lanes + chunk > ddmap::kLaneChannels || ck + 1 == a.nchunks)) {
+#pragma unroll
+        for (int i = 0; i < kTrials; ++i) {
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g) {
+            wide[kWide ? i : 0][g][0] += lanes[i][g][0] & 0xFFFFu;
+            wide[kWide ? i : 0][g][1] += lanes[i][g][1] & 0xFFFFu;
+            wide[kWide ? i : 0][g][2] += lanes[i][g][0] >> 16;
+            wide[kWide ? i : 0][g][3] += lanes[i][g][1] >> 16;
+            lanes[i][g][0] = lanes[i][g][1] = 0u;
+          }
+        }
+        in_lanes = 0;
+      }
+      __syncthreads();
     }
+    // the output tile through shared memory (the window is free after the
+    // last chunk's barrier), so a row goes out in aligned 32-bit words
+#pragma unroll
+    for (int i = 0; i < kTrials; ++i) {
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        uint32_t s[4];
+        if (kWide) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) s[q] = wide[kWide ? i : 0][g][q];
+        } else {
+          s[0] = lanes[i][g][0] & 0xFFFFu;
+          s[1] = lanes[i][g][1] & 0xFFFFu;
+          s[2] = lanes[i][g][0] >> 16;
+          s[3] = lanes[i][g][1] >> 16;
+        }
+        uint32_t packed = 0u;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          packed |= static_cast<uint32_t>(ddmap::quantise(s[q], a.scale, a.apply_scale)) << (8 * q);
+        }
+        win[i * ddmap::kTileWords + ddmap::out_word(tid, g)] = packed;
+      }
+    }
+    __syncthreads();
+    const int n = static_cast<int>(min(static_cast<int64_t>(kTile), a.out_n - t0));
+    for (int i = 0; i < nd; ++i) {
+      const int64_t g_addr = static_cast<int64_t>(d0 + i) * a.out_n + t0;
+      uint8_t* orow = a.out + g_addr;
+      const uint32_t* trow = win + i * ddmap::kTileWords;
+      const int head = min(ddmap::head_bytes(g_addr), n);
+      const int nwords = (n - head) / 4;
+      const int tail = head + 4 * nwords;
+      if (tid < head) orow[tid] = winb[i * kTile + tid];
+      if (tail + tid < n) orow[tail + tid] = winb[i * kTile + tail + tid];
+      const int shift = 8 * (head & 3);
+      for (int j = tid; j < nwords; j += kThreads) {
+        const int o = head + 4 * j;
+        *reinterpret_cast<uint32_t*>(orow + o) = ddmap::funnel(trow[o >> 2], trow[(o >> 2) + 1], shift);
+      }
+    }
+    __syncthreads();
   }
+}
+
+template <bool kWide>
+int launch(const Args& a, cudaStream_t stream) {
+  // the records, then the larger of the window and the output tile (and
+  // the word past the tile its last funnel reads)
+  const int window = (1 << a.log_chunk) * a.pitch * 4;
+  const int tile = kTrials * kTile + 4;
+  const int smem = (kRecs << ddmap::kMaxLogChunk) * 16 + (window > tile ? window : tile);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        dedisperse_kernel<kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((a.ndm + kTrials - 1) / kTrials, a.ntime < 65535 ? a.ntime : 65535);
+  dedisperse_kernel<kWide><<<grid, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int dedisperse_u8(const void* x_ct, const void* delays,
-                             const void* kill, void* out, long long t_in,
-                             int nchans, int ndm, long long out_nsamps,
+// The tables (rel, lo_spread, chans) come from ops/dedisperse.py:_tables.
+extern "C" int dedisperse_u8(const void* x, long long t_in, int nchans,
+                             const void* chans, int nkept, const void* rel,
+                             const void* lo_spread, int log_chunk, int nchunks,
+                             int pitch, void* out, int ndm, long long out_nsamps,
                              float scale, int apply_scale, void* stream) {
   if (out_nsamps <= 0 || ndm <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(static_cast<unsigned>((out_nsamps + kThreads - 1) / kThreads),
-                  static_cast<unsigned>((ndm + kTrials - 1) / kTrials));
-  dedisperse_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x_ct), static_cast<const int32_t*>(delays),
-      static_cast<const float*>(kill), static_cast<uint8_t*>(out), t_in,
-      nchans, ndm, out_nsamps, scale, apply_scale);
-  return static_cast<int>(cudaGetLastError());
+  Args a;
+  a.x = static_cast<const uint8_t*>(x);
+  a.chans = static_cast<const int32_t*>(chans);
+  a.rel = static_cast<const uint4*>(rel);
+  a.lo_spread = static_cast<const int2*>(lo_spread);
+  a.out = static_cast<uint8_t*>(out);
+  a.t_in = t_in;
+  a.out_n = out_nsamps;
+  a.nchans = nchans;
+  a.nkept = nkept;
+  a.ndm = ndm;
+  a.log_chunk = log_chunk;
+  a.nchunks = nchunks;
+  a.pitch = pitch;
+  a.ntime = static_cast<int>((out_nsamps + kTile - 1) / kTile);
+  a.scale = scale;
+  a.apply_scale = apply_scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return nkept > ddmap::kLaneChannels ? launch<true>(a, s) : launch<false>(a, s);
 }

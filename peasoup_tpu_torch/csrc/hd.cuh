@@ -1,7 +1,8 @@
 // Marks the functions that nvcc compiles for the card and for the host
 // alike, and that a plain C++ compiler (g++) compiles for the host: the
-// level function, the cluster walk's step and the DFT's ownership maps,
-// which the CPU tests build into a small shared library of their own.
+// level function, the cluster walk's step, the DFT's ownership maps,
+// interbin's mirror pairs and dedisperse's windows and packed sums, which
+// the CPU tests build into a small shared library of their own.
 
 #pragma once
 

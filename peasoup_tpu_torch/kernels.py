@@ -40,7 +40,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 
 # kernel name -> (C symbol, argtypes); every entry ends with the stream
 _ENTRIES = {
-    "dedisperse": ("dedisperse_u8", [_P, _P, _P, _P, _L, _I, _I, _L, _F, _I, _P]),
+    "dedisperse": (
+        "dedisperse_u8", [_P, _L, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I, _L, _F, _I, _P],
+    ),
     "resample": ("resample_rows", [_P, _P, _P, _P, _L, _L, _P]),
     "specchain": ("specchain", [_P, _P, _P, _P, _P, _P, _P, _L, _L, _P]),
     "interbin": (

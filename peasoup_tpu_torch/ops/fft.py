@@ -96,6 +96,13 @@ def untwist_interbin_normalise(
     rows, m = z.shape
     if mean.shape != (rows,) or std.shape != (rows,):
         raise ValueError("mean and std must be (R,)")
+    # the kernel's mirror pairs load Z[k..k+1] as one aligned 16-byte word
+    # and store the output's low pairs as 8-byte words
+    if m % 4 or npad % 2 or z.data_ptr() % 16:
+        raise ValueError(
+            f"bad interbin geometry for the kernel: m {m} (a multiple of 4), "
+            f"npad {npad} (even), Z at {z.data_ptr() % 16} past 16-byte alignment"
+        )
     unc, uns = untwist_tables(m, z.device)
     out = torch.empty((rows, npad), dtype=torch.float32, device=z.device)
     kernels.launch(

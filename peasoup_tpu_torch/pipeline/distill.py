@@ -6,8 +6,11 @@ descending (!IMPORTANT, distiller.hpp:31), then walks survivors in
 order; each survivor's ``condition`` marks weaker related candidates
 non-unique and (optionally) absorbs them into its ``assoc`` list.
 
-Host-side by design: candidate counts are tiny relative to device work,
-and the O(n^2) inner loops vectorise over numpy arrays here.
+Host-side by design: candidate counts are tiny relative to device work.
+By default the sort and the survivor loop run in the native library
+(peasoup_tpu_torch/native), whose sort replays the reference's unstable
+std::sort, so exact S/N ties crown the reference's member;
+``PEASOUP_NO_NATIVE=1`` selects the numpy loops below and a stable sort.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import List
 
 import numpy as np
 
+from .. import native
 from ..core.candidates import Candidate
 
 SPEED_OF_LIGHT = 299792458.0
@@ -36,16 +40,33 @@ class BaseDistiller:
     def condition(self, cands, idx, unique) -> None:
         raise NotImplementedError
 
+    def _native(self):
+        """(survivor mask, edge sources, edge targets) of the sorted
+        columns from the native library."""
+        raise NotImplementedError
+
     def distill(self, cands: List[Candidate]) -> List[Candidate]:
         size = len(cands)
-        # The !IMPORTANT S/N-descending sort (distiller.hpp:31). The
-        # reference's std::sort is unstable, so exact S/N ties may crown
-        # another member there; this stable sort is the same order for
-        # every distinct S/N.
-        cands = sorted(cands, key=lambda c: -c.snr)
+        # The !IMPORTANT S/N-descending sort (distiller.hpp:31) is
+        # std::sort, an unstable introsort whose arrangement of exactly
+        # tied S/N values decides which member the distiller crowns: the
+        # native library replays it. The pure-Python path sorts stably,
+        # which is the same order for every distinct S/N.
+        use_native = native.enabled()
+        if use_native:
+            perm = native.snr_sort_perm(np.array([c.snr for c in cands], dtype=np.float32))
+            cands = [cands[i] for i in perm]
+        else:
+            cands = sorted(cands, key=lambda c: -c.snr)
         self.freqs = np.array([c.freq for c in cands], dtype=np.float64)
         self.accs = np.array([c.acc for c in cands], dtype=np.float64)
         self.nhs = np.array([c.nh for c in cands], dtype=np.int64)
+        if use_native:
+            unique, src, dst = self._native()
+            if self.keep_related:
+                for s, d in zip(src, dst):
+                    cands[s].append(cands[d])
+            return [c for c, u in zip(cands, unique) if u]
         unique = np.ones(size, dtype=bool)
         idx = 0
         while idx < size:
@@ -65,6 +86,12 @@ class HarmonicDistiller(BaseDistiller):
         self.tolerance = tol
         self.max_harm = int(max_harm)
         self.fractional_harms = fractional_harms
+
+    def _native(self):
+        return native.harmonic_distill(
+            self.freqs, self.nhs, self.tolerance, self.max_harm,
+            self.fractional_harms, self.keep_related,
+        )
 
     def condition(self, cands, idx, unique) -> None:
         size = len(cands)
@@ -112,6 +139,11 @@ class AccelerationDistiller(BaseDistiller):
         self.tobs_over_c = tobs / SPEED_OF_LIGHT
         self.tolerance = tol
 
+    def _native(self):
+        return native.accel_distill(
+            self.freqs, self.accs, self.tobs_over_c, self.tolerance, self.keep_related
+        )
+
     def condition(self, cands, idx, unique) -> None:
         size = len(cands)
         if idx + 1 >= size:
@@ -143,6 +175,9 @@ class DMDistiller(BaseDistiller):
     def __init__(self, tol: float, keep_related: bool):
         super().__init__(keep_related)
         self.tolerance = tol
+
+    def _native(self):
+        return native.dm_distill(self.freqs, self.tolerance, self.keep_related)
 
     def condition(self, cands, idx, unique) -> None:
         size = len(cands)

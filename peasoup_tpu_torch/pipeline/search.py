@@ -6,7 +6,9 @@ device. Blocks of DM trials are preprocessed together, and their
 (DM, accel) trials run as row batches of the acceleration chain
 (pipeline/accel_search.py), sized from the device's free memory. Cluster
 peaks come back to the host, where candidate building, distilling and
-scoring run on small arrays, as in the reference.
+scoring run on small arrays, as in the reference: the per-DM distil in
+the native library (peasoup_tpu_torch/native, built with g++ at first
+use), or in Python where ``PEASOUP_NO_NATIVE=1`` asks for it.
 
 With npdmp > 0 the top candidates are folded and optimised
 (pipeline/folder.py) from the dedispersed trials the device still holds.
@@ -34,7 +36,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..core.candidates import Candidate, CandidateCollection
+from .. import native
+from ..core.candidates import Candidate
 from ..device import resolve_device
 from ..io.masks import read_killfile, read_zapfile
 from ..io.sigproc import Filterbank
@@ -216,6 +219,122 @@ def _expand_accel_results(vi, vs, cc, emap, padded_full):
     return vi[src], vs[src], cc_full
 
 
+def _distill_per_trial(plan, accel_lists, results, harm_finder, acc_still) -> list:
+    """The per-DM distil in Python, the path ``PEASOUP_NO_NATIVE=1``
+    selects: one Candidate per cluster, the harmonic distil of each accel
+    trial, then the acceleration distil of each DM trial's survivors.
+    ``results`` holds each DM trial's (bins, snrs, counts (nlev, A'))
+    cluster stream. Returns the survivors, DM ascending."""
+    out: list[Candidate] = []
+    for dm_idx, (dm, (vi, vs, cc)) in enumerate(zip(plan.dm_list, results)):
+        accs = accel_lists[dm_idx]
+        idxs, snrs, ccounts = _densify_ragged(vi, vs, cc)
+        accel_trial_cands: list[Candidate] = []
+        for a_idx in range(len(accs)):
+            acc = float(accs[a_idx])
+            trial_cands: list[Candidate] = []
+            for lvl in range(plan.nharms + 1):
+                n_found = int(ccounts[lvl, a_idx])
+                trial_cands.extend(
+                    Candidate(
+                        dm=float(dm), dm_idx=dm_idx, acc=acc, nh=lvl,
+                        snr=float(s),
+                        freq=float(np.float32(np.float32(b) * plan.factors[lvl])),
+                    )
+                    for b, s in zip(
+                        idxs[lvl, a_idx, :n_found], snrs[lvl, a_idx, :n_found]
+                    )
+                )
+            accel_trial_cands.extend(harm_finder.distill(trial_cands))
+        out.extend(acc_still.distill(accel_trial_cands))
+    return out
+
+
+def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> list:
+    """The per-DM distil in two native calls, as the JAX package's default
+    host path runs it (pipeline/search.py:_distill_trials_segmented there):
+    the rows of every cluster of the run are built with numpy, in the order
+    (DM asc, accel asc, level asc, stream order) of the per-trial loop,
+    every accel trial is sorted (the reference's std::sort) and
+    harmonic-distilled in one segmented call, the survivors of each DM
+    trial sorted again and acceleration-distilled in a second, and
+    Candidate objects are made for those rows only, with the winner ->
+    absorbed edges building the assoc trees. Same arguments and result as
+    :func:`_distill_per_trial`."""
+    nlev = plan.nharms + 1
+    factors = np.asarray(plan.factors, dtype=np.float32)
+    ndm = len(results)
+    g_freq, g_snr, g_lvl, g_a, g_dm, g_segc = [], [], [], [], [], []
+    for dm_idx, (vi, vs, cc) in enumerate(results):
+        n_acc = len(accel_lists[dm_idx])
+        padded = cc.shape[1]
+        flat_cc = cc.reshape(-1).astype(np.int64)
+        starts = np.cumsum(flat_cc) - flat_cc
+        # the cells (a, lvl), a-major, of the (lvl, a) counts
+        a_cell = np.repeat(np.arange(n_acc, dtype=np.int64), nlev)
+        lvl_cell = np.tile(np.arange(nlev, dtype=np.int64), n_acc)
+        cellidx = lvl_cell * padded + a_cell
+        csel = flat_cc[cellidx]
+        n = int(csel.sum())
+        seg_e = np.cumsum(csel)
+        src = np.repeat(starts[cellidx], csel) + (
+            np.arange(n, dtype=np.int64) - np.repeat(seg_e - csel, csel)
+        )
+        lvl_rows = np.repeat(lvl_cell, csel)
+        # f32(f32(idx) * f32 factor): the reference's int * float product
+        # (peakfinder.hpp:90), widened to f64 after
+        g_freq.append(
+            (vi[src].astype(np.float32) * factors[lvl_rows]).astype(np.float64)
+        )
+        g_snr.append(vs[src].astype(np.float64))
+        g_lvl.append(lvl_rows.astype(np.int32))
+        g_a.append(np.repeat(a_cell, csel))
+        g_dm.append(np.full(n, dm_idx, dtype=np.int64))
+        g_segc.append(csel.reshape(n_acc, nlev).sum(axis=1))
+    freqs_all = np.concatenate(g_freq)
+    snr_all = np.concatenate(g_snr)
+    lvl_all = np.concatenate(g_lvl)
+    a_all = np.concatenate(g_a)
+    dm_all = np.concatenate(g_dm)
+    seg_off = np.concatenate([[0], np.cumsum(np.concatenate(g_segc))]).astype(np.int64)
+
+    # the harmonic distil of every accel trial (segment), rows S/N-sorted
+    # by the reference's std::sort within each
+    order = native.snr_sort_perm_seg(snr_all.astype(np.float32), seg_off)
+    unique = native.harmonic_distill_seg(
+        freqs_all[order], lvl_all[order], seg_off, harm_finder.tolerance,
+        harm_finder.max_harm, harm_finder.fractional_harms,
+    )
+    surv = order[unique]  # row ids, in (segment, S/N desc) order
+    s_dm = dm_all[surv]
+    s_snr = snr_all[surv]
+
+    # the acceleration distil of every DM trial (segment): its accel
+    # trials' survivors in that order, sorted again
+    seg_dm = np.searchsorted(s_dm, np.arange(ndm + 1)).astype(np.int64)
+    order2 = surv[native.snr_sort_perm_seg(s_snr.astype(np.float32), seg_dm)]
+    max_a = max((len(a) for a in accel_lists[:ndm]), default=1)
+    acc_tab = np.zeros((ndm, max(max_a, 1)))
+    for d, accs in enumerate(accel_lists[:ndm]):
+        acc_tab[d, : len(accs)] = accs
+    d_dm, d_freq, d_snr = dm_all[order2], freqs_all[order2], snr_all[order2]
+    d_lvl, d_acc = lvl_all[order2], acc_tab[dm_all[order2], a_all[order2]]
+    unique2, esrc, edst = native.accel_distill_seg(
+        d_freq, d_acc, seg_dm, acc_still.tobs_over_c, acc_still.tolerance
+    )
+    dm_vals = plan.dm_list
+    rows = [
+        Candidate(
+            dm=float(dm_vals[d_dm[r]]), dm_idx=int(d_dm[r]), acc=float(d_acc[r]),
+            nh=int(d_lvl[r]), snr=float(d_snr[r]), freq=float(d_freq[r]),
+        )
+        for r in range(len(order2))
+    ]
+    for s_, t_ in zip(esrc, edst):
+        rows[s_].append(rows[t_])
+    return [c for c, u in zip(rows, unique2) if u]
+
+
 def _freq_factor(size: int, nh: int, tsamp: float) -> np.float32:
     """Bin index -> frequency for level nh, replaying the reference's
     f32 rounding points exactly: ``float tobs = size*get_tsamp()``,
@@ -385,11 +504,11 @@ def _unsupported(cfg: SearchConfig) -> str | None:
     if cfg.subbands > 0 or cfg.dedisp_engine == "matmul":
         return "subband and matmul dedispersion are ROADMAP item A.3"
     if cfg.checkpoint_file:
-        return "checkpoints are ROADMAP item A.8"
+        return "checkpoints are ROADMAP item A.4"
     if cfg.tune:
-        return "the tuning cache is ROADMAP item A.16"
+        return "the tuning cache is ROADMAP item A.10"
     if cfg.shard_devices > 1:
-        return "searching on more than one device is ROADMAP item A.15"
+        return "searching on more than one device is ROADMAP item A.9"
     return None
 
 
@@ -407,6 +526,8 @@ class PeasoupSearch:
             raise NotImplementedError(f"not ported yet: {why}")
         self.config = config
         self.device = resolve_device(device)
+        if native.enabled():
+            native.load()  # the distil library builds here or the search raises
         # cluster slots learned from overflowing chunks, so later chunks
         # dispatch once
         self._learned_max_peaks = 0
@@ -494,8 +615,8 @@ class PeasoupSearch:
         t0 = time.perf_counter()
         trials = dedisperse(
             fil_to_device(fil, dev),
-            torch.from_numpy(plan.delays).to(dev),
-            torch.from_numpy(plan.killmask).to(dev),
+            plan.delays,
+            plan.killmask,
             plan.out_nsamps,
             scale=output_scale(fil.nbits, int(plan.killmask.sum())),
         )
@@ -544,45 +665,25 @@ class PeasoupSearch:
         t_host = time.perf_counter()
         harm_finder = HarmonicDistiller(cfg.freq_tol, cfg.max_harm, keep_related=False)
         acc_still = AccelerationDistiller(tobs, cfg.freq_tol, keep_related=True)
-        dm_trial_cands = CandidateCollection()
-        for dm_idx, dm in enumerate(plan.dm_list):
-            accs = accel_lists[dm_idx]
+        results = []
+        for dm_idx in range(plan.ndm):
             vi, vs, cc = per_dm.pop(dm_idx)
             if expand[dm_idx] is not None:
                 # deduped dispatch: replicate the representative's results
                 # onto every accel trial of its class
                 vi, vs, cc = _expand_accel_results(
                     vi, vs, cc, expand[dm_idx],
-                    _accel_pad(len(accs), cfg.accel_bucket),
+                    _accel_pad(len(accel_lists[dm_idx]), cfg.accel_bucket),
                 )
-            idxs, snrs, ccounts = _densify_ragged(vi, vs, cc)
-            accel_trial_cands = CandidateCollection()
-            for a_idx in range(len(accs)):
-                acc = float(accs[a_idx])
-                trial_cands: list[Candidate] = []
-                for lvl in range(plan.nharms + 1):
-                    n_found = int(ccounts[lvl, a_idx])
-                    trial_cands.extend(
-                        Candidate(
-                            dm=float(dm), dm_idx=dm_idx, acc=acc, nh=lvl,
-                            snr=float(s),
-                            freq=float(np.float32(np.float32(b) * plan.factors[lvl])),
-                        )
-                        for b, s in zip(
-                            idxs[lvl, a_idx, :n_found], snrs[lvl, a_idx, :n_found]
-                        )
-                    )
-                accel_trial_cands.append(harm_finder.distill(trial_cands))
-            dm_trial_cands.append(acc_still.distill(accel_trial_cands.cands))
-            log.debug(
-                "DM %.3f (%d/%d): %d accel trials, %d cands so far",
-                dm, dm_idx + 1, plan.ndm, len(accs), len(dm_trial_cands),
-            )
+            results.append((vi, vs, cc))
+        distil = _distill_segmented if native.enabled() else _distill_per_trial
+        log.info("distil: %s", distil.__name__.lstrip("_"))
+        cands = distil(plan, accel_lists, results, harm_finder, acc_still)
         timers["search_host"] = time.perf_counter() - t_host
         timers["searching"] = time.perf_counter() - t0
 
         part = PartialSearchResult(
-            cands=dm_trial_cands.cands,
+            cands=cands,
             dm_list=plan.dm_list,
             acc_list_dm0=self._accel_plan(fil, size).generate_accel_list(0.0),
             timers=timers,

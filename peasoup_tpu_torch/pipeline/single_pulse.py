@@ -196,11 +196,11 @@ def candidates_from_clusters(
 
 def _unsupported(cfg: SinglePulseConfig) -> str | None:
     if cfg.checkpoint_file:
-        return "checkpoints are ROADMAP item A.8"
+        return "checkpoints are ROADMAP item A.4"
     if cfg.tune:
-        return "the tuning cache is ROADMAP item A.2/A.16"
+        return "the tuning cache is ROADMAP item A.10"
     if cfg.shard_devices > 1:
-        return "searching on more than one device is ROADMAP item A.15"
+        return "searching on more than one device is ROADMAP item A.9"
     return None
 
 
@@ -278,8 +278,8 @@ class SinglePulseSearch:
         t0 = time.perf_counter()
         trials = dedisperse(
             fil_to_device(fil, dev),
-            torch.from_numpy(plan.delay_samples()).to(dev),
-            torch.from_numpy(plan.killmask).to(dev),
+            plan.delay_samples(),
+            plan.killmask,
             plan.out_nsamps,
             scale=output_scale(fil.nbits, int(plan.killmask.sum())),
         )

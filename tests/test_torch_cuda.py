@@ -3,7 +3,10 @@ small shapes with the edge cases (odd widths, birdies at block edges,
 every dftspec factorisation, garbage padding, cluster overflow, rows out of order, offsets past 2^31,
 boxcars past the trial's end, a tile shorter than the kernel's, -inf
 blocks, flat stretches, more harmpeaks rows than SMs, dense crossing
-runs) that the main path's inputs may not hold.
+runs; dedisperse on 1 to 4,096 channels with killed ones, ragged sample
+and trial counts, sums past a 16-bit lane, the widest delay spread and
+scales below 1; interbin from m = 2^10 to 2^20 on odd row counts and
+the least pad) that the main path's inputs may not hold.
 `chip_smoke.py` holds the kernels at the main path's shapes and the
 card's search against the CPU's. Every test here needs an NVIDIA
 card and skips without one.
@@ -36,17 +39,30 @@ def _on(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
-def test_dedisperse(dev):
-    rng = np.random.default_rng(0)
-    c, d, t = 16, 12, 8192
-    k = np.linspace(0.0, 30.0, c)
-    delays = np.rint(np.sort(rng.uniform(0, 40, d))[:, None] * k / 30.0).astype(np.int32)
-    fil = rng.integers(0, 4, size=(t, c)).astype(np.uint8)
-    kill = (rng.random(c) > 0.2).astype(np.int32)
-    x, dl, kl = _on(dev, fil, delays, kill)
+@pytest.mark.parametrize(
+    "c,d,t,spread,scale,full",
+    [
+        (16, 12, 8192, 40, 0.7, False),
+        (1, 5, 3001, 30, 1.0, False),  # one channel, ragged T
+        (64, 77, 20011, 330, 1.0, False),  # the big grid's channels and trials
+        (300, 9, 5003, 120, 0.25, True),  # past one 16-bit lane, all 255
+        (4096, 13, 4099, 900, 0.05, False),  # many chunks and flushes
+        (16, 11, 27000, 20000, 1.0, False),  # the largest spread: 8-channel chunks
+    ],
+)
+def test_dedisperse(dev, c, d, t, spread, scale, full):
+    rng = np.random.default_rng(c + d)
+    k = np.linspace(1.0, 0.0, c) ** 2
+    dms = np.sort(rng.uniform(0, 1, d))
+    dms[-1] = 1.0
+    delays = np.rint(dms[:, None] * k * spread).astype(np.int32)
+    fil = (np.full((t, c), 255) if full else rng.integers(0, 256, size=(t, c))).astype(np.uint8)
+    kill = (rng.random(c) > 0.2).astype(np.int32)  # zeroed channels
+    kill[0] = 1
+    (x,) = _on(dev, fil)
     out_nsamps = t - int(delays.max())
-    got = dedisperse.dedisperse(x, dl, kl, out_nsamps, scale=0.7)
-    want = dedisperse.dedisperse_block(x, dl, kl, out_nsamps=out_nsamps, scale=0.7)
+    got = dedisperse.dedisperse(x, delays, kill, out_nsamps, scale=scale)
+    want = dedisperse.dedisperse_block(x, delays, kill, out_nsamps=out_nsamps, scale=scale)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -96,15 +112,16 @@ def test_specchain(dev):
     assert bool(((got[2] - want[2]).abs() <= spectrum.s0_envelope(want[2])).all())
 
 
-def test_interbin(dev):
-    rng = np.random.default_rng(2)
-    rows, n = 5, 1 << 14
+@pytest.mark.parametrize("rows,log_m", [(5, 13), (3, 10), (7, 11), (9, 16), (1, 20), (33, 20)])
+def test_interbin(dev, rows, log_m):
+    rng = np.random.default_rng(rows + log_m)
+    n = 2 << log_m
     x = rng.normal(size=(rows, n)) + 3.0 * np.sin(2 * np.pi * np.arange(n) * 0.1317)
     mean = rng.normal(size=rows).astype(np.float32)
     std = (0.5 + rng.random(rows)).astype(np.float32)
     xs, mean, std = _on(dev, x.astype(np.float32), mean, std)
     z = fft.packed_dft_z(xs)
-    npad = n // 2 + 4096
+    npad = n // 2 + (2 if log_m % 2 else 4096)  # m + 2, the least even pad, or wide
     got = fft.untwist_interbin_normalise(z, mean, std, npad=npad)
     want = fft.untwist_interbin_normalise_plain(z, mean, std, npad=npad)
     torch.cuda.synchronize()

@@ -1,7 +1,9 @@
 """The parts of the port's CUDA kernels that compile for the host, on the
 CPU: csrc/levels.cuh (harmpeaks' level function and crossing mask),
 csrc/cluster_step.cuh (the cluster walk's step, shared by harmpeaks and
-peaks) and csrc/dftmap.cuh (who holds what in dftspec's cluster).
+peaks), csrc/dftmap.cuh (who holds what in dftspec's cluster),
+csrc/interbin_map.cuh (interbin's mirror pairs) and csrc/dedisp_map.cuh
+(dedisperse's staged windows and packed sums).
 
 A small C++ shim that includes those headers is compiled with g++ into a
 shared library (``-ffp-contract=off``, so no add or multiply is fused, as
@@ -21,7 +23,16 @@ holds:
 - dftspec's maps: every bin 0..m has exactly one writer, every T and Z
   value one home, the mirror and neighbour maps name bins m-k and k-1, and
   the four-step DFT routed through the maps (numpy for the sub-DFTs) gives
-  the plain version's spectrum within the JAX package's accuracy gate.
+  the plain version's spectrum within the JAX package's accuracy gate;
+- interbin's mirror-pair map (csrc/interbin_map.cuh): every bin 0..m has
+  exactly one writer, every pad one zeroing thread, and each bin's untwist
+  the plain version's Z values;
+- dedisperse's windows (csrc/dedisp_map.cuh): the kernel's blocks
+  emulated on the wrapper's tables (staging, reads, 16-bit lane sums and
+  their flushes), every read inside the window its chunk staged and equal
+  to x[t + delay, c], the sums the plain channel sums, with one channel,
+  past 256 channels of 255s, 4,096 channels and a spread past a
+  16-channel window.
 Skips only where there is no g++.
 """
 
@@ -46,10 +57,14 @@ CSRC = Path(__file__).resolve().parent.parent / "peasoup_tpu_torch" / "csrc"
 SHIM = r"""
 #include <cstddef>
 #include <cstdint>
+#include <algorithm>
+#include <cstring>
 #include <vector>
 
 #include "cluster_step.cuh"
+#include "dedisp_map.cuh"
 #include "dftmap.cuh"
+#include "interbin_map.cuh"
 #include "levels.cuh"
 
 template <int NLEV>
@@ -248,6 +263,197 @@ void dft_bins(int log_m, const int* k1, const int* k2, int n, int* zrank, int* z
   }
 }
 
+// interbin's map over one row: the writes each bin gets from pair threads
+// and from pad threads, the threads the launch's blocks hold, and the Z
+// values each bin's untwist reads
+int interbin_map(int m, int npad, int* pair_writes, int* pad_writes, int* zk, int* zm,
+                 int* threads) {
+  for (int j = 0; j < ibmap::pair_threads(m); ++j) {
+    int b[5];
+    ibmap::pair_bins(m, j, b);
+    for (int i = 0; i < 5; ++i) {
+      if (b[i] < 0) continue;
+      if (b[i] >= npad) return 1;
+      ++pair_writes[b[i]];
+    }
+  }
+  for (int p = 0; p < ibmap::pad_threads(m, npad); ++p) {
+    const int b0 = ibmap::pad_first(m, p);
+    for (int b = b0; b < b0 + 4 && b < npad; ++b) ++pad_writes[b];
+  }
+  for (int k = 0; k <= m; ++k) ibmap::untwist_sources(m, k, zk[k], zm[k]);
+  threads[0] = ibmap::pair_blocks(m) * ibmap::kThreads - ibmap::pair_threads(m);
+  threads[1] = ibmap::pad_blocks(m, npad) * ibmap::kThreads - ibmap::pad_threads(m, npad);
+  return 0;
+}
+
+// dedisperse.cu's blocks run on the host through dedisp_map.cuh: each
+// chunk's window staged as the kernel's threads stage it, each thread's
+// reads taken through read_word / read_shift / funnel and added in 16-bit
+// lanes, flushed every kLaneChannels as the kernel flushes them, then the
+// output tile packed and copied out as the kernel does. Writes the channel
+// sums (ndm, out_n), the u8 output and the number of chunks staged by the
+// dense path; returns 1 if a staged row falls outside the window's pitch,
+// 2 if a read word does, 3 if a byte a sum takes was not staged by this
+// chunk, 4 if it is not x[t + delay, c], 5 if a word store is unaligned.
+int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chans,
+                   int nkept, const uint16_t* rel, const int* lo_spread, int log_chunk,
+                   int nchunks, int pitch, int ndm, long long out_n, uint32_t* sums,
+                   long long* dense_out, float scale, int apply_scale, uint8_t* out) {
+  using namespace ddmap;
+  long long dense = 0;
+  const int chunk = 1 << log_chunk;
+  const int ntiles = (ndm + kTrials - 1) / kTrials;
+  const long long ntime = (out_n + kTile - 1) / kTile;
+  const bool wide = nkept > kLaneChannels;
+  std::vector<uint32_t> win(std::size_t(chunk) * pitch);
+  std::vector<int> stamp(std::size_t(chunk) * pitch * 4);
+  std::vector<uint32_t> lanes(std::size_t(kThreads) * kTrials * kGroups * 2);
+  std::vector<uint32_t> total(std::size_t(kThreads) * kTrials * kGroups * 4);
+  int stage_no = 0;
+  for (int tile = 0; tile < ntiles; ++tile) {
+    for (long long tt = 0; tt < ntime; ++tt) {
+      const long long t0 = tt * kTile;
+      std::fill(lanes.begin(), lanes.end(), 0u);
+      std::fill(total.begin(), total.end(), 0u);
+      int in_lanes = 0;
+      for (int ck = 0; ck < nchunks; ++ck) {
+        ++stage_no;
+        const int c0 = ck << log_chunk;
+        const int kc = chunk < nkept - c0 ? chunk : nkept - c0;
+        const int lo = lo_spread[2 * (tile * nchunks + ck)];
+        const int rows = window_rows(lo_spread[2 * (tile * nchunks + ck) + 1]);
+        uint8_t* winb = reinterpret_cast<uint8_t*>(win.data());
+        if (dense_chunk(chans, c0, kc, log_chunk, nchans)) {
+          ++dense;
+          for (int q = 0; 4 * q < rows; ++q) {
+            if (q >= pitch) return 1;
+            uint32_t a[4][4];
+            for (int u = 0; u < 4; ++u) {
+              const long long row = t0 + lo + 4 * q + u;
+              for (int g = 0; g < 4; ++g) {
+                a[u][g] = 0u;
+                if (row < t_in) std::memcpy(&a[u][g], x + row * nchans + chans[c0] + 4 * g, 4);
+              }
+            }
+            for (int g = 0; g < 4; ++g) {
+              uint32_t cw[4];
+              transpose4(a[0][g], a[1][g], a[2][g], a[3][g], cw);
+              for (int i = 0; i < 4; ++i) {
+                const std::size_t at = std::size_t(4 * g + i) * pitch + q;
+                win[at] = cw[i];
+                for (int b = 0; b < 4; ++b) stamp[at * 4 + b] = stage_no;
+              }
+            }
+          }
+        } else {
+          for (int tid = 0; tid < kThreads; ++tid) {
+            int cl, r;
+            stage_coords(tid, log_chunk, cl, r);
+            for (; r < rows; r += kThreads >> log_chunk) {
+              if (r >= pitch * 4) return 1;
+              const bool ok = cl < kc && t0 + lo + r < t_in;
+              const long long at = (long long)cl * pitch * 4 + r;
+              winb[at] = ok ? x[(t0 + lo + r) * nchans + chans[c0 + cl]] : 0;
+              stamp[at] = stage_no;
+            }
+          }
+        }
+        for (int c = 0; c < kc; ++c) {
+          const uint16_t* rec16 = rel + (std::size_t(tile) * nchunks + ck) * chunk * kTrials
+                                  + std::size_t(c) * kTrials;
+          uint32_t rec[kTrials / 2];
+          for (int q = 0; q < kTrials / 2; ++q) {
+            rec[q] = rec16[2 * q] | (uint32_t(rec16[2 * q + 1]) << 16);
+          }
+          const uint32_t* row = win.data() + std::size_t(c) * pitch;
+          for (int tid = 0; tid < kThreads; ++tid) {
+            for (int i = 0; i < kTrials; ++i) {
+              const int rl = rel_of(rec, i);
+              const int shift = read_shift(rl);
+              for (int g = 0; g < kGroups; ++g) {
+                const int w = read_word(tid, g, rl);
+                if (w + 1 >= pitch) return 2;
+                const uint32_t b = funnel(row[w], row[w + 1], shift);
+                const int d = tile * kTrials + i;
+                for (int q = 0; q < 4; ++q) {
+                  const long long t = t0 + group_sample(tid, g) + q;
+                  const int at = c * pitch * 4 + group_sample(tid, g) + rl + q;
+                  if (stamp[at] != stage_no) return 3;
+                  if (d < ndm && t < out_n &&
+                      ((b >> (8 * q)) & 0xFFu) != x[(t + lo + rl) * nchans + chans[c0 + c]])
+                    return 4;
+                }
+                uint32_t* ln = &lanes[((std::size_t(tid) * kTrials + i) * kGroups + g) * 2];
+                ln[0] += even_lanes(b);
+                ln[1] += odd_lanes(b);
+              }
+            }
+          }
+        }
+        in_lanes += kc;
+        if (wide && (in_lanes + chunk > kLaneChannels || ck + 1 == nchunks)) {
+          for (std::size_t e = 0; e < std::size_t(kThreads) * kTrials * kGroups; ++e) {
+            total[4 * e + 0] += lanes[2 * e] & 0xFFFFu;
+            total[4 * e + 1] += lanes[2 * e + 1] & 0xFFFFu;
+            total[4 * e + 2] += lanes[2 * e] >> 16;
+            total[4 * e + 3] += lanes[2 * e + 1] >> 16;
+            lanes[2 * e] = lanes[2 * e + 1] = 0u;
+          }
+          in_lanes = 0;
+        }
+      }
+      std::vector<uint32_t> otile(std::size_t(kTrials) * kTileWords + 1, 0xdeadbeefu);
+      for (int tid = 0; tid < kThreads; ++tid) {
+        for (int i = 0; i < kTrials; ++i) {
+          const int d = tile * kTrials + i;
+          for (int g = 0; g < kGroups; ++g) {
+            const std::size_t e = (std::size_t(tid) * kTrials + i) * kGroups + g;
+            uint32_t v[4];
+            if (wide) {
+              for (int q = 0; q < 4; ++q) v[q] = total[4 * e + q];
+            } else {
+              v[0] = lanes[2 * e] & 0xFFFFu;
+              v[1] = lanes[2 * e + 1] & 0xFFFFu;
+              v[2] = lanes[2 * e] >> 16;
+              v[3] = lanes[2 * e + 1] >> 16;
+            }
+            uint32_t packed = 0u;
+            for (int q = 0; q < 4; ++q) {
+              const long long t = t0 + group_sample(tid, g) + q;
+              if (d < ndm && t < out_n) sums[d * out_n + t] = v[q];
+              packed |= uint32_t(quantise(v[q], scale, apply_scale)) << (8 * q);
+            }
+            otile[std::size_t(i) * kTileWords + out_word(tid, g)] = packed;
+          }
+        }
+      }
+      // the copy-out: head and tail bytes, aligned words between
+      const uint8_t* ob = reinterpret_cast<const uint8_t*>(otile.data());
+      const int n = int(kTile < out_n - t0 ? kTile : out_n - t0);
+      for (int i = 0; i < kTrials && tile * kTrials + i < ndm; ++i) {
+        const long long g_addr = (long long)(tile * kTrials + i) * out_n + t0;
+        const int head = head_bytes(g_addr) < n ? head_bytes(g_addr) : n;
+        const int nwords = (n - head) / 4;
+        const int tail = head + 4 * nwords;
+        for (int tid = 0; tid < kThreads; ++tid) {
+          if (tid < head) out[g_addr + tid] = ob[i * kTile + tid];
+          if (tail + tid < n) out[g_addr + tail + tid] = ob[i * kTile + tail + tid];
+          for (int j = tid; j < nwords; j += kThreads) {
+            const int o = head + 4 * j;
+            if ((g_addr + o) % 4 != 0) return 5;
+            const uint32_t w = funnel(otile[i * kTileWords + (o >> 2)],
+                                      otile[i * kTileWords + (o >> 2) + 1], 8 * (head & 3));
+            std::memcpy(out + g_addr + o, &w, 4);
+          }
+        }
+      }
+    }
+  }
+  *dense_out = dense;
+  return 0;
+}
+
 }  // extern "C"
 """
 
@@ -262,6 +468,9 @@ _SIGNATURES = {
     "dft_plan": [_I, _P],
     "dft_elems": [_I] + [_P] * 7,
     "dft_bins": [_I, _P, _P, _I] + [_P] * 6,
+    "interbin_map": [_I, _I] + [_P] * 5,
+    "dedisp_emulate": [_P, ctypes.c_longlong, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                       ctypes.c_longlong, _P, _P, _F, _I, _P],
 }
 
 
@@ -556,3 +765,91 @@ def test_dft_maps_route_the_spectrum(shim, log_m):
     acc_max, q999 = dftspec.accuracy(torch.from_numpy(got), want, mt, st, m)
     assert acc_max <= dftspec.ACC_MAX_REL and q999 <= dftspec.ACC_Q999_REL
     assert not want[0, m + 1 :].any()
+
+
+@pytest.mark.parametrize(
+    "m,npad",
+    [(4, 5), (4, 16), (64, 4096), (1 << 10, (1 << 10) + 2), (1 << 10, 4096),
+     (1 << 16, (1 << 16) + 4096), (1 << 20, (1 << 20) + 1024)],
+)
+def test_interbin_map_one_writer_per_bin(shim, m, npad):
+    # every bin 0..m written once by a pair thread, every pad once by a pad
+    # thread, the blocks hold every thread (the spare ones idle), and each
+    # bin's untwist reads the plain version's Z[k] and Z[m-k]
+    pair_w = np.zeros(npad, np.int32)
+    pad_w = np.zeros(npad, np.int32)
+    zk = np.empty(m + 1, np.int32)
+    zm = np.empty(m + 1, np.int32)
+    spare = np.empty(2, np.int32)
+    assert shim.interbin_map(m, npad, *map(_ptr, (pair_w, pad_w, zk, zm, spare))) == 0
+    np.testing.assert_array_equal(pair_w, np.arange(npad) <= m)
+    np.testing.assert_array_equal(pad_w, np.arange(npad) > m)
+    assert (0 <= spare).all() and (spare < 256).all()
+    # the plain version's gathers (ops/fft.py:untwist_parts) on an index ramp
+    z = torch.complex(torch.arange(m, dtype=torch.float32), torch.zeros(m))
+    zkr = torch.cat([z.real, z.real[:1]])
+    zmr = torch.cat([z.real[:1], z.real.flip(-1)])
+    np.testing.assert_array_equal(zk, zkr.numpy().astype(np.int32))
+    np.testing.assert_array_equal(zm, zmr.numpy().astype(np.int32))
+
+
+@pytest.mark.parametrize(
+    "c,d,t,spread,full,killed",
+    [
+        (1, 5, 3000, 40, False, 0.15),  # one channel
+        (64, 77, 4500, 320, False, 0.0),  # the big grid's: every chunk dense
+        (64, 21, 4500, 320, False, 0.15),  # killed channels: byte staging
+        (300, 9, 2600, 90, True, 0.15),  # past one 16-bit lane, every sample 255
+        (4096, 10, 2300, 700, False, 0.002),  # many chunks, flushes, both stagings
+        (16, 12, 26000, 20000, False, 0.0),  # a spread past 16-channel windows
+    ],
+)
+def test_dedisperse_window_holds_every_read(shim, c, d, t, spread, full, killed):
+    # the kernel's blocks emulated through csrc/dedisp_map.cuh on the
+    # wrapper's tables: every read lands in the window its chunk staged and
+    # is x[t + delay, c], the lane sums are the plain channel sums, and the
+    # packed, copied-out bytes are the plain version's output
+    from peasoup_tpu_torch.ops import dedisperse as tdd
+
+    rng = np.random.default_rng(c + d)
+    fil = (np.full((t, c), 255) if full else rng.integers(0, 256, size=(t, c))).astype(np.uint8)
+    k = np.linspace(1.0, 0.0, c) ** 2  # lowest frequency first: largest delay
+    dms = np.sort(rng.uniform(0, 1, d))
+    dms[-1] = 1.0
+    delays = np.rint(dms[:, None] * k * spread).astype(np.int32)
+    kill = (rng.random(c) >= killed).astype(np.int32)
+    kill[0] = 1
+    chans = np.flatnonzero(kill).astype(np.int32)
+    out_n = t - int(delays.max())
+    tab = tdd._tables(delays, chans)
+    sums = np.zeros((d, out_n), np.uint32)
+    dense = np.zeros(1, np.int64)
+    out = np.full((d, out_n), 77, np.uint8)
+    scale = tdd.output_scale(8, len(chans))
+    rc = shim.dedisp_emulate(
+        _ptr(fil), t, c, _ptr(chans), len(chans), _ptr(tab["rel"]),
+        _ptr(tab["lo_spread"]), tab["log_chunk"], tab["nchunks"], tab["pitch"],
+        d, out_n, _ptr(sums), _ptr(dense), scale, int(scale != 1.0), _ptr(out),
+    )
+    assert rc == 0
+    plain = tdd.dedisperse_block(
+        torch.from_numpy(fil), delays, kill, out_nsamps=out_n, scale=scale
+    )
+    np.testing.assert_array_equal(out, plain.numpy())
+    # the 16-byte staging runs exactly where a chunk's 16 kept channels are
+    # neighbours from a 16-byte boundary
+    w = 1 << tab["log_chunk"]
+    nd = sum(
+        w == 16 and c % 16 == 0 and len(g) == 16 and g[0] % 16 == 0 and g[-1] == g[0] + 15
+        for g in np.split(chans, range(w, len(chans), w))
+    )
+    ntime = -(-out_n // tdd.TILE)
+    assert dense[0] == nd * ntime * -(-d // tdd.TRIALS)
+    assert (dense[0] > 0) == (killed == 0.0 and c % 16 == 0 and w == 16 or c == 4096)
+    want = np.zeros((d, out_n), np.int64)
+    for ch in chans:
+        for i in range(d):
+            want[i] += fil[delays[i, ch] : delays[i, ch] + out_n, ch]
+    np.testing.assert_array_equal(sums, want)
+    # chunks narrow only where the widest window would not fit
+    assert (tab["log_chunk"] < tdd.MAX_LOG_CHUNK) == (spread > 10000)

@@ -145,9 +145,9 @@ def test_cli_output_parses_and_matches_jax(small, tmp_path):
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(checkpoint_file="sp.ckpt"), "A.8"),
-        (dict(tune=True), "A.16"),
-        (dict(shard_devices=2), "A.15"),
+        (dict(checkpoint_file="sp.ckpt"), "A.4"),
+        (dict(tune=True), "A.10"),
+        (dict(shard_devices=2), "A.9"),
     ],
 )
 def test_unported_options_are_refused(overrides, item):
