@@ -50,9 +50,18 @@ Phases, each fatal on failure:
      interbin kernel, at m = 2^14, 2^15 and 2^17, and with the memory it
      allocates beside its output (no T or Z scratch); resample and
      harmpeaks also at the tutorial grid's shapes (``other_shapes`` in
-     the kernels line), and dedisperse also at the single-pulse grid's
-     179-trial shape (``other_shapes``). Under --profile the CLI runs' device time names
-     harmpeaks' two kernels (harm_mask, harm_walk) and dftspec's one.
+     the kernels line), dedisperse also at the single-pulse grid's
+     179-trial shape and spchain also with `spsearch --n_widths 16`'s
+     bank (widths to 32,768, a ring whose windows wrap; both
+     ``other_shapes``). Kernels whose plain version is bitwise are held
+     bit for bit (a zero's sign included). peaks and harmpeaks also print
+     how their time splits between their two kernels (mask, walk;
+     torch.profiler device time a launch, ``phases_ms`` in the kernels
+     line); peaks also the time of calls queued back to back (CUDA
+     events), at its threshold and at one no bin crosses, a cross-check of
+     its mask's time. Under --profile the CLI runs' device time names harmpeaks' two
+     kernels (harm_mask, harm_walk), peaks' two (peaks_mask, peaks_walk)
+     and dftspec's one.
   8. The card's search against the CPU search (plain versions) on a
      small 8-bit filterbank, folding its top 5: the strong candidates
      and the fold outcomes must agree; and the card's single-pulse
@@ -109,7 +118,7 @@ from peasoup_tpu_torch.pipeline.accel_search import (  # noqa: E402
 )
 from peasoup_tpu_torch.ops.singlepulse import (  # noqa: E402
     boxcar_best, boxcar_best_plain, boxcar_dec_best, boxcar_dec_best_plain,
-    dec_fold, matched_filter_snr, normalise_trials, plan_pad, prefix_sum_padded,
+    dec_fold, default_widths, matched_filter_snr, normalise_trials, plan_pad, prefix_sum_padded,
     width_extent, width_scales,
 )
 from peasoup_tpu_torch.pipeline.search import (  # noqa: E402
@@ -221,6 +230,65 @@ def time_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: a float's sign of zero included."""
+    if a.dtype == torch.float32:
+        return a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def kernel_split(fn, names: tuple, reps: int = 5, tries: int = 3) -> dict:
+    """Device time in ms of each CUDA kernel whose name holds one of
+    ``names``, each launched once a call of fn(): torch.profiler over
+    ``reps`` calls after a warm-up step it discards, the mean over the
+    launches it recorded. The profiler can miss a launch (one peaks_mask
+    in five, on an H100): a profile that did not record exactly one
+    launch of each a call is taken again, up to ``tries`` times, and the
+    split fails if none did."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
+            for _ in range(1 + reps):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        total = dict.fromkeys(names, 0.0)
+        count = dict.fromkeys(names, 0)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                for n in names:
+                    if n in e.name:
+                        total[n] += e.device_time_total / 1e3
+                        count[n] += 1
+        if all(c == reps for c in count.values()):
+            return {n: total[n] / count[n] for n in names}
+        seen.append(count)
+    require(False, f"the profiler recorded one launch of each of {names} a call "
+                   f"({reps} calls): {seen}")
+
+
+def time_ms_queued(fn, reps: int = 20) -> float:
+    """Device time in ms a call of fn() takes when ``reps`` calls are queued
+    back to back (CUDA events around them all, after one warm-up): the host
+    runs ahead of the card wherever its part of a call is the shorter."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -558,10 +626,15 @@ def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dic
     p_out = find_harmonic_cluster_peaks_plain(spec, windows, **kw)
     torch.cuda.synchronize()
     for a, b, name in zip(k_out, p_out, ("idxs", "snrs", "counts", "ccounts")):
-        require(torch.equal(a, b), f"harmpeaks {name} equal to the plain version")
+        require(bitwise_equal(a, b), f"harmpeaks {name} equal to the plain version")
     require(int(k_out[3].sum()) > 0, "harmpeaks test rows hold clusters")
     nlev = nharms + 1
+    split = kernel_split(lambda: find_harmonic_cluster_peaks(spec, windows, **kw),
+                         ("harm_mask", "harm_walk"))
+    say(f"harmpeaks phases (torch.profiler device time a call): mask "
+        f"{split['harm_mask']:.4f} ms, walk {split['harm_walk']:.4f} ms")
     out["harmpeaks"] = dict(
+        phases_ms={"mask": split["harm_mask"], "walk": split["harm_walk"]},
         max_abs_err=float((k_out[1] - p_out[1]).abs().max()),
         ms=time_ms(lambda: find_harmonic_cluster_peaks(spec, windows, **kw)),
         plain_ms=time_ms(
@@ -853,7 +926,7 @@ def tutorial_kernel_phase(dev: torch.device, fil, runs: dict) -> tuple[dict, dic
     p_out = find_harmonic_cluster_peaks_plain(s, windows, nharms=nharms, **kw)
     torch.cuda.synchronize()
     for a, b, name in zip(k_out, p_out, ("idxs", "snrs", "counts", "ccounts")):
-        require(torch.equal(a, b), f"harmpeaks {name} equal to the plain version (tutorial)")
+        require(bitwise_equal(a, b), f"harmpeaks {name} equal to the plain version (tutorial)")
     nclusters = int(k_out[3].sum())
     other["harmpeaks"] = dict(
         max_abs_err=float((k_out[1] - p_out[1]).abs().max()),
@@ -879,10 +952,35 @@ def tutorial_kernel_phase(dev: torch.device, fil, runs: dict) -> tuple[dict, dic
     p_out = find_cluster_peaks_multi_plain(levels, windows, **kw)
     torch.cuda.synchronize()
     for a, b, name in zip(k_out, p_out, ("idxs", "snrs", "counts", "ccounts")):
-        require(torch.equal(a, b), f"peaks {name} equal to the plain version")
+        require(bitwise_equal(a, b), f"peaks {name} bitwise equal to the plain version")
     nclusters = int(k_out[3].sum())
     require(nclusters > 0, "peaks test rows hold clusters")
+    # the two phases (mask, then the walk harmpeaks shares), by kernel
+    split = kernel_split(lambda: find_cluster_peaks_multi(levels, windows, **kw),
+                         ("peaks_mask", "peaks_walk"))
+    # a cross-check of the mask's time by CUDA events: calls queued back to
+    # back at a threshold no bin crosses, whose walk only reads its mask
+    # words; and the profiler's split of such calls
+    kw_none = dict(kw, threshold=float("inf"))
+    require(int(find_cluster_peaks_multi(levels, windows, **kw_none)[2].sum()) == 0,
+            "an infinite threshold crosses nowhere")
+    none_ms = time_ms_queued(lambda: find_cluster_peaks_multi(levels, windows, **kw_none))
+    split_none = kernel_split(lambda: find_cluster_peaks_multi(levels, windows, **kw_none),
+                              ("peaks_mask", "peaks_walk"))
+    queued_ms = time_ms_queued(lambda: find_cluster_peaks_multi(levels, windows, **kw))
+    win_bytes = rows * win_bins * 4
+    say(f"peaks phases (torch.profiler device time a launch): mask "
+        f"{split['peaks_mask']:.4f} ms, walk {split['peaks_walk']:.4f} ms; calls queued "
+        f"back to back (CUDA events) {queued_ms:.4f} ms a call; with no crossing "
+        f"{none_ms:.4f} ms a call (profiler: mask {split_none['peaks_mask']:.4f}, walk "
+        f"{split_none['peaks_walk']:.4f}); the mask's {win_bytes / 1e9:.4f} GB of window "
+        f"bins at {win_bytes / split['peaks_mask'] / 1e9:.4f} TB/s (profiler) and "
+        f"{win_bytes / none_ms / 1e9:.4f} TB/s (the no-crossing call)")
     out["peaks"] = dict(
+        phases_ms={"mask": split["peaks_mask"], "walk": split["peaks_walk"],
+                   "queued_call": queued_ms, "no_crossing_call": none_ms,
+                   "no_crossing_mask": split_none["peaks_mask"],
+                   "no_crossing_walk": split_none["peaks_walk"]},
         max_abs_err=float((k_out[1] - p_out[1]).abs().max()),
         ms=time_ms(lambda: find_cluster_peaks_multi(levels, windows, **kw)),
         plain_ms=time_ms(lambda: find_cluster_peaks_multi_plain(levels, windows, **kw),
@@ -1015,8 +1113,9 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     trials, dd = dedisperse_check(x, fil.nbits, plan.delay_samples(), plan.killmask, n)
     del x
     out = {"dedisperse": dict(dd, path="single-pulse grid")}
-    csum = prefix_sum_padded(normalise_trials(trials[:d]), tpad, wext)
+    norm = normalise_trials(trials[:d])
     del trials
+    csum = prefix_sum_padded(norm, tpad, wext)
     scales = width_scales(widths)
     args = (csum, widths, scales, n, tpad)
 
@@ -1024,7 +1123,7 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     ref = boxcar_dec_best_plain(*args, dec)
     torch.cuda.synchronize()
     for a, b, name in zip(got, ref, ("bmax", "barg", "bwidx")):
-        require(torch.equal(a, b), f"spchain {name} bitwise equal to its plain version")
+        require(bitwise_equal(a, b), f"spchain {name} bitwise equal to its plain version")
     ops = 5.0 * d * tpad * nw
     out["spchain"] = dict(
         max_abs_err=max_abs_err(got[0], ref[0]),
@@ -1036,17 +1135,39 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
               f"3 x ({d}, {tpad // dec})",
     )
     del ref
+    # spsearch --n_widths 16 (widths to 32,768): a ring whose windows wrap
+    wide = default_widths(16)
+    wext16 = width_extent(wide)
+    wargs = (prefix_sum_padded(norm, tpad, wext16), wide, width_scales(wide), n, tpad)
+    del norm
+    w_got = boxcar_dec_best(*wargs, dec)
+    w_ref = boxcar_dec_best_plain(*wargs, dec)
+    torch.cuda.synchronize()
+    for a, b, name in zip(w_got, w_ref, ("bmax", "barg", "bwidx")):
+        require(bitwise_equal(a, b), f"spchain {name} bitwise equal to its plain version "
+                                     "(16 widths)")
+    out["spchain"]["other_shapes"] = [other_shape(dict(
+        path="spsearch --n_widths 16",
+        max_abs_err=max_abs_err(w_got[0], w_ref[0]),
+        ms=time_ms(lambda: boxcar_dec_best(*wargs, dec)),
+        plain_ms=time_ms(lambda: boxcar_dec_best_plain(*wargs, dec), reps=3),
+        bound=bound(d * (tpad + wext16) * 4 + 3 * d * (tpad // dec) * 4,
+                    5.0 * d * tpad * len(wide)),
+        shape=f"({d}, {tpad + wext16}) f32, {len(wide)} widths, dec {dec} -> "
+              f"3 x ({d}, {tpad // dec})",
+    ))]
+    del wargs, w_got, w_ref
 
     before = kernels.launches["boxcar"]
     best, bw = boxcar_best(*args)
     ref = boxcar_best_plain(*args)
     torch.cuda.synchronize()
-    require(torch.equal(best, ref[0]) and torch.equal(bw, ref[1]),
+    require(bitwise_equal(best, ref[0]) and bitwise_equal(bw, ref[1]),
             "boxcar bitwise equal to its plain version")
     err = max_abs_err(best, ref[0])
     del ref
     folded = dec_fold(best, bw, dec)
-    require(all(torch.equal(a, b) for a, b in zip(folded, got)),
+    require(all(bitwise_equal(a, b) for a, b in zip(folded, got)),
             "the dec-fold of boxcar's output is spchain's")
     del best, bw, folded, got
     out["boxcar"] = dict(
@@ -1292,7 +1413,7 @@ def main() -> int:
             "path": c["path"],
             "shape": c["shape"],
             **{k: c[k] for k in ("accuracy_max", "accuracy_q999", "scratch_bytes",
-                                 "other_shapes")
+                                 "phases_ms", "other_shapes")
                if k in c},
         }
         for name, c in ((name, checks[name]) for name in SOURCES)

@@ -1,8 +1,9 @@
 // One step of the cluster walk: PeakFinder::identify_unique_peaks
 // (include/transforms/peakfinder.hpp:27-56) fed one threshold crossing at
 // a time, in ascending bin order, with its quirk that lastidx advances only
-// on a new maximum. walk.cuh (peaks.cu), harmpeaks.cu and the CPU tests'
-// host build (tests/test_torch_kernel_host.py) compile this one copy.
+// on a new maximum. mask_walk.cuh (the walk of peaks.cu and harmpeaks.cu)
+// and the CPU tests' host build (tests/test_torch_kernel_host.py) compile
+// this one copy.
 
 #pragma once
 

@@ -48,14 +48,16 @@
 //     thresholded); the warp steps through the 32 in order
 //     (cluster_step.cuh), each lane holding the same state, lane 0 storing
 //     the closed clusters. Walking reads no spectrum but for those spans.
+//     The walk is csrc/mask_walk.cuh's, which peaks.cu shares; only the
+//     crossing values (SlotValues below) are harmpeaks' own.
 // The mask holds only bits inside each level's window: B clears the bits
 // of words it reads past the window's edges, which A may not have written.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "cluster_step.cuh"
 #include "levels.cuh"
+#include "mask_walk.cuh"
 
 namespace {
 
@@ -153,97 +155,39 @@ harm_mask(const float* __restrict__ spec, int64_t npad, int row0, int tile0, int
   }
 }
 
-// the lowest set bit of the four words (bins 0..127 of the span), cleared
-__device__ __forceinline__ int pop_lowest(uint32_t& w0, uint32_t& w1,
-                                          uint32_t& w2, uint32_t& w3) {
-  int b;
-  if (w0) {
-    b = __ffs(w0) - 1;
-    w0 &= w0 - 1;
-  } else if (w1) {
-    b = 32 + __ffs(w1) - 1;
-    w1 &= w1 - 1;
-  } else if (w2) {
-    b = 64 + __ffs(w2) - 1;
-    w2 &= w2 - 1;
-  } else {
-    b = 96 + __ffs(w3) - 1;
-    w3 &= w3 - 1;
-  }
-  return b;
-}
-
-// Walks the crossings of one chunk of 4,096 bins in ascending order. This
-// lane holds span q: its mask words 4q .. 4q+3 (cleared outside [lo, hi))
-// and its kSpanSlots values, which it puts in `vals` for the warp. The
-// crossings are ranked by a warp scan and handed out 32 at a time through
-// `slot`, with the place of each one's value in `vals` (-1 where its span
-// held more than kSpanSlots crossings: recomputed); the warp steps through
-// the 32 in order (every lane holds the same state; lane 0 stores).
+// Phase B's crossing values: from the span's kSpanSlots slots, which each
+// lane loads beside its mask words, or, where the span held more crossings,
+// recomputed (the same level function, so bitwise what A thresholded).
 template <int NLEV>
-__device__ __forceinline__ void walk_chunk(uint4 m4, float4 va, float4 vb, int q, int lo,
-                                           int hi, int h, float sc, const Row& s, int* slot,
-                                           int* vslot, float* vals, int min_gap, int mx,
-                                           cluster::State& st, int32_t* oi, float* os) {
-  const int lane = threadIdx.x & 31;
-  uint32_t w0 = harm::clip_word(m4.x, 4 * q, lo, hi);
-  uint32_t w1 = harm::clip_word(m4.y, 4 * q + 1, lo, hi);
-  uint32_t w2 = harm::clip_word(m4.z, 4 * q + 2, lo, hi);
-  uint32_t w3 = harm::clip_word(m4.w, 4 * q + 3, lo, hi);
-  const int cnt = __popc(w0) + __popc(w1) + __popc(w2) + __popc(w3);
-  if (!__any_sync(0xffffffffu, cnt)) return;
-  reinterpret_cast<float4*>(vals)[2 * lane] = va;
-  reinterpret_cast<float4*>(vals)[2 * lane + 1] = vb;
-  int incl = cnt;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += t;
+struct SlotValues {
+  static constexpr bool kSlots = true;
+  struct Span {
+    float4 va, vb;
+  };
+  const float4* vq;  // the task's value slots, two float4 a span
+  Row s;
+  int h;
+  float sc;
+  __device__ __forceinline__ Span load(int q, bool in) const {
+    return in ? Span{vq[2 * q], vq[2 * q + 1]}
+              : Span{make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
   }
-  const int total = __shfl_sync(0xffffffffu, incl, 31);
-  int rank = incl - cnt;  // this lane's first crossing's rank in the chunk
-  int own = 0;            // and the next one's among its span's
-  const int vbase = cnt <= kSpanSlots ? lane * kSpanSlots : -1;
-  for (int gb = 0; gb < total; gb += 32) {
-    // the crossings ranked gb .. gb+31, in ascending bin order
-    while (rank < incl && rank < gb + 32) {
-      slot[rank - gb] = q * kSpan + pop_lowest(w0, w1, w2, w3);
-      vslot[rank - gb] = vbase < 0 ? -1 : vbase + own;
-      ++rank;
-      ++own;
-    }
-    __syncwarp();
-    const int n = min(32, total - gb);
-    int idx = 0;
-    float snr = 0.f;
-    if (lane < n) {
-      idx = slot[lane];
-      const int at = vslot[lane];
-      if (at >= 0) {
-        snr = vals[at];
-      } else {
-        float val[NLEV];
-        harm::levels<NLEV>(s, idx, val, h);  // the gathers of levels 0..h only
-        float x = val[0];
-#pragma unroll
-        for (int l = 1; l < NLEV; ++l) x = l == h ? val[l] : x;
-        snr = x * sc;
-      }
-    }
-    __syncwarp();
-    for (int e = 0; e < n; ++e) {
-      const int ie = __shfl_sync(0xffffffffu, idx, e);
-      const float se = __shfl_sync(0xffffffffu, snr, e);
-      cluster::step(st, ie, se, min_gap, [&](int slot, int ci, float cs) {
-        if (lane == 0 && slot < mx) {
-          oi[slot] = ci;
-          os[slot] = cs;
-        }
-      });
-    }
+  __device__ __forceinline__ int publish(const Span& sp, int cnt, float* vals) const {
+    const int lane = threadIdx.x & 31;
+    reinterpret_cast<float4*>(vals)[2 * lane] = sp.va;
+    reinterpret_cast<float4*>(vals)[2 * lane + 1] = sp.vb;
+    return cnt <= kSpanSlots ? lane * kSpanSlots : -1;
   }
-  __syncwarp();  // `vals` is the next chunk's after this
-}
+  __device__ __forceinline__ float value(int idx, int at, const float* vals) const {
+    if (at >= 0) return vals[at];
+    float val[NLEV];
+    harm::levels<NLEV>(s, idx, val, h);  // the gathers of levels 0..h only
+    float x = val[0];
+#pragma unroll
+    for (int l = 1; l < NLEV; ++l) x = l == h ? val[l] : x;
+    return x * sc;
+  }
+};
 
 template <int NLEV>
 __global__ void __launch_bounds__(kThreadsB)
@@ -255,7 +199,6 @@ harm_walk(const float* __restrict__ spec, int64_t npad, int64_t rows, int nbins,
   __shared__ int ranked[kWarpsB][32];
   __shared__ int vslots[kWarpsB][32];
   __shared__ float4 chunk_vals[kWarpsB][32 * kSpanSlots / 4];
-  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kWarpsB + warp;
   if (t >= rows * NLEV) return;  // the whole warp
@@ -265,13 +208,6 @@ harm_walk(const float* __restrict__ spec, int64_t npad, int64_t rows, int nbins,
   const int h = NLEV - 1 - static_cast<int>(t / rows);
   const int64_t row = rows - 1 - t % rows;
   const int64_t task = row * NLEV + h;
-  int32_t* oi = idxs + task * mx;
-  float* os = snrs + task * mx;
-  for (int e = lane; e < mx; e += 32) {
-    oi[e] = nbins;
-    os[e] = 0.f;
-  }
-  __syncwarp();
   int lo = 0, hi = 0;
   float sc = 0.f;
 #pragma unroll
@@ -282,40 +218,11 @@ harm_walk(const float* __restrict__ spec, int64_t npad, int64_t rows, int nbins,
       sc = w.sc[l];
     }
   }
-  const Row s{spec + row * npad};
-  cluster::State st;
-  if (lo < hi) {
-    // a span a lane (4 mask words, one uint4, and kSpanSlots values, two
-    // float4), 4,096 bins a warp; the next chunk's loads go out before
-    // this one is walked
-    const uint4* mq = reinterpret_cast<const uint4*>(mask + task * ldm);
-    const float4* vq = reinterpret_cast<const float4*>(vals + task * ldv);
-    const int q0 = lo / kSpan, q1 = (hi + kSpan - 1) / kSpan;
-    const auto load = [&](int q, uint4& m4, float4& va, float4& vb) {
-      const bool in = q < q1;
-      m4 = in ? mq[q] : make_uint4(0u, 0u, 0u, 0u);
-      va = in ? vq[2 * q] : make_float4(0.f, 0.f, 0.f, 0.f);
-      vb = in ? vq[2 * q + 1] : make_float4(0.f, 0.f, 0.f, 0.f);
-    };
-    uint4 m4;
-    float4 va, vb;
-    load(q0 + lane, m4, va, vb);
-    for (int qb = q0; qb < q1; qb += 32) {
-      const uint4 cm = m4;
-      const float4 ca = va, cb = vb;
-      load(qb + 32 + lane, m4, va, vb);
-      walk_chunk<NLEV>(cm, ca, cb, qb + lane, lo, hi, h, sc, s, ranked[warp], vslots[warp],
-                       reinterpret_cast<float*>(chunk_vals[warp]), min_gap, mx, st, oi, os);
-    }
-  }
-  if (lane == 0) {
-    if (cluster::last_fits(st, mx)) {
-      oi[st.cursor] = st.cpeakidx;
-      os[st.cursor] = st.cpeak;
-    }
-    counts[task] = st.raw;
-    ccounts[task] = cluster::clusters(st);
-  }
+  const SlotValues<NLEV> src{reinterpret_cast<const float4*>(vals + task * ldv),
+                             Row{spec + row * npad}, h, sc};
+  mwalk::walk_level(src, mask + task * ldm, lo, hi, nbins, min_gap, mx, ranked[warp],
+                    vslots[warp], reinterpret_cast<float*>(chunk_vals[warp]), idxs + task * mx,
+                    snrs + task * mx, counts + task, ccounts + task);
 }
 
 template <int NLEV>

@@ -1,8 +1,9 @@
 // Marks the functions that nvcc compiles for the card and for the host
 // alike, and that a plain C++ compiler (g++) compiles for the host: the
 // level function, the cluster walk's step, the DFT's ownership maps,
-// interbin's mirror pairs and dedisperse's windows and packed sums, which
-// the CPU tests build into a small shared library of their own.
+// interbin's mirror pairs, dedisperse's windows and packed sums, spchain's
+// ring, sweep and winner rule and peaks' mask lanes, which the CPU tests
+// build into a small shared library of their own.
 
 #pragma once
 

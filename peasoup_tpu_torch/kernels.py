@@ -9,8 +9,9 @@ under ``csrc/`` (``*.cuh``, which sources share) and of the flags, so an
 edited source or header is rebuilt and an unchanged one is reused. :func:`build`
 compiles several sources at once, one ``nvcc`` process each.
 
-Each C entry returns ``cudaGetLastError()`` after its launch, and
-:func:`launch` raises when it is not 0. :data:`launches` counts the
+Each C entry returns ``cudaGetLastError()`` after its launch, or a
+negative code where it refuses arguments its wrapper leaves it to check
+(:data:`REFUSALS`), and :func:`launch` raises when it is not 0. :data:`launches` counts the
 launches of each kernel, and :data:`launch_shapes` how often each launch
 shape was used; :func:`launch` is the only place either grows.
 """
@@ -51,7 +52,7 @@ _ENTRIES = {
     "dftspec": ("dft_untwist_interbin", [_P] * 6 + [_L, _I, _L, _P]),
     "peaks": (
         "cluster_peaks_multi",
-        [_P] * 6 + [_L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P, _P],
+        [_P] * 6 + [_L, _L, _I, _I, _P, _P, _F, _I, _I, _P, _L, _P, _P, _P, _P, _P],
     ),
     "harmpeaks": (
         "harmpeaks",
@@ -63,6 +64,14 @@ _ENTRIES = {
     ),
 }
 KERNELS = tuple(_ENTRIES)
+
+# (kernel, negative return code) -> why its entry refused the arguments
+REFUSALS = {
+    ("spchain", -1): "the widest boxcar's window does not fit the kernel's "
+                     "shared-memory ring (widths up to ~53k samples); use narrower widths",
+    ("spchain", -2): "tpad must be a multiple of 512 and of dec, and the prefix-sum "
+                     "rows 16-byte aligned and a multiple of 4 samples long",
+}
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
 launch_shapes: dict[str, Counter] = {name: Counter() for name in KERNELS}
@@ -154,6 +163,8 @@ def launch(name: str, *args, shape: tuple) -> None:
     sizes the wrapper passes); raise on a CUDA error."""
     fn = getattr(_load(name), _ENTRIES[name][0])
     rc = fn(*args)
+    if rc < 0:
+        raise ValueError(f"{name} kernel refused {shape}: {REFUSALS.get((name, rc), rc)}")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launches[name] += 1

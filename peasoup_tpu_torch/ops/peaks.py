@@ -15,8 +15,8 @@ then one warp walks each row's level) for CUDA tensors, the plain version
 find_peaks_device + cluster_peaks_device) for CPU tensors.
 :func:`find_cluster_peaks_multi` thresholds and clusters levels formed
 apart (the search's ``PEASOUP_MEGA_HARM=0`` route): the peaks kernel
-(csrc/peaks.cu) for CUDA tensors, :func:`find_cluster_peaks_multi_plain`
-for CPU tensors.
+(csrc/peaks.cu: a crossing mask over the whole card, then harmpeaks' walk)
+for CUDA tensors, :func:`find_cluster_peaks_multi_plain` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ from .. import kernels
 from ..device import check, on_cpu, stream_ptr
 from .harmonics import harmonic_sums
 
-# the harmpeaks kernel's bin indices stay in int32, and its phase A takes
-# tiles of 1,024 bins (csrc/levels.cuh: kTile)
+# the harmpeaks and peaks kernels' bin indices stay in int32, and their
+# first phases take tiles of 1,024 bins (csrc/levels.cuh: kTile)
 HARMPEAKS_MAX_BINS = 1 << 26
 HARMPEAKS_TILE = 1024
 
@@ -186,19 +186,31 @@ def find_cluster_peaks_multi(
     nbins = npad if nbins is None else nbins
     if not 0 < nbins <= npad:
         raise ValueError(f"nbins={nbins} outside the row of {npad}")
+    if npad >= HARMPEAKS_MAX_BINS or npad % 4:
+        raise ValueError(
+            f"the peaks kernel takes rows of a multiple of 4 bins below "
+            f"{HARMPEAKS_MAX_BINS}, not {npad}"
+        )
+    if any(lv.data_ptr() % 16 for lv in levels):
+        raise ValueError("the peaks kernel reads 16-byte aligned level rows")
     dev = levels[0].device
-    w = torch.from_numpy(_clamped_windows(windows, nbins, nlev)).to(dev)
-    sc = torch.tensor(scales, dtype=torch.float32, device=dev)
+    # windows and scales go to the kernels by value, from host memory
+    w = np.ascontiguousarray(_clamped_windows(windows, nbins, nlev))
+    sc = np.asarray(scales, dtype=np.float32)
     idxs = torch.empty((rows, nlev, max_peaks), dtype=torch.int32, device=dev)
     snrs = torch.empty((rows, nlev, max_peaks), dtype=torch.float32, device=dev)
     counts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
     ccounts = torch.empty((rows, nlev), dtype=torch.int32, device=dev)
+    # the kernel's scratch: the crossing mask, one bit a bin and level,
+    # ldm words a level over tiles of HARMPEAKS_TILE bins (harmpeaks' layout)
+    ldm = 32 * (-(-npad // HARMPEAKS_TILE))
+    mask = torch.empty(rows * nlev * ldm, dtype=torch.int32, device=dev)
     ptrs = [lv.data_ptr() for lv in levels] + [None] * (6 - nlev)
     kernels.launch(
-        "peaks", *ptrs, rows, npad, nbins, nlev, w.data_ptr(), sc.data_ptr(),
-        float(np.float32(threshold)), min_gap, max_peaks, idxs.data_ptr(),
-        snrs.data_ptr(), counts.data_ptr(), ccounts.data_ptr(), stream_ptr(dev),
-        shape=(rows, npad, nlev, max_peaks),
+        "peaks", *ptrs, rows, npad, nbins, nlev, w.ctypes.data, sc.ctypes.data,
+        float(np.float32(threshold)), min_gap, max_peaks, mask.data_ptr(), ldm,
+        idxs.data_ptr(), snrs.data_ptr(), counts.data_ptr(), ccounts.data_ptr(),
+        stream_ptr(dev), shape=(rows, npad, nlev, max_peaks),
     )
     return idxs, snrs, counts, ccounts
 

@@ -46,9 +46,12 @@ _SPAN_MAX = 8192
 CLIP3_STD_RETENTION = 0.9865835
 DEFAULT_N_WIDTHS = 12
 
-# the kernels' limits: a block holds its tile's prefix-sum window in
-# shared memory; the width bank lives in a fixed array
-KERNEL_TILE = 8192
+# the kernels' limits. A boxcar block holds its tile's prefix-sum window
+# in shared memory. A spchain block streams its rows through a ring whose
+# geometry csrc/spchain_map.cuh alone decides; its entry refuses a bank or
+# a layout that does not fit (kernels.launch raises ValueError). The width
+# bank lives in a fixed array.
+BOXCAR_TILE = 8192
 MAX_WIDTHS = 32
 _SMEM_BYTES = 232_448 - 4096  # an H100 block's shared memory, less static use
 
@@ -153,11 +156,16 @@ def dec_fold(
     best: torch.Tensor, bw: torch.Tensor, dec: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Block max, first in-block argmax and the width index there, over
-    ``dec``-sample blocks of a (D, tpad) sweep (plain torch)."""
+    ``dec``-sample blocks of a (D, tpad) sweep (plain torch). The block max
+    is jnp.max's: IEEE maximum, so a block whose maximum is zero gives +0
+    where any of its samples is +0 and -0 where all its zeros are -0 (the
+    value at the argmax may carry the other sign)."""
     d, tpad = best.shape
     blocks = best.reshape(d, tpad // dec, dec)
     barg = torch.argmax(blocks, dim=-1)  # the first maximum, as jnp.argmax
     bmax = torch.gather(blocks, -1, barg[..., None])[..., 0]
+    pos_zero = ((blocks == 0) & ~torch.signbit(blocks)).any(dim=-1)
+    bmax = torch.where(bmax == 0, torch.where(pos_zero, 0.0, -0.0), bmax)
     bwidx = torch.gather(bw.reshape(d, tpad // dec, dec), -1, barg[..., None])[..., 0]
     return bmax, barg.to(torch.int32), bwidx
 
@@ -199,12 +207,12 @@ def _check_dec(dec: int, tpad: int) -> None:
 
 
 def _kernel_bank(csum_pad, widths, scales, wext):
-    """The kernels' checks, and the width bank as device tensors (widths
-    i32, scales f32)."""
+    """The boxcar kernel's checks, and the width bank as device tensors
+    (widths i32, scales f32)."""
     check(csum_pad, "csum_pad", torch.float32, 2)
     if len(widths) > MAX_WIDTHS:
         raise ValueError(f"the boxcar kernels take at most {MAX_WIDTHS} widths")
-    if (KERNEL_TILE + wext) * 4 > _SMEM_BYTES:
+    if (BOXCAR_TILE + wext) * 4 > _SMEM_BYTES:
         raise ValueError(
             f"a width extent of {wext} samples does not fit the kernels' "
             "shared-memory window; use fewer or narrower widths"
@@ -254,23 +262,28 @@ def boxcar_dec_best(
     (D, tpad/dec) f32, first in-block argmax (D, tpad/dec) i32, width
     index at the argmax (D, tpad/dec) i32); bitwise equal to
     :func:`boxcar_dec_best_plain`. ``dec`` is a power of two <= 1024 that
-    divides ``tpad``. CUDA tensors go through the spchain kernel, CPU
-    tensors through the plain version."""
+    divides ``tpad``. CUDA tensors go through the spchain kernel, which
+    also needs ``tpad`` a multiple of 512 and 16-byte aligned rows of a
+    multiple of 4 samples, and widths up to ~53k samples; CPU tensors
+    through the plain version."""
     _check_dec(dec, tpad)
     wext = _check_sweep(csum_pad, widths, scales, tpad)
     if on_cpu(csum_pad):
         return boxcar_dec_best_plain(csum_pad, widths, scales, nvalid, tpad, dec)
-    if tpad % 32:
-        raise ValueError(f"the spchain kernel needs tpad={tpad} a multiple of 32")
-    w_dev, s_dev = _kernel_bank(csum_pad, widths, scales, wext)
+    check(csum_pad, "csum_pad", torch.float32, 2)
+    if len(widths) > MAX_WIDTHS:
+        raise ValueError(f"the boxcar kernels take at most {MAX_WIDTHS} widths")
     d = csum_pad.shape[0]
     dev = csum_pad.device
     nbd = tpad // dec
     bmax = torch.empty((d, nbd), dtype=torch.float32, device=dev)
     barg = torch.empty((d, nbd), dtype=torch.int32, device=dev)
     bwidx = torch.empty((d, nbd), dtype=torch.int32, device=dev)
+    # the bank goes to the kernel by value, from host memory
+    w_host = np.asarray(widths, dtype=np.int32)
+    s_host = np.asarray(scales, dtype=np.float32)
     kernels.launch(
-        "spchain", csum_pad.data_ptr(), w_dev.data_ptr(), s_dev.data_ptr(),
+        "spchain", csum_pad.data_ptr(), w_host.ctypes.data, s_host.ctypes.data,
         len(widths), d, tpad + wext, tpad, nvalid, dec, bmax.data_ptr(),
         barg.data_ptr(), bwidx.data_ptr(), stream_ptr(dev),
         shape=(d, tpad, wext, len(widths), dec),

@@ -3,7 +3,11 @@ small shapes with the edge cases (odd widths, birdies at block edges,
 every dftspec factorisation, garbage padding, cluster overflow, rows out of order, offsets past 2^31,
 boxcars past the trial's end, a tile shorter than the kernel's, -inf
 blocks, flat stretches, more harmpeaks rows than SMs, dense crossing
-runs; dedisperse on 1 to 4,096 channels with killed ones, ragged sample
+runs; spchain with ties, signed zeros, a bank that is not powers of two,
+nvalid inside a tile, more rows than the card's resident blocks and banks
+wide enough (to 48,126 samples) that a window wraps round the ring;
+peaks with crossings on mask-word edges, window edges, dense runs,
+overflow, empty windows and more rows than the card's resident blocks; dedisperse on 1 to 4,096 channels with killed ones, ragged sample
 and trial counts, sums past a 16-bit lane, the widest delay spread and
 scales below 1; interbin from m = 2^10 to 2^20 on odd row counts and
 the least pad) that the main path's inputs may not hold.
@@ -285,3 +289,115 @@ def test_spchain(dev, dec):
     best, bw = singlepulse.boxcar_best(*args)
     for f, g in zip(singlepulse.dec_fold(best, bw, dec), got):
         assert torch.equal(f, g)
+
+
+def _spchain_inputs(dev, case):
+    """spchain's edges: prefix sums of noise with a pulse, and the case's
+    ties, signed zeros, odd bank, mid-tile nvalid or long and many rows."""
+    rng = np.random.default_rng(len(case))
+    rows, nsamps = 5, 20000
+    widths = singlepulse.default_widths(12)
+    if case == "odd_bank":
+        widths = (3, 1, 5, 6, 7, 2, 10, 13, 100, 4, 257, 1000, 1001, 1023)
+    if case == "many_rows":  # more rows than the card's resident blocks
+        rows, nsamps = 1500, 3000
+    if case == "long_rows":
+        rows, nsamps = 3, 300001
+    if case == "wide_bank":  # spsearch --n_widths 16: widths to 32,768, a wrapping ring
+        rows, nsamps, widths = 40, 300001, singlepulse.default_widths(16)
+    if case == "widest_bank":  # the widest boxcar a 14-chunk ring holds a tile of
+        rows, nsamps, widths = 7, 200001, (1, 2, 5, 4099, 48126)
+    x = rng.normal(size=(rows, nsamps)).astype(np.float32)
+    x[1, nsamps // 3 : nsamps // 3 + 40] += 8.0
+    if case == "ties":
+        x[:, 100:5000] = 0.0
+        x[2, 6000:9000:64] = 3.0
+        x[3] = np.round(x[3])
+    norm = singlepulse.normalise_trials(torch.from_numpy(x).to(dev))
+    if case == "ties":
+        norm[:, 100:5000] = 0.0
+    tpad, _ = singlepulse.plan_pad(nsamps)
+    csum = singlepulse.prefix_sum_padded(norm, tpad, singlepulse.width_extent(widths))
+    nvalid = nsamps
+    if case == "signed_zeros":
+        csum[:, 200:6000] = torch.from_numpy(
+            np.where(np.arange(5800) % 3 == 0, -0.0, 0.0).astype(np.float32)).to(dev)
+        csum[1, 7000:9000] = torch.from_numpy(
+            np.where(np.arange(2000) % 2, -1e-45, 1e-45).astype(np.float32)).to(dev)
+    if case == "nvalid_mid_tile":
+        nvalid = nsamps - 1500
+    if case == "all_neg_inf":
+        nvalid = 0
+    return csum, widths, singlepulse.width_scales(widths), nvalid, tpad
+
+
+@pytest.mark.parametrize(
+    "case,dec",
+    [("ties", 32), ("ties", 256), ("ties", 2), ("signed_zeros", 32), ("signed_zeros", 1),
+     ("signed_zeros", 512), ("odd_bank", 32), ("odd_bank", 4), ("nvalid_mid_tile", 32),
+     ("nvalid_mid_tile", 1024), ("all_neg_inf", 32), ("many_rows", 32), ("long_rows", 32),
+     ("long_rows", 64), ("wide_bank", 32), ("wide_bank", 1), ("wide_bank", 1024),
+     ("widest_bank", 32), ("widest_bank", 4)],
+)
+def test_spchain_edges(dev, case, dec):
+    args = _spchain_inputs(dev, case)
+    got = singlepulse.boxcar_dec_best(*args, dec)
+    want = singlepulse.boxcar_dec_best_plain(*args, dec)
+    torch.cuda.synchronize()
+    # bit for bit, the sign of a zero S/N included
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def _peaks_levels(rows, nbins, nlev, case, seed):
+    rng = np.random.default_rng(seed)
+    npad = -(-nbins // 4096) * 4096
+    levels = []
+    for _ in range(nlev):
+        s = 0.1 * np.abs(rng.normal(size=(rows, npad))).astype(np.float32)
+        s[:, nbins:] = 1e9
+        levels.append(s)
+    windows = np.tile(np.asarray([[nbins // 10, nbins + 500]], np.int32), (nlev, 1))
+    mx = 32
+    if case == "word_bits":
+        for lv in levels:
+            lv[:, [1024, 1055, 2048, 2079, 4095, 4096, 6143, 6144]] = 40.0
+        windows = np.asarray([[1024, 6144], [1025, 6145], [1055, 4096], [1056, 4095],
+                              [0, nbins + 700]], np.int32)[:nlev]
+    elif case == "dense_runs":
+        for h, lv in enumerate(levels):
+            lv[1, 1000 + h : 3100] += 25.0
+            lv[-1, 4000:9000:3] += 25.0
+        mx = 64
+    elif case == "overflow":
+        for lv in levels:
+            lv[:, 1000 : nbins - 100 : 61] += 30.0
+        mx = 4
+    elif case == "empty_windows":
+        for lv in levels:
+            lv[:, ::97] += 30.0
+        windows = np.asarray([[500, 500], [8000, 7000], [-40, nbins - 1], [300, 301],
+                              [0, 0]], np.int32)[:nlev]
+    else:  # "comb", over many rows
+        for h, lv in enumerate(levels):
+            lv[::2, h::61] += 30.0
+    return levels, windows, mx
+
+
+@pytest.mark.parametrize(
+    "case,rows,nbins",
+    [("word_bits", 4, 9000), ("dense_runs", 5, 20000), ("overflow", 3, 20000),
+     ("empty_windows", 4, 9000), ("comb", 3000, 5000)],  # more rows than resident
+)
+def test_peaks_edges(dev, case, rows, nbins):
+    nlev = 5
+    levels, windows, mx = _peaks_levels(rows, nbins, nlev, case, rows)
+    kw = dict(threshold=9.0, max_peaks=mx, scales=harmonics.level_scales(nlev - 1),
+              nbins=nbins)
+    lv = _on(dev, *levels)
+    got = peaks.find_cluster_peaks_multi(lv, windows, **kw)
+    want = peaks.find_cluster_peaks_multi_plain(lv, windows, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert int(got[3].max()) > (mx if case == "overflow" else 0)

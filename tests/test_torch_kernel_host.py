@@ -2,8 +2,10 @@
 CPU: csrc/levels.cuh (harmpeaks' level function and crossing mask),
 csrc/cluster_step.cuh (the cluster walk's step, shared by harmpeaks and
 peaks), csrc/dftmap.cuh (who holds what in dftspec's cluster),
-csrc/interbin_map.cuh (interbin's mirror pairs) and csrc/dedisp_map.cuh
-(dedisperse's staged windows and packed sums).
+csrc/interbin_map.cuh (interbin's mirror pairs), csrc/dedisp_map.cuh
+(dedisperse's staged windows and packed sums), csrc/spchain_map.cuh
+(spchain's ring of prefix-sum chunks, its sweep and its winner rule) and
+csrc/peaks_map.cuh (peaks' mask lanes).
 
 A small C++ shim that includes those headers is compiled with g++ into a
 shared library (``-ffp-contract=off``, so no add or multiply is fused, as
@@ -32,7 +34,26 @@ holds:
   their flushes), every read inside the window its chunk staged and equal
   to x[t + delay, c], the sums the plain channel sums, with one channel,
   past 256 channels of 255s, 4,096 channels and a spread past a
-  16-channel window.
+  16-channel window;
+- spchain's blocks emulated through csrc/spchain_map.cuh (each block's
+  loads into a poisoned ring as its loading warp issues them, every read
+  checked to lie in its tile's chunks and to come from the load that
+  holds it, the value sweep or, for dec < 8, the tracking sweep, and each
+  dec block's maximum, first argmax and width at the winner) bitwise
+  against the port's plain version and the JAX package's twin: dec 1 to
+  1024, nvalid inside a tile and at 0, a bank that is not powers of two,
+  ties between widths and samples, signed zeros (a zero maximum is +0
+  where any sample's best is +0, as jnp.max gives it), runs that cross
+  rows and rows longer than a run, and banks to 48,126 samples whose
+  windows wrap round the ring's end; the ring's geometry (it holds a
+  tile's window, wraps only where copies do not fit, and takes every
+  bank the one-window design before it took);
+- peaks' two phases emulated (16-byte reads inside each level's window,
+  nibbles into mask words clipped at the window's edges, then the shared
+  walk with one load a crossing's value) bitwise against the port's plain
+  version and the JAX package's Pallas kernel in interpret mode, with
+  crossings on bits 0 and 31 of mask words, on window edges, in dense
+  runs, past max_peaks and in empty windows.
 Skips only where there is no g++.
 """
 
@@ -66,6 +87,56 @@ SHIM = r"""
 #include "dftmap.cuh"
 #include "interbin_map.cuh"
 #include "levels.cuh"
+#include "peaks_map.cuh"
+#include "spchain_map.cuh"
+
+struct F4 {
+  float x, y, z, w;
+};
+
+// spchain.cu's blocks run on the host through spchain_map.cuh: each block's
+// loads copied into a ring of poisoned slots (and, where the ring does not
+// wrap, the first nwin - 1 again past the last) as its one producer
+// thread issues them, a slot refilled
+// only once the tiles reading it are done, each tile's chunks checked
+// present before it is swept, every float4 a thread reads checked to lie
+// in the tile's chunks and to come from the load that holds it, each
+// thread's samples (sample_of) swept as the kernel sweeps them, and each
+// dec block's maximum, first argmax, width and value taken by the
+// kernel's rules. Returns 1 if a tile's chunk is not in its slot (or the
+// slot walk disagrees with ring_pos), 2 if a read falls outside the tile's
+// chunks, 3 if it finds another load's data, 4 if loads are left
+// unconsumed, 5 if the bank fits no ring; stats gets the tiles swept
+// unmasked and masked, and whether the ring wraps.
+struct SpRing {
+  const float* p;
+  const int64_t* tag;
+  int64_t n0;
+  int s0, slots;
+  bool wrap;
+  int limit;
+  int* err;
+  F4 operator()(int at) const {
+    if (at < 0 || at + 3 >= limit) *err = 2;
+    const int pos = spmap::ring_at(s0, at, slots, wrap);
+    if (tag[pos / spmap::kChunk] != n0 + at / spmap::kChunk) *err = 3;
+    return F4{p[pos], p[pos + 1], p[pos + 2], p[pos + 3]};
+  }
+};
+
+// one prefix sum at tile offset o, through the checked float4 reads
+struct SpAt {
+  const SpRing& r;
+  float operator()(int o) const {
+    const F4 q = r(o & ~3);
+    return (&q.x)[o & 3];
+  }
+};
+
+struct SpBank {
+  const spmap::Width* b;
+  spmap::Width operator()(int k) const { return b[k]; }
+};
 
 template <int NLEV>
 static void levels_all(const float* s, int nbins, float* out) {
@@ -180,7 +251,246 @@ static void harmpeaks_rows(const float* spec, int rows, int npad, int nbins,
   }
 }
 
+template <int NLEV>
+static void peaks_rows(const float* const* lv, int rows, int npad, int nbins, const int* win,
+                       const float* sc, float thr, int min_gap, int mx, int* idxs, float* snrs,
+                       int* counts, int* ccounts) {
+  constexpr int T = harm::kTile, S = harm::kSpan, W = harm::kSpan / 32;
+  const int ldm = 32 * ((npad + T - 1) / T);
+  int lo[NLEV], hi[NLEV];
+  int bin_lo = 1 << 30, bin_hi = 0;
+  for (int h = 0; h < NLEV; ++h) {
+    lo[h] = win[2 * h] > 0 ? win[2 * h] : 0;
+    hi[h] = win[2 * h + 1];
+    bin_lo = lo[h] < bin_lo ? lo[h] : bin_lo;
+    bin_hi = hi[h] > bin_hi ? hi[h] : bin_hi;
+  }
+  std::vector<uint32_t> mask(std::size_t{NLEV} * ldm);
+  for (int r = 0; r < rows; ++r) {
+    // phase A over whole tiles, warp by warp (a span each) and lane by lane
+    for (auto& m : mask) m = 0xdeadbeefu;
+    for (int t0 = bin_lo / T * T; t0 < bin_hi; t0 += T) {
+      for (int q = t0 / S; q < (t0 + T) / S; ++q) {
+        for (int h = 0; h < NLEV; ++h) {
+          uint32_t words[W] = {};
+          const float* row = lv[h] + int64_t{r} * npad;
+          for (int lane = 0; lane < 32; ++lane) {
+            const int b = pkmap::lane_bin(q, lane);
+            const uint32_t nib = pkmap::lane_reads(b, lo[h], hi[h])
+                ? pkmap::nibble(row[b], row[b + 1], row[b + 2], row[b + 3], sc[h], thr)
+                : 0u;
+            words[lane >> 3] |= pkmap::word_bits(nib, lane);
+          }
+          for (int lane = 0; lane < 32; lane += 8) {
+            const int wi = pkmap::lane_word(q, lane);
+            if (pkmap::word_meets(wi, lo[h], hi[h]))
+              mask[std::size_t{h} * ldm + wi] = harm::clip_word(words[lane >> 3], wi, lo[h], hi[h]);
+          }
+        }
+      }
+    }
+    // phase B: each level's spans over its window, a crossing's value one
+    // load of its level
+    for (int h = 0; h < NLEV; ++h) {
+      const int64_t task = int64_t{r} * NLEV + h;
+      int* oi = idxs + task * mx;
+      float* os = snrs + task * mx;
+      for (int e = 0; e < mx; ++e) {
+        oi[e] = nbins;
+        os[e] = 0.f;
+      }
+      cluster::State st;
+      for (int q = lo[h] / S; lo[h] < hi[h] && q < (hi[h] + S - 1) / S; ++q) {
+        for (int u = 0; u < W; ++u) {
+          uint32_t bits = harm::clip_word(mask[std::size_t{h} * ldm + W * q + u], W * q + u,
+                                          lo[h], hi[h]);
+          while (bits) {
+            const int i = (W * q + u) * 32 + __builtin_ctz(bits);
+            bits &= bits - 1;
+            const float snr = lv[h][int64_t{r} * npad + i] * sc[h];
+            cluster::step(st, i, snr, min_gap, [&](int slot, int ci, float cs) {
+              if (slot < mx) {
+                oi[slot] = ci;
+                os[slot] = cs;
+              }
+            });
+          }
+        }
+      }
+      if (cluster::last_fits(st, mx)) {
+        oi[st.cursor] = st.cpeakidx;
+        os[st.cursor] = st.cpeak;
+      }
+      counts[task] = st.raw;
+      ccounts[task] = cluster::clusters(st);
+    }
+  }
+}
+
 extern "C" {
+
+int peaks(const float* l0, const float* l1, const float* l2, const float* l3,
+          const float* l4, const float* l5, int rows, int npad, int nbins, int nlev,
+          const int* win, const float* sc, float thr, int min_gap, int mx, int* idxs,
+          float* snrs, int* counts, int* ccounts) {
+  const float* lv[6] = {l0, l1, l2, l3, l4, l5};
+  switch (nlev) {
+    case 1: peaks_rows<1>(lv, rows, npad, nbins, win, sc, thr, min_gap, mx, idxs, snrs, counts, ccounts); break;
+    case 2: peaks_rows<2>(lv, rows, npad, nbins, win, sc, thr, min_gap, mx, idxs, snrs, counts, ccounts); break;
+    case 3: peaks_rows<3>(lv, rows, npad, nbins, win, sc, thr, min_gap, mx, idxs, snrs, counts, ccounts); break;
+    case 4: peaks_rows<4>(lv, rows, npad, nbins, win, sc, thr, min_gap, mx, idxs, snrs, counts, ccounts); break;
+    case 5: peaks_rows<5>(lv, rows, npad, nbins, win, sc, thr, min_gap, mx, idxs, snrs, counts, ccounts); break;
+    case 6: peaks_rows<6>(lv, rows, npad, nbins, win, sc, thr, min_gap, mx, idxs, snrs, counts, ccounts); break;
+    default: return 1;
+  }
+  return 0;
+}
+
+// a bank's ring: reach, chunks a tile reads, slots, whether a window
+// wraps, the ring's chunks; and the tile and chunk sizes
+int spchain_geometry(const int* w, int n, int* out) {
+  out[0] = spmap::reach(w, n);
+  out[1] = spmap::window_chunks(out[0]);
+  bool wrap;
+  spmap::plan_ring(out[1], out[2], wrap);
+  out[3] = wrap;
+  out[4] = spmap::ring_chunks(out[2], out[1], wrap);
+  out[5] = spmap::kTile;
+  out[6] = spmap::kChunk;
+  return 0;
+}
+
+int spchain_emulate(const float* csum, const int* w, const float* sc, int nw, long long rows,
+                    long long row_len, long long tpad, long long nvalid, int dec,
+                    long long nblocks, float* bmax, int* barg, int* bwidx, long long* stats) {
+  using namespace spmap;
+  Bank sorted;
+  sort_bank(w, sc, nw, sorted);
+  std::vector<Width> ord(nw);
+  int wmax = 0;
+  for (int k = 0; k < nw; ++k) {
+    ord[k] = Width{w[k], sc[k]};
+    wmax = w[k] > wmax ? w[k] : wmax;
+  }
+  const SpBank by_sorted{sorted.sorted}, by_ord{ord.data()};
+  Plan plan;
+  plan.tpr = (tpad + kTile - 1) / kTile;
+  plan.nch = (row_len + kChunk - 1) / kChunk;
+  plan.nwin = window_chunks(reach(w, nw));
+  plan_ring(plan.nwin, plan.slots, plan.wrap);
+  if (plan.slots == 0) return 5;
+  const int lslots = __builtin_ctz(plan.slots);
+  const int64_t tiles = rows * plan.tpr;
+  const int64_t nbd = tpad / dec;
+  const int nring = ring_chunks(plan.slots, plan.nwin, plan.wrap);
+  std::vector<float> ring(std::size_t(nring) * kChunk);
+  std::vector<int64_t> tag(nring);
+  std::vector<float> v(kTile);
+  std::vector<int> wv(kTile);
+  stats[0] = stats[1] = 0;
+  stats[2] = plan.wrap;
+  for (int64_t blk = 0; blk < nblocks; ++blk) {
+    int64_t g0, g1;
+    block_tiles(tiles, nblocks, blk, g0, g1);
+    if (g0 >= g1) continue;
+    std::fill(ring.begin(), ring.end(), 1e30f);
+    std::fill(tag.begin(), tag.end(), -1);
+    const int64_t nloads = total_loads(plan, g0, g1);
+    Loader ld;
+    loader_start(plan, g0, g1, ld);
+    const auto issue = [&](int64_t upto) {
+      for (; ld.n < nloads && ld.n < upto; loader_next(plan, g0, g1, ld)) {
+        const int64_t len = row_len - ld.c * kChunk < kChunk ? row_len - ld.c * kChunk : kChunk;
+        int s;
+        uint32_t ph;
+        ring_pos(ld.n, plan.slots, lslots, plan.wrap, s, ph);
+        const float* src = csum + ld.row * row_len + ld.c * kChunk;
+        std::copy(src, src + len, ring.begin() + s * kChunk);
+        tag[s] = ld.n;
+        if (!plan.wrap && s < plan.nwin - 1) {
+          std::copy(src, src + len, ring.begin() + (plan.slots + s) * kChunk);
+          tag[plan.slots + s] = ld.n;
+        }
+      }
+    };
+    issue(plan.slots);
+    Cursor cur;
+    cursor_start(plan, g0, cur);
+    int err = 0;
+    while (cur.g < g1) {
+      const int64_t t0 = cur.k * kTile;
+      const int tile_n = int(tpad - t0 < kTile ? tpad - t0 : kTile);
+      const int64_t have = plan.nch - cur.k < plan.nwin ? plan.nch - cur.k : plan.nwin;
+      int s0;
+      uint32_t ph0;
+      ring_pos(cur.n0, plan.slots, lslots, plan.wrap, s0, ph0);
+      {
+        int s = s0;
+        uint32_t ph = ph0;
+        for (int64_t j = 0; j < have; ++j, ring_next(plan.slots, s, ph)) {
+          int s_j;
+          uint32_t ph_j;
+          ring_pos(cur.n0 + j, plan.slots, lslots, plan.wrap, s_j, ph_j);
+          if (s != s_j || ph != ph_j || tag[s] != cur.n0 + j) return 1;
+        }
+      }
+      const SpRing rd{ring.data(), tag.data(), cur.n0, s0, plan.slots, plan.wrap,
+                      int(have * kChunk), &err};
+      const bool full = nvalid - t0 - (kTile - 1) >= wmax;
+      ++stats[full ? 0 : 1];
+      // every thread's samples, into v (and wv) at their tile offsets
+      for (int tid = 0; tid < kThreads; ++tid) {
+        float vt[kPer];
+        int wt[kPer];
+        const int o = sample_of(tid, 0);
+        const int64_t r = nvalid - (t0 + o);
+        const int room = int(r < -(1 << 20) ? -(1 << 20) : (r > (1 << 30) ? (1 << 30) : r));
+        if ((tid >> 5) * kWarpSamples >= tile_n) {
+          for (int j = 0; j < kPer; ++j) {
+            vt[j] = neg_inf();
+            wt[j] = 0;
+          }
+        } else if (dec < 8) {
+          if (full) sweep_track<false>(rd, o, by_ord, nw, 0, vt, wt);
+          else sweep_track<true>(rd, o, by_ord, nw, room, vt, wt);
+        } else {
+          if (full) sweep<false>(rd, o, by_sorted, sorted.nsmall, sorted.naligned, nw, 0, vt);
+          else sweep<true>(rd, o, by_sorted, sorted.nsmall, sorted.naligned, nw, room, vt);
+        }
+        for (int j = 0; j < kPer; ++j) {
+          v[sample_of(tid, j)] = vt[j];
+          wv[sample_of(tid, j)] = wt[j];
+        }
+      }
+      // each block: its first maximum, and its width and value there
+      const SpAt one{rd};
+      for (int b0 = 0; b0 < tile_n; b0 += dec) {
+        int ts = b0;
+        bool pz = false;
+        for (int t = b0; t < b0 + dec; ++t) {
+          if (v[t] > v[ts]) ts = t;
+        }
+        const float m = v[ts];
+        const int64_t b = cur.row * nbd + (t0 + b0) / dec;
+        for (int t = b0; m == 0.f && t < b0 + dec; ++t) {
+          if (v[t] != 0.f) continue;
+          int f;
+          pz |= positive_zero(dec < 8 ? v[t] : best_at(one, t, 0.f, nvalid - (t0 + t), by_ord, nw, f));
+        }
+        int found = wv[ts];
+        const float val = dec < 8 ? m : best_at(one, ts, m, nvalid - (t0 + ts), by_ord, nw, found);
+        bmax[b] = block_value(m, val, pz);
+        barg[b] = ts - b0;
+        bwidx[b] = found;
+      }
+      if (err) return err;
+      cursor_next(plan, g0, g1, cur);
+      issue(cur.n0 + plan.slots);
+    }
+    if (ld.n != nloads) return 4;
+  }
+  return 0;
+}
 
 int levels(const float* s, int nbins, int nharms, float* out) {
   switch (nharms + 1) {
@@ -469,6 +779,11 @@ _SIGNATURES = {
     "dft_elems": [_I] + [_P] * 7,
     "dft_bins": [_I, _P, _P, _I] + [_P] * 6,
     "interbin_map": [_I, _I] + [_P] * 5,
+    "peaks": [_P] * 6 + [_I, _I, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P],
+    "spchain_geometry": [_P, _I, _P],
+    "spchain_emulate": [_P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_longlong, ctypes.c_longlong, _I, ctypes.c_longlong,
+                        _P, _P, _P, _P],
     "dedisp_emulate": [_P, ctypes.c_longlong, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                        ctypes.c_longlong, _P, _P, _F, _I, _P],
 }
@@ -853,3 +1168,250 @@ def test_dedisperse_window_holds_every_read(shim, c, d, t, spread, full, killed)
     np.testing.assert_array_equal(sums, want)
     # chunks narrow only where the widest window would not fit
     assert (tab["log_chunk"] < tdd.MAX_LOG_CHUNK) == (spread > 10000)
+
+
+def _sp_inputs(case):
+    """(csum (rows, tpad + wext) f32, widths, scales, nvalid, tpad) for the
+    spchain emulation: normalised noise with a bright pulse, prefix sums as
+    the search forms them, and the case's edges."""
+    from peasoup_tpu_torch.ops import singlepulse as sp
+
+    rng = np.random.default_rng(len(case))
+    rows, nsamps = 5, 20000
+    widths = sp.default_widths(12)
+    if case == "odd_bank":  # a bank that is not powers of two, out of order
+        widths = (3, 1, 5, 6, 7, 2, 10, 13, 100, 4, 257, 1000, 1001, 1023)
+    if case == "long_rows":
+        rows, nsamps = 3, 70001
+    if case == "wide_bank":  # spsearch --n_widths 16: widths to 32,768
+        rows, nsamps, widths = 3, 70001, sp.default_widths(16)
+    if case == "widest_bank":  # the widest boxcar a 14-chunk ring holds a tile of
+        rows, nsamps, widths = 2, 70001, (1, 2, 5, 4099, 48126)
+    x = rng.normal(size=(rows, nsamps)).astype(np.float32)
+    x[1, nsamps // 3 : nsamps // 3 + 40] += 8.0
+    if case == "ties":
+        # flat stretches: every width's boxcar is 0 (ties between widths),
+        # and equal across the samples of a block; a comb of equal pulses
+        x[:, 100:5000] = 0.0
+        x[2, 6000:9000:64] = 3.0
+        x[3] = np.round(x[3])
+    norm = sp.normalise_trials(torch.from_numpy(x))
+    if case == "ties":
+        norm[:, 100:5000] = 0.0
+    tpad, _ = sp.plan_pad(nsamps)
+    wext = sp.width_extent(widths)
+    csum = sp.prefix_sum_padded(norm, tpad, wext).numpy()
+    nvalid = nsamps
+    if case == "signed_zeros":
+        # -0 and +0 prefix sums side by side: (-0 - +0) * s = -0, (+0 - -0)
+        # * s = +0, and tiny differences that round to a signed zero
+        csum[:, 200:6000] = np.where(np.arange(5800) % 3 == 0, -0.0, 0.0)
+        csum[1, 7000:9000] = np.where(np.arange(2000) % 2, -1e-45, 1e-45)
+        csum[2, 3000:3100] = -0.0
+    if case == "nvalid_mid_tile":
+        nvalid = nsamps - 1500  # inside the row's last tiles of 2,048
+    if case == "all_neg_inf":
+        nvalid = 0  # no boxcar fits: every block -inf, 0, 0
+    return np.ascontiguousarray(csum, np.float32), widths, sp.width_scales(widths), nvalid, tpad
+
+
+def _sp_emulate(shim, csum, widths, scales, nvalid, tpad, dec, nblocks):
+    rows, row_len = csum.shape
+    nbd = tpad // dec
+    out = [np.full((rows, nbd), 7.5, np.float32), np.full((rows, nbd), -9, np.int32),
+           np.full((rows, nbd), -9, np.int32)]
+    stats = np.zeros(3, np.int64)
+    w = np.asarray(widths, np.int32)
+    sc = np.asarray(scales, np.float32)
+    rc = shim.spchain_emulate(_ptr(csum), _ptr(w), _ptr(sc), len(widths), rows, row_len, tpad,
+                              nvalid, dec, nblocks, *(_ptr(a) for a in out), _ptr(stats))
+    assert rc == 0
+    return out, stats
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize(
+    "case,dec,nblocks",
+    [
+        ("base", 1, 13), ("base", 2, 13), ("base", 8, 13), ("base", 32, 13),
+        ("base", 64, 13), ("base", 1024, 13),
+        ("base", 32, 1),  # one block walks every row
+        ("base", 32, 1000),  # more blocks than tiles: a tile each, some idle
+        ("nvalid_mid_tile", 32, 7), ("nvalid_mid_tile", 4, 7),
+        ("odd_bank", 32, 9), ("odd_bank", 1, 9), ("odd_bank", 512, 9),
+        ("ties", 32, 11), ("ties", 256, 11), ("ties", 2, 11),
+        ("signed_zeros", 32, 5), ("signed_zeros", 1, 5), ("signed_zeros", 16, 5),
+        ("all_neg_inf", 32, 4), ("all_neg_inf", 1024, 4),
+        ("long_rows", 32, 5),  # rows of 35 tiles over runs of 21 or 22
+        # windows that wrap round the ring's end
+        ("wide_bank", 32, 5), ("wide_bank", 1, 5), ("wide_bank", 1024, 7),
+        ("widest_bank", 32, 3), ("widest_bank", 4, 3),
+    ],
+)
+def test_spchain_blocks_match_plain(shim, case, dec, nblocks):
+    # spchain.cu's blocks emulated through csrc/spchain_map.cuh, bitwise
+    # against the port's plain version and the JAX package's twin
+    from peasoup_tpu.ops import singlepulse as jsp
+    from peasoup_tpu_torch.ops import singlepulse as sp
+
+    csum, widths, scales, nvalid, tpad = _sp_inputs(case)
+    got, stats = _sp_emulate(shim, csum, widths, scales, nvalid, tpad, dec, nblocks)
+    want = sp.boxcar_dec_best_plain(torch.from_numpy(csum), widths, scales, nvalid, tpad, dec)
+    twin = jsp.boxcar_dec_best_twin(jnp.asarray(csum), widths, scales, nvalid, tpad, dec)
+    for g, p, j, name in zip(got, want, twin, ("bmax", "barg", "bwidx")):
+        np.testing.assert_array_equal(_bits(g), _bits(p.numpy()), err_msg=name)
+        np.testing.assert_array_equal(_bits(g), _bits(np.asarray(j)), err_msg=name)
+    rows = csum.shape[0]
+    geo = _sp_geometry(shim, widths)
+    tiles = rows * -(-tpad // geo["tile"])
+    assert stats[:2].sum() == tiles  # every tile swept once
+    # only the banks past ~20k samples take the wrapping ring
+    assert stats[2] == geo["wrap"] == (case in ("wide_bank", "widest_bank"))
+    assert stats[1] >= rows  # each row's last tiles take the masked loop
+    if case == "all_neg_inf":
+        assert np.isneginf(got[0]).all() and not got[1].any() and not got[2].any()
+    if case == "signed_zeros":
+        # blocks whose maximum is a zero: +0 where any sample's best is +0,
+        # though the first maximum (the winner) may be -0
+        best, _ = sp.boxcar_best_plain(torch.from_numpy(csum), widths, scales, nvalid, tpad)
+        at = np.arange(got[1].shape[1]) * dec + got[1]
+        winner = np.take_along_axis(best.numpy(), at, axis=1)
+        zero = got[0] == 0
+        assert zero.any() and not np.signbit(got[0][zero]).all()
+        if dec > 1:
+            assert (np.signbit(winner[zero]) & ~np.signbit(got[0][zero])).any()
+    if case == "ties":
+        assert (got[0][:, -(-200 // dec) : 2900 // dec] == 0).all()  # past every width
+    if case == "odd_bank":
+        assert len(set(got[2].ravel().tolist())) > 4
+
+
+def _sp_geometry(shim, widths) -> dict:
+    w = np.asarray(widths, np.int32)
+    out = np.zeros(7, np.int32)
+    shim.spchain_geometry(_ptr(w), len(widths), _ptr(out))
+    keys = ("reach", "nwin", "slots", "wrap", "chunks", "tile", "chunk")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
+@pytest.mark.parametrize(
+    "widths",
+    [(1, 2, 4), (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048), (5, 9, 4099),
+     (3, 2047), (2048,), (16000,), (17000,), (30000,), tuple(1 << k for k in range(16)),
+     (48126,), (48900,), (60000,)],
+)
+def test_spchain_ring_geometry(shim, widths):
+    # the ring holds a tile's chunks and a load ahead; it takes every bank
+    # the one-window design before it took (a window of 8,192 samples and
+    # the width extent in 228,352 B of shared memory), and refuses only
+    # where even a wrapping ring would pass 14 chunks
+    from peasoup_tpu_torch.ops import singlepulse as sp
+
+    g = _sp_geometry(shim, widths)
+    assert g["chunk"] == g["tile"] and g["tile"] % 512 == 0
+    assert g["reach"] >= max(widths) + 3 if max(widths) > 4 else g["reach"] == 7
+    assert g["nwin"] * g["tile"] >= g["tile"] - 4 + g["reach"] + 1
+    assert g["chunks"] * g["chunk"] * 4 <= 14 * 16384  # and the barriers and bank
+    old_design = (8192 + sp.width_extent(widths)) * 4 <= 228_352
+    assert bool(g["slots"]) == (g["nwin"] <= 14)
+    assert g["slots"] or not old_design
+    if g["slots"] and not g["wrap"]:
+        s = g["slots"]
+        assert s >= g["nwin"] + 2 and s >= 4 and s & (s - 1) == 0
+        assert g["chunks"] == s + g["nwin"] - 1 <= 14
+    if g["slots"] and g["wrap"]:
+        assert g["nwin"] <= g["slots"] == g["chunks"] == min(g["nwin"] + 2, 14)
+        copy = 4
+        while copy < g["nwin"] + 2:
+            copy *= 2
+        assert copy + g["nwin"] - 1 > 14  # wraps only where copies do not fit
+    if max(widths) <= 2048:
+        assert not g["wrap"]  # the default bank keeps its contiguous windows
+
+
+def _peaks_case(case):
+    """(levels, nbins, windows (nlev, 2), mx) for the peaks emulation."""
+    nbins, npad, rows = 9000, 12288, 4
+    rng = np.random.default_rng(len(case))
+    nlev = 5
+
+    def noise():
+        s = 0.1 * np.abs(rng.normal(size=(rows, npad))).astype(np.float32)
+        s[:, nbins:] = 1e9  # garbage past nbins, as block-aligned sums hold
+        return s
+
+    levels = [noise() for _ in range(nlev)]
+    w = np.tile(np.asarray([[nbins // 10, nbins + 500]], np.int32), (nlev, 1))
+    mx = 32
+    if case == "word_bits":
+        # crossings on bits 0 and 31 of mask words, windows starting and
+        # ending at word edges and one bin inside them
+        for lv in levels:
+            lv[:, [1024, 1055, 2048, 2079, 4095, 4096, 6143, 6144]] = 40.0
+        w = np.asarray([[1024, 6144], [1025, 6145], [1055, 4096], [1056, 4095],
+                        [0, nbins + 700]], np.int32)
+    elif case == "dense_runs":
+        # runs of crossings across words, spans and phase A's tiles
+        for h, lv in enumerate(levels):
+            lv[1, 1000 + h : 3100] += 25.0
+            lv[2, 4000:4300:3] += 25.0
+        w[2] = [1001, 3099]
+        mx = 64
+    elif case == "overflow":
+        for lv in levels:
+            lv[:, 1000:8000:61] += 30.0
+        mx = 4
+    elif case == "empty_windows":
+        # a window that holds no bin, one inverted, one from a negative start
+        for lv in levels:
+            lv[:, ::97] += 30.0
+        w = np.asarray([[500, 500], [8000, 7000], [-40, 8999], [300, 301], [0, 0]], np.int32)
+    else:  # "comb": distinct combs a level
+        for h, lv in enumerate(levels):
+            lv[::2, h :: 61] += 30.0
+            lv[1, nbins // 2 + h : nbins // 2 + 400 : 4] += 20.0
+    return [np.ascontiguousarray(lv) for lv in levels], nbins, w, mx
+
+
+@pytest.mark.parametrize("case", ["comb", "word_bits", "dense_runs", "overflow",
+                                  "empty_windows"])
+def test_peaks_phases_match_plain(shim, case):
+    # peaks.cu's phase A (16-byte reads inside each level's window, nibbles
+    # to mask words, clipped at the window's edges) and the shared walk,
+    # with each crossing's value one load of its level, emulated through
+    # csrc/peaks_map.cuh and levels.cuh: bitwise against the port's plain
+    # version and the JAX package's Pallas kernel in interpret mode
+    from peasoup_tpu.ops.pallas.peaks import find_cluster_peaks_multi as jax_kernel
+
+    levels, nbins, windows, mx = _peaks_case(case)
+    rows, npad = levels[0].shape
+    nlev = len(levels)
+    scales = harmonics.level_scales(nlev - 1)
+    kw = dict(threshold=9.0, max_peaks=mx, scales=scales, nbins=nbins)
+    want = peaks.find_cluster_peaks_multi_plain(
+        [torch.from_numpy(lv) for lv in levels], windows, **kw)
+    jx = jax_kernel([jnp.asarray(lv) for lv in levels], jnp.asarray(windows), interpret=True,
+                    **kw)
+    w = np.ascontiguousarray(peaks._clamped_windows(windows, nbins, nlev))
+    sc = np.asarray(scales, np.float32)
+    got = [np.empty((rows, nlev, mx), np.int32), np.empty((rows, nlev, mx), np.float32),
+           np.empty((rows, nlev), np.int32), np.empty((rows, nlev), np.int32)]
+    ptrs = [_ptr(lv) for lv in levels] + [None] * (6 - nlev)
+    assert shim.peaks(*ptrs, rows, npad, nbins, nlev, _ptr(w), _ptr(sc),
+                      float(np.float32(9.0)), 30, mx, *(_ptr(g) for g in got)) == 0
+    for g, t, j, name in zip(got, want, jx, ("idxs", "snrs", "counts", "ccounts")):
+        np.testing.assert_array_equal(_bits(g), _bits(t.numpy()), err_msg=name)
+        np.testing.assert_array_equal(_bits(g), _bits(np.asarray(j)), err_msg=name)
+    assert got[3].max() > 0
+    if case == "overflow":
+        assert got[3].max() > mx
+    if case == "word_bits":
+        # level 0's window [1024, 6144): 4095 and 4096 are one cluster, 6144
+        # lies outside
+        assert {1024, 1055, 2048, 2079, 4095, 6143} == set(got[0][:, 0].ravel().tolist()) - {nbins}
+    if case == "empty_windows":
+        assert not got[2][:, [0, 1, 4]].any()

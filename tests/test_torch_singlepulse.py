@@ -134,6 +134,25 @@ def test_narrow_prefix_rows_are_refused():
                        2000, 2048)
 
 
+@pytest.mark.parametrize(
+    "rc,error,words",
+    [(-1, ValueError, "shared-memory ring"), (-2, ValueError, "multiple of 512"),
+     (1, RuntimeError, "CUDA error 1")],
+)
+def test_spchain_entry_refusals_are_worded(monkeypatch, rc, error, words):
+    # the spchain entry alone decides its ring and layout; kernels.launch
+    # words its refusals and counts no launch
+    from types import SimpleNamespace
+
+    from peasoup_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "_load", lambda name: SimpleNamespace(boxcar_dec_best=lambda *a: rc))
+    before = kernels.launches["spchain"]
+    with pytest.raises(error, match=words):
+        kernels.launch("spchain", shape=(1, 2048, 1024, 1, 32))
+    assert kernels.launches["spchain"] == before
+
+
 @pytest.mark.parametrize("max_events", [1, 3, 64])
 def test_search_block_matches_jax(max_events):
     # rows 0 and 1 hold several events each, so small max_events overflow
