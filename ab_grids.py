@@ -1,0 +1,133 @@
+"""Time the port's two survey-sized searches in several checkouts on one card.
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 ab_grids.py DIR [DIR ...] [--rounds N]
+
+Each DIR is the root of a checkout of the repository (this one is ".").
+The script synthesizes chip_smoke.py's big grid (64 channels x 2^21+8192
+2-bit samples at 64 us, a P = 31.4 ms pulsar at DM 10) and single-pulse
+grid (the same geometry with three dispersed pulses) once, builds every
+checkout's kernels (one process per checkout, all at once), and then runs
+`peasoup` on the big grid and `spsearch` on the single-pulse grid with
+chip_smoke.py's flags in a fresh process from each checkout, in the order
+given and then reversed (A B B A; ``--rounds`` times), so that a drift of
+the card's clocks falls on every checkout alike. In the same order it
+times, in a process per checkout, the per-trial statistics of the two
+searches on the card at the grids' shapes: ``spectrum_stats`` over the
+big grid's spectra (77 x 2^20+1) and ``normalise_trials`` over the
+single-pulse grid's trials (179 x 2,101,288), CUDA events, median of 5
+after a warm-up. It prints each run's stage timers (from the run's
+overview.xml) and each statistics timing as a JSON line, then the card's
+name and power limit, then one line with every checkout's numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import xml.etree.ElementTree as ET
+
+import chip_smoke
+
+GRIDS = (
+    ("big grid", "peasoup", chip_smoke.GRID_FLAGS, chip_smoke.big_grid_fil),
+    ("single-pulse grid", "spsearch", chip_smoke.SP_FLAGS, chip_smoke.sp_grid_fil),
+)
+WARM = (
+    "from peasoup_tpu_torch import kernels; kernels.build(); "
+    "from peasoup_tpu_torch.pipeline.search import PeasoupSearch, SearchConfig; "
+    "PeasoupSearch(SearchConfig())"
+)
+
+STATS = """
+import json, statistics, torch
+from peasoup_tpu_torch.ops.singlepulse import normalise_trials
+from peasoup_tpu_torch.ops.spectrum import spectrum_stats
+
+def median_ms(fn):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+g = torch.Generator(device="cuda").manual_seed(7)
+s0 = torch.rand((77, (1 << 20) + 1), device="cuda", generator=g)
+trials = torch.randn((179, 2_101_288), device="cuda", generator=g)
+print(json.dumps({"spectrum_stats_ms": median_ms(lambda: spectrum_stats(s0)),
+                  "normalise_trials_ms": median_ms(lambda: normalise_trials(trials))}))
+"""
+
+
+def run_stats(tree: str) -> dict:
+    """The statistics timings of ``tree``, in a fresh process."""
+    proc = subprocess.run([sys.executable, "-c", STATS], cwd=tree,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise RuntimeError(f"statistics timing in {tree} exited with {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def run_cli(tree: str, cli: str, fil: str, outdir: str, flags: list) -> dict:
+    """One CLI run in a fresh process from ``tree``; returns its timers."""
+    cmd = [sys.executable, "-m", f"peasoup_tpu_torch.cli.{cli}", "-i", fil,
+           "-o", outdir, *flags]
+    proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+        raise RuntimeError(f"{cli} in {tree} exited with {proc.returncode}")
+    root = ET.parse(os.path.join(outdir, "overview.xml")).getroot()
+    return {e.tag: float(e.text) for e in root.find("execution_times")}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="checkout roots, in order")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times the order and its reverse are run")
+    args = ap.parse_args()
+    trees = [os.path.abspath(t) for t in args.trees]
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    builds = [subprocess.Popen([sys.executable, "-c", WARM], cwd=t) for t in trees]
+    if any(p.wait() != 0 for p in builds):
+        raise RuntimeError("a checkout's kernels did not build")
+    with tempfile.TemporaryDirectory() as tmp:
+        fils = {}
+        for label, _, _, make in GRIDS:
+            fils[label] = os.path.join(tmp, label.replace(" ", "_") + ".fil")
+            make(fils[label])
+        runs: dict = {t: {label: [] for label, *_ in GRIDS} for t in trees}
+        for t in trees:
+            runs[t]["statistics"] = []
+        for i, tree in enumerate((trees + trees[::-1]) * args.rounds):
+            stats = run_stats(tree)
+            runs[tree]["statistics"].append(stats)
+            print(json.dumps({"tree": tree, "statistics": stats}), flush=True)
+            for label, cli, flags, _ in GRIDS:
+                outdir = os.path.join(tmp, f"out{i}_{cli}")
+                timers = run_cli(tree, cli, fils[label], outdir, flags)
+                runs[tree][label].append(timers)
+                print(json.dumps({"tree": tree, "grid": label, "timers": timers}),
+                      flush=True)
+    print(card)
+    print(json.dumps({"card": card, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

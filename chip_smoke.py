@@ -67,6 +67,33 @@ Phases, each fatal on failure:
      and the fold outcomes must agree; and the card's single-pulse
      search against the CPU's on a small 8-bit filterbank with a narrow
      and a broad pulse.
+  9. The dedispersion engines on an 8-bit, 256-channel input (2^20
+     samples at 64 us over the big grid's band, dm_end 40: 190 trials):
+     exact subbands (nsub 16) with scan and with matmul stages, and the
+     banded-matmul engine, each bitwise the dedisperse kernel's trials
+     and timed beside it (CUDA events, median of 5).
+ 10. `peasoup --subbands 8` on the big grid (smear 1.0): the top
+     candidate is the pulsar.
+ 11. The tutorial grid with `--subbands 8 --subband_smear 0` and with
+     `--dedisp_engine matmul`: the default run's candidates, field for
+     field.
+ 12. Checkpoints: the tutorial grid with --checkpoint, then with the store
+     rewritten to every other DM trial (the resumed run searches only
+     the missing ones), then on the full store (the fast path: no kernel
+     launches), each with the default run's candidates; the same for
+     `spsearch` on the small single-pulse input.
+ 13. The big grid in a subprocess whose allocator may hold 3 GB: real
+     out-of-memory errors, at least one DM-block shrink in its log, and
+     the unconstrained run's candidates.
+ 14. `peasoup-ffa` on the big grid's geometry with a P = 1.2 s pulsar at
+     DM 10: the top candidate within 1e-3 of its period, and dedisperse
+     ran.
+ 15. `coincidencer` on 13 beams of the tutorial grid's geometry (a burst
+     in 10, a tone in all, a pulsar in one): the mask flags the burst
+     only, birdies.txt lists the tone, and the card's mask is the CPU's.
+ 16. `accmap` on four beams with planted lags: every lag found.
+ 17. The subband search (smear 1.0) on the card against the CPU on a
+     small 8-bit input: the same strong candidates, bitwise trials.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -75,6 +102,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -425,6 +453,52 @@ def small_fil(path: str) -> None:
     )
     data = np.clip(np.rint(data), 0, 255).astype(np.uint8)
     write_filterbank(path, Filterbank(header=hdr, data=data))
+
+
+# the coincidencer's beams: the tutorial grid's geometry, 13 beams (the
+# Parkes multibeam receiver's count); a zero-DM burst in 10 of them, a
+# zero-DM tone (a 20 Hz square wave on 8 of the 64 channels: strong in the
+# spectrum, a fraction of a sigma in the time series) in all, and the
+# tutorial grid's dispersed pulsar in beam 0 only
+COIN_BEAMS, COIN_BURST_BEAMS, COIN_TONE_HZ = 13, 10, 20.0
+COIN_BURST = (60_000, 8)  # start sample, length (2.56 ms)
+
+
+def coincidence_beams(tmp: str, nbeams: int = COIN_BEAMS,
+                      burst_beams: int = COIN_BURST_BEAMS,
+                      nsamps: int = TUT_NSAMPS, nchans: int = TUT_NCHANS,
+                      burst: tuple = COIN_BURST) -> list[str]:
+    """Write ``nbeams`` 2-bit filterbanks of the tutorial grid's channel
+    and sample geometry into ``tmp``: rng.integers(0, 3) noise (a seed a
+    beam), +1 on every channel over the ``burst`` samples in the first
+    ``burst_beams`` beams, +1 on every eighth channel for the on half of a
+    COIN_TONE_HZ square wave in every beam, and the tutorial grid's P =
+    250 ms DM 30 pulsar in beam 0. Returns the paths."""
+    t = np.arange(nsamps, dtype=np.float64)
+    tone = (((t * TUT_TSAMP * COIN_TONE_HZ) % 1.0) < 0.5).astype(np.uint8)
+    delays = np.rint(
+        np.float32(TUT_DM) * np.abs(delay_table(TUT_FCH1, TUT_FOFF, nchans, TUT_TSAMP))
+    ).astype(np.int64)
+    pulse = (((t * TUT_TSAMP / TUT_PERIOD) % 1.0) < TUT_DUTY).astype(np.uint8)
+    paths = []
+    for b in range(nbeams):
+        rng = np.random.default_rng(100 + b)
+        data = rng.integers(0, 3, size=(nsamps, nchans), dtype=np.uint8)
+        data[:, ::8] += tone[:, None]
+        if b < burst_beams:
+            data[burst[0] : burst[0] + burst[1]] += 1
+        if b == 0:
+            for c in range(nchans):
+                src = np.clip(t - delays[c], 0, nsamps - 1).astype(np.int64)
+                data[:, c] += pulse[src]
+        hdr = SigprocHeader(
+            source_name=f"beam{b:02d}", data_type=1, nchans=nchans, nbits=2, nifs=1,
+            tsamp=TUT_TSAMP, tstart=51000.0, fch1=TUT_FCH1, foff=TUT_FOFF,
+        )
+        path = os.path.join(tmp, f"beam{b:02d}.fil")
+        write_filterbank(path, Filterbank(header=hdr, data=np.minimum(data, 3)))
+        paths.append(path)
+    return paths
 
 
 def main_shape(shapes: dict, name: str) -> tuple:
@@ -1232,6 +1306,424 @@ def sp_agreement_phase(tmp: str) -> int:
     return len(strong)
 
 
+# --- the phases of the dedispersion engines, checkpoints, the memory ladder
+# and the smaller searches ----------------------------------------------------
+
+# the engines' input: 8-bit samples in 256 channels over the big grid's band,
+# 2^20 samples at 64 us; dm_end 40 gives 190 trials. At 16 channels a band
+# (nsub 16) stage 2 sums up to 16 x 255 = 4,080 a sample, past the 2,048
+# TF32 holds exactly.
+ENG_NCHANS, ENG_NSAMPS, ENG_DM_END, ENG_NSUB = 256, 1 << 20, 40.0, 16
+# the FFA grid: the big grid's geometry and noise with a P = 1.2 s pulsar of
+# duty 0.02 at DM 10
+FFA_PERIOD, FFA_DUTY = 1.2, 0.02
+FFA_FLAGS = ["--dm_end", "20", "--p_start", "0.8", "--p_end", "5"]
+# the memory ladder's phase: the caching allocator may hold this much, less
+# than the big grid's first DM block and row batch take
+OOM_LIMIT_BYTES = 3_000_000_000
+# accmap: four beams of one noise series at these sample offsets
+ACC_OFFSETS, ACC_NSAMPS = (0, 17, 40, 123), 1 << 16
+
+
+class LogLines(logging.Handler):
+    """The messages the named loggers emit at INFO and above while the
+    block runs."""
+
+    def __init__(self, *names: str):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+        self.loggers = [logging.getLogger(n) for n in names]
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.levels = [lg.level for lg in self.loggers]
+        for lg in self.loggers:
+            lg.setLevel(logging.INFO)
+            lg.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        for lg, level in zip(self.loggers, self.levels):
+            lg.removeHandler(self)
+            lg.setLevel(level)
+
+    def find(self, prefix: str) -> list[str]:
+        return [ln for ln in self.lines if ln.startswith(prefix)]
+
+
+def engines_phase(dev: torch.device) -> dict:
+    """The dedispersion engines on ENG_*'s 8-bit, 256-channel input against
+    the dedisperse kernel: exact subbands (max_smear 0) with scan and with
+    matmul stages, and the banded-matmul engine, each bitwise the kernel's
+    trials; each timed (CUDA events, median of 5) beside the kernel."""
+    from peasoup_tpu_torch.ops.dedisperse import (
+        dedisperse_matmul, dedisperse_subband, subband_groups,
+    )
+    from peasoup_tpu_torch.plan.dm_plan import DMPlan
+
+    plan = DMPlan.create(nsamps=ENG_NSAMPS, nchans=ENG_NCHANS, tsamp=TSAMP, fch1=FCH1,
+                         foff=-300.0 / ENG_NCHANS, dm_start=0.0, dm_end=ENG_DM_END)
+    delays = plan.delay_samples()
+    kill = plan.killmask.copy()
+    kill[[7, ENG_NCHANS // 2 - 28, ENG_NCHANS - 55]] = 0  # three channels killed
+    scale = output_scale(8, int(kill.sum()))
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(
+        rng.integers(0, 256, size=(ENG_NSAMPS, ENG_NCHANS), dtype=np.uint8)).to(dev)
+    args = (x, delays, kill, plan.out_nsamps)
+    groups = subband_groups(delays, ENG_NSUB, 0.0)
+    say(f"engines: {plan.ndm} DM trials (dm_end {ENG_DM_END}) of {plan.out_nsamps} samples, "
+        f"{ENG_NCHANS} 8-bit channels ({int(kill.sum())} kept), nsub {ENG_NSUB}, "
+        f"{len(groups)} groups at max_smear 0")
+    calls = {
+        "dedisperse kernel": lambda: dedisperse(*args, scale=scale),
+        "subband, scan stages": lambda: dedisperse_subband(
+            *args, nsub=ENG_NSUB, max_smear=0.0, scale=scale),
+        "subband, matmul stages": lambda: dedisperse_subband(
+            *args, nsub=ENG_NSUB, max_smear=0.0, scale=scale, use_matmul=True),
+        "banded matmul": lambda: dedisperse_matmul(*args, scale=scale),
+    }
+    ref = calls["dedisperse kernel"]()
+    out = {}
+    for label, fn in calls.items():
+        got = fn()
+        require(got.dtype == torch.uint8 and torch.equal(got, ref),
+                f"{label}: bitwise the dedisperse kernel's trials")
+        out[label] = time_ms(fn)
+        say(f"engines: {label}: {out[label]:.3f} ms (median of 5), bitwise the kernel's")
+    del x, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def timers_line(label: str, run: dict) -> None:
+    say(f"{label} stage timers (s): " + json.dumps(run["timers"], sort_keys=True))
+
+
+def subband_grid_phase(path: str, tmp: str) -> dict:
+    """`peasoup --subbands 8` on the big grid at the default smear: the top
+    candidate is the pulsar, and the dedisperse kernel does not run."""
+    run = periodicity_phase(path, os.path.join(tmp, "big_subbands"),
+                            GRID_FLAGS + ["--subbands", "8"], PERIOD,
+                            path_kernels=PEASOUP_KERNELS[1:])
+    require(run["launches"]["dedisperse"] == 0, "the subband path replaces the kernel")
+    timers_line("big grid, --subbands 8", run)
+    return run
+
+
+def same_candidates(run: dict, base: dict, what: str) -> None:
+    """Two runs' candidates, field for field: overview.xml's and the
+    candidates file's bytes."""
+    with open(os.path.join(run["outdir"], "candidates.peasoup"), "rb") as f:
+        data = f.read()
+    require(xml_candidates(run["root"]) == base["cands"] and data == base["cands_file"],
+            f"{what} gives the default run's candidates field for field")
+
+
+def tutorial_engine_phase(path: str, tmp: str, base: dict) -> dict:
+    """The tutorial grid with exact subbands and with the banded-matmul
+    engine: the default run's candidates, field for field."""
+    runs = {}
+    for label, flags in (("--subbands 8 --subband_smear 0",
+                          ["--subbands", "8", "--subband_smear", "0"]),
+                         ("--dedisp_engine matmul", ["--dedisp_engine", "matmul"])):
+        outdir = os.path.join(tmp, "tut_" + flags[1])
+        run = periodicity_phase(path, outdir, TUT_FLAGS + flags, TUT_PERIOD,
+                                path_kernels=TUT_KERNELS[1:])
+        run["outdir"] = outdir
+        require(run["launches"]["dedisperse"] == 0, f"{label}: the kernel is replaced")
+        same_candidates(run, base, f"tutorial grid, {label}")
+        timers_line(f"tutorial grid, {label}", run)
+        runs[label] = run
+    return runs
+
+
+def checkpoint_phase(path: str, tmp: str, base: dict) -> dict:
+    """Checkpoints on the tutorial grid: a run with --checkpoint; the store
+    rewritten through SearchCheckpoint with every other DM trial; a resumed
+    run that searches only the missing ones; a third run on the full store
+    that takes the fast path (no kernel launches). Each gives the default
+    run's candidates field for field. Then the same on the small
+    single-pulse input (blocks of 8 trials, every other block kept)."""
+    from peasoup_tpu_torch.cli.peasoup import main
+    from peasoup_tpu_torch.cli.spsearch import main as sp_main
+    from peasoup_tpu_torch.pipeline.checkpoint import SearchCheckpoint
+
+    def halve(ck: str, keep) -> tuple[int, int]:
+        key = str(np.load(ck)["config_key"])
+        store = SearchCheckpoint(ck, key)
+        full = store.load()
+        store.save({d: v for d, v in full.items() if keep(d)})
+        return len(full), len(store.load())
+
+    out = {}
+    ck = os.path.join(tmp, "tut.ckpt")
+    for step in ("first", "resumed", "fast path"):
+        outdir = os.path.join(tmp, "tut_ckpt_" + step.replace(" ", "_"))
+        with LogLines("peasoup_tpu_torch.search") as log_lines:
+            run = periodicity_phase(path, outdir, TUT_FLAGS + ["--checkpoint", ck],
+                                    TUT_PERIOD, path_kernels=() if step == "fast path"
+                                    else TUT_KERNELS)
+        run["outdir"] = outdir
+        same_candidates(run, base, f"tutorial grid --checkpoint, {step} run")
+        searched = log_lines.find("searched ")
+        say(f"checkpoint, {step} run: {searched[-1] if searched else 'no trial searched'}; "
+            f"{sum(run['launches'].values())} kernel launches")
+        timers_line(f"tutorial grid --checkpoint, {step} run", run)
+        if step == "first":
+            ndm, kept = halve(ck, lambda d: d % 2 == 0)
+            say(f"checkpoint: store rewritten with {kept} of {ndm} DM trials")
+            require(f"searched {ndm} of {ndm} DM trials (0 restored)" in searched,
+                    "the first run searches every trial")
+        elif step == "resumed":
+            require(f"searched {ndm - kept} of {ndm} DM trials ({kept} restored)"
+                    in searched, "the resumed run searches only the missing trials")
+        else:
+            require(sum(run["launches"].values()) == 0 and run["launches"]["dedisperse"] == 0,
+                    "the fast path launches no kernel, dedisperse included")
+            require(log_lines.find("resume fast path"), "the fast path was taken")
+        out[step] = run
+
+    sp_path = os.path.join(tmp, "sp_ckpt.fil")
+    sp_small_fil(sp_path)
+    ck = os.path.join(tmp, "sp.ckpt")
+    flags = ["--dm_end", "60", "-m", "7", "--n_widths", "8", "--dm_block", "8"]
+    ref = None
+    for step in ("plain", "first", "resumed", "fast path"):
+        outdir = os.path.join(tmp, "sp_ckpt_" + step.replace(" ", "_"))
+        argv = ["-i", sp_path, "-o", outdir, *flags]
+        if step != "plain":
+            argv += ["--checkpoint", ck]
+        with LogLines("peasoup_tpu_torch.single_pulse") as log_lines:
+            run = cli_phase(sp_main, argv, outdir, ("candidates.singlepulse", "overview.xml"),
+                            () if step == "fast path" else SP_KERNELS)
+        with open(os.path.join(outdir, "candidates.singlepulse")) as f:
+            text = f.read()
+        searched = log_lines.find("searched ")
+        say(f"sp checkpoint, {step} run: {searched[-1] if searched else 'no trial searched'}; "
+            f"{sum(run['launches'].values())} kernel launches")
+        if step == "plain":
+            ref = text
+            require(len(text.splitlines()) >= 2, "the small single-pulse input yields candidates")
+            continue
+        require(text == ref, f"spsearch --checkpoint, {step} run: the plain run's candidates")
+        if step == "first":
+            ndm, kept = halve(ck, lambda d: (d // 8) % 2 == 0)
+            say(f"sp checkpoint: store rewritten with {kept} of {ndm} DM trials")
+        elif step == "resumed":
+            require(f"searched {ndm - kept} of {ndm} DM trials ({kept} restored)"
+                    in searched, "the resumed spsearch searches only the missing blocks")
+        else:
+            require(sum(run["launches"].values()) == 0, "the sp fast path launches no kernel")
+        out["sp " + step] = run
+    return out
+
+
+def oom_phase(path: str, tmp: str, base: dict) -> dict:
+    """The big grid's `peasoup` run in a subprocess whose caching allocator
+    may hold OOM_LIMIT_BYTES (torch.cuda.set_per_process_memory_fraction),
+    less than its first DM block takes: a real out-of-memory error. Its log
+    shows the DM block shrinking, and its candidates equal the unconstrained
+    run's."""
+    outdir = os.path.join(tmp, "big_oom")
+    frac = OOM_LIMIT_BYTES / torch.cuda.get_device_properties(0).total_memory
+    code = (
+        "import logging, sys, torch\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+        f"torch.cuda.set_per_process_memory_fraction({frac!r}, 0)\n"
+        "logging.basicConfig(level=logging.WARNING, stream=sys.stderr)\n"
+        "from peasoup_tpu_torch.cli.peasoup import main\n"
+        f"sys.exit(main({['-i', path, '-o', outdir, *GRID_FLAGS]!r}))\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    shrinks = [ln for ln in proc.stderr.splitlines() if "device OOM at dm_block" in ln]
+    for ln in shrinks:
+        say("oom: " + ln[:240])
+    require(proc.returncode == 0, f"the memory-limited run exits 0: {proc.stderr[-2000:]}")
+    require(len(shrinks) >= 1, "the log shows at least one dm_block shrink")
+    root = ET.parse(os.path.join(outdir, "overview.xml")).getroot()
+    got, want = xml_candidates(root), xml_candidates(base["root"])
+    diff = [(a, b) for a, b in zip(got, want) if a != b]
+    if diff or len(got) != len(want):
+        say(f"oom: {len(got)} candidates against {len(want)}; first difference: "
+            f"{diff[0] if diff else 'the count'}")
+    require(got == want, "the memory-limited run gives the unconstrained run's candidates")
+    timers = {e.tag: float(e.text) for e in root.find("execution_times")}
+    say(f"oom: {len(shrinks)} shrink(s) under a {OOM_LIMIT_BYTES} B allocator limit, "
+        f"{wall:.3f} s subprocess wall; stage timers (s): {json.dumps(timers, sort_keys=True)}")
+    return dict(shrinks=len(shrinks), timers=timers)
+
+
+def ffa_grid_fil(path: str) -> None:
+    """The big grid's filterbank geometry and noise (seed 7) with a P = 1.2 s
+    pulsar of duty 0.02 at DM 10, whole-sample delays."""
+    nchans, nsamps = NCHANS, NSAMPS
+    rng = np.random.default_rng(7)
+    delays = np.rint(
+        np.float32(PULSAR_DM) * np.abs(delay_table(FCH1, FOFF, nchans, TSAMP))
+    ).astype(np.int64)
+    t = np.arange(nsamps, dtype=np.float64)
+    pulse = (((t * TSAMP / FFA_PERIOD) % 1.0) < FFA_DUTY).astype(np.uint8)
+    data = rng.integers(0, 3, size=(nsamps, nchans), dtype=np.uint8)
+    for c in range(nchans):
+        src = np.clip(t - delays[c], 0, nsamps - 1).astype(np.int64)
+        data[:, c] += pulse[src]
+    hdr = SigprocHeader(
+        source_name="ffa_grid_synth", data_type=1, nchans=nchans, nbits=2,
+        nifs=1, tsamp=TSAMP, tstart=51000.0, fch1=FCH1, foff=FOFF,
+    )
+    write_filterbank(path, Filterbank(header=hdr, data=data))
+
+
+def ffa_phase(tmp: str) -> dict:
+    """`peasoup-ffa` on the FFA grid: the top candidate's period is within
+    1e-3 of 1.2 s, and dedisperse ran."""
+    from peasoup_tpu_torch.cli.ffa import main
+
+    path = os.path.join(tmp, "ffa.fil")
+    ffa_grid_fil(path)
+    out = os.path.join(tmp, "ffa.xml")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = main(["-i", path, "-o", out, *FFA_FLAGS])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(rc == 0, "peasoup-ffa exit code 0")
+    launches = dict(kernels.launches)
+    require(launches["dedisperse"] > 0, "peasoup-ffa ran the dedisperse kernel")
+    root = ET.parse(out).getroot()
+    cands = root.findall("candidates/candidate")
+    require(len(cands) > 0, "peasoup-ffa found candidates")
+    for e in cands[:3]:
+        say("  ffa candidate " + ", ".join(
+            f"{k} {e.find(k).text}" for k in ("period", "dm", "snr", "width", "duty_cycle")))
+    top = float(cands[0].find("period").text)
+    require(abs(top - FFA_PERIOD) / FFA_PERIOD < 1e-3,
+            f"the top FFA candidate's period {top} within 1e-3 of {FFA_PERIOD}")
+    timers = {e.tag: float(e.text) for e in root.find("execution_times")}
+    say(f"ffa: {root.find('dedispersion_trials').get('count')} DM trials, {len(cands)} "
+        f"candidates, {wall:.3f} s CLI wall, dedisperse launches {launches['dedisperse']}; "
+        f"stage timers (s): {json.dumps(timers, sort_keys=True)}")
+    os.remove(path)
+    return dict(timers=timers, wall=wall)
+
+
+def coincidence_phase(tmp: str) -> dict:
+    """`coincidencer` over 13 beams (coincidence_beams), on the card and on
+    the CPU: the sample mask flags the burst and nothing else (the pulsar
+    in beam 0 is not masked), birdies.txt lists the tone's bin, and the
+    card's mask equals the CPU's."""
+    from peasoup_tpu_torch.cli.coincidencer import main
+
+    beam_dir = os.path.join(tmp, "beams")
+    os.makedirs(beam_dir)
+    paths = coincidence_beams(beam_dir)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mask, birdies = (os.path.join(tmp, f"{dev}.{n}") for n in ("eb_mask", "birdies"))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rc = main([*paths, "--o", mask, "--o2", birdies, "--device", dev])
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"coincidencer on {dev} exits 0")
+        with open(mask) as f:
+            lines = f.read().splitlines()
+        res[dev] = dict(lines=lines, birdies=np.loadtxt(birdies, ndmin=2), wall=wall,
+                        launches=kernels.launches["dedisperse"])
+    cuda = res["cuda"]
+    require(cuda["launches"] == COIN_BEAMS, "dedisperse ran once a beam on the card")
+    require(cuda["lines"] == res["cpu"]["lines"], "the card's sample mask equals the CPU's")
+    mask = np.array([int(v) for v in cuda["lines"][1:]])
+    require(mask.size == TUT_NSAMPS, "the mask covers the full dedispersed length")
+    b0, blen = COIN_BURST
+    flagged = np.flatnonzero(mask == 0)
+    require((mask[b0 : b0 + blen] == 0).all(), "the sample mask flags the burst")
+    require(((flagged >= b0 - 64) & (flagged < b0 + blen + 64)).all(),
+            "nothing but the burst is masked (the pulsar's beam is not)")
+    bird = cuda["birdies"]
+    require(bool((np.abs(bird[:, 0] - COIN_TONE_HZ) <= bird[:, 1] / 2 + 0.01).any()),
+            "birdies.txt lists the tone's bin")
+    say(f"coincidencer: {COIN_BEAMS} beams of {TUT_NSAMPS} samples, {flagged.size} samples "
+        f"masked (burst {b0}..{b0 + blen - 1}), {len(bird)} birdies ({len(res['cpu']['birdies'])} "
+        f"on the CPU); {cuda['wall']:.3f} s on the card, {res['cpu']['wall']:.3f} s on the CPU")
+    return res
+
+
+def accmap_phase(tmp: str) -> dict:
+    """`accmap` on four beams of one noise series at ACC_OFFSETS: every
+    pair's lag is found."""
+    import contextlib
+    import io
+
+    from peasoup_tpu_torch.cli.accmap import main
+
+    rng = np.random.default_rng(9)
+    base = rng.normal(100, 5, size=ACC_NSAMPS + max(ACC_OFFSETS))
+    files = []
+    for k, off in enumerate(ACC_OFFSETS):
+        data = np.clip(base[off : off + ACC_NSAMPS, None]
+                       + rng.normal(0, 0.5, size=(ACC_NSAMPS, 4)), 0, 255).astype(np.uint8)
+        hdr = SigprocHeader(source_name=f"acc{k}", data_type=1, nchans=4, nbits=8, nifs=1,
+                            tsamp=64e-6, tstart=51000.0, fch1=FCH1, foff=-1.0)
+        files.append(os.path.join(tmp, f"acc{k}.fil"))
+        write_filterbank(files[-1], Filterbank(header=hdr, data=data))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(files + ["-d", "256"])
+    wall = time.perf_counter() - t0
+    require(rc == 0, "accmap exits 0")
+    lines = buf.getvalue().splitlines()
+    require(len(lines) == 6, "accmap prints one line a pair")
+    k = 0
+    for i in range(len(files)):
+        for j in range(i + 1, len(files)):
+            lag = int(lines[k].split("(lag ")[1].split(" ")[0])
+            require(lag == ACC_OFFSETS[i] - ACC_OFFSETS[j],
+                    f"accmap pair ({i}, {j}): lag {lag}, planted {ACC_OFFSETS[i] - ACC_OFFSETS[j]}")
+            k += 1
+    say(f"accmap: {len(lines)} pairs, every planted lag found, {wall:.3f} s wall")
+    return dict(wall=wall)
+
+
+def subband_agreement_phase(tmp: str) -> int:
+    """The subband search (nsub 4, max_smear 1.0) on the card against the
+    CPU on the small 8-bit input: the same strong candidates (identity
+    exact, S/N within 1e-3, as agreement_phase holds them), and the subband
+    trials bitwise equal."""
+    from peasoup_tpu_torch.ops.dedisperse import dedisperse_subband
+
+    path = os.path.join(tmp, "small_sub.fil")
+    small_fil(path)
+    fil = read_filterbank(path)
+    cfg = SearchConfig(dm_start=0.0, dm_end=40.0, acc_start=-2.0, acc_end=2.0,
+                       min_snr=6.0, subbands=4, subband_smear=1.0)
+    gpu = PeasoupSearch(cfg, device="cuda").run(fil).candidates
+    cpu = PeasoupSearch(cfg, device="cpu").run(fil).candidates
+    strong = [c for c in cpu if c.snr >= 1.1 * cfg.min_snr]
+    got = [c for c in gpu if c.snr >= 1.1 * cfg.min_snr]
+    require(len(strong) > 0 and len(got) == len(strong),
+            "the subband search gives the same number of strong candidates")
+    for a, b in zip(strong, got):
+        require((a.dm_idx, a.acc, a.nh, a.freq) == (b.dm_idx, b.acc, b.nh, b.freq)
+                and abs(a.snr - b.snr) <= 1e-3 * a.snr,
+                f"subband candidate agrees: cpu {a} vs cuda {b}")
+    plan = PeasoupSearch(cfg, device="cpu").build_plan(fil)
+    scale = output_scale(fil.nbits, int(plan.killmask.sum()))
+    trials = {dev: dedisperse_subband(fil_to_device(fil, torch.device(dev)), plan.delays,
+                                      plan.killmask, plan.out_nsamps, nsub=4,
+                                      max_smear=1.0, scale=scale).cpu()
+              for dev in ("cuda", "cpu")}
+    require(torch.equal(trials["cuda"], trials["cpu"]),
+            "the card's subband trials are the CPU's bit for bit")
+    return len(strong)
+
+
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
     busy share of the run's wall time."""
@@ -1278,7 +1770,8 @@ def main() -> int:
             ("big grid", big_grid_fil, GRID_CONFIG, GRID_FLAGS, PERIOD),
             ("binary grid", binary_grid_fil, BINARY_CONFIG, BINARY_FLAGS, BIN_PERIOD),
         ):
-            path = os.path.join(tmp, "grid.fil")
+            # the big grid's file stays for the later phases
+            path = os.path.join(tmp, "big.fil" if label == "big grid" else "grid.fil")
             t0 = time.perf_counter()
             synth(path)
             say(f"synthesized {label} filterbank in {time.perf_counter() - t0:.1f} s")
@@ -1312,10 +1805,11 @@ def main() -> int:
                     resample_phase(dev, fil, cfg, run["shapes"]), path=label
                 )
             del fil
-            os.remove(path)
+            if label != "big grid":
+                os.remove(path)
             torch.cuda.empty_cache()
 
-        path = os.path.join(tmp, "grid.fil")
+        path = os.path.join(tmp, "tut.fil")  # stays for the later phases
         t0 = time.perf_counter()
         tutorial_grid_fil(path)
         say(f"synthesized tutorial grid filterbank in {time.perf_counter() - t0:.1f} s")
@@ -1342,7 +1836,6 @@ def main() -> int:
                 f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
             checks[name].setdefault("other_shapes", []).append(other_shape(c))
         del fil
-        os.remove(path)
         torch.cuda.empty_cache()
 
         label = "single-pulse grid"
@@ -1392,6 +1885,27 @@ def main() -> int:
         n = sp_agreement_phase(tmp)
         say(f"small single-pulse input: {n} strong candidates agree between "
             "cuda and cpu")
+
+        # the dedispersion engines, checkpoints, the memory ladder and the
+        # smaller searches, each phase timed
+        big, tut = os.path.join(tmp, "big.fil"), os.path.join(tmp, "tut.fil")
+        tut_base = runs["tutorial grid"]
+        for label, fn in (
+            ("dedispersion engines", lambda: engines_phase(dev)),
+            ("big grid, --subbands 8", lambda: subband_grid_phase(big, tmp)),
+            ("tutorial grid, subband and matmul engines",
+             lambda: tutorial_engine_phase(tut, tmp, tut_base)),
+            ("checkpoints", lambda: checkpoint_phase(tut, tmp, tut_base)),
+            ("out of memory", lambda: oom_phase(big, tmp, runs["big grid"])),
+            ("ffa", lambda: ffa_phase(tmp)),
+            ("coincidencer", lambda: coincidence_phase(tmp)),
+            ("accmap", lambda: accmap_phase(tmp)),
+            ("subband search, card against cpu", lambda: subband_agreement_phase(tmp)),
+        ):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            say(f"phase {label}: {time.perf_counter() - t0:.1f} s wall")
 
     # each kernel with the launches of the run whose launch shape it was
     # checked and timed at (boxcar, off the search's path, with its own)

@@ -7,9 +7,12 @@ Usage:
       --acc_start -5 --acc_end 5 --npdmp 10
 
 The search runs on the CUDA device unless ``--device cpu`` is given;
-``--npdmp N`` folds and optimises the top N candidates. Flags of
-features the port does not have yet (--subbands, --checkpoint, --tune,
---dedisp_engine matmul) are refused.
+``--npdmp N`` folds and optimises the top N candidates. ``--subbands N``
+dedisperses in two stages over N subbands (``--subband_smear`` samples of
+smear allowed, 0 for the exact sum), ``--dedisp_engine matmul`` through the
+banded-matmul engine, and ``--checkpoint FILE`` saves the per-DM results
+as they are searched and resumes from them. ``--tune`` is refused: the
+port has no tuning cache yet.
 
 The acceleration chain takes the JAX package's routes: the dftspec
 kernel for the spectrum where its geometry gate holds (FFT sizes up to
@@ -78,15 +81,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("-p", "--progress_bar", action="store_true")
     p.add_argument("--subbands", type=int, default=0,
-                   help="two-stage subband dedispersion (not ported yet)")
-    p.add_argument("--subband_smear", type=float, default=1.0)
+                   help="two-stage subband dedispersion over this many subbands "
+                   "(0 = direct)")
+    p.add_argument("--subband_smear", type=float, default=1.0,
+                   help="largest intra-subband smear (samples) a DM group may take; "
+                   "0 = exact")
     p.add_argument("--dedisp_engine", default="", choices=("", "exact", "matmul"),
-                   help="dedispersion engine; only 'exact' is ported")
+                   help="dedispersion engine: the dedisperse kernel ('' or "
+                   "'exact') or the banded-matmul engine")
     p.add_argument("--tune", action=argparse.BooleanOptionalAction, default=False,
                    help="tuned dedispersion plans (not ported yet)")
     p.add_argument("--tuning-cache", default="")
     p.add_argument("--checkpoint", default="",
-                   help="Checkpoint file for resumable searches (not ported yet)")
+                   help="Checkpoint file for resumable searches")
     p.add_argument("--hbm_bytes", type=int, default=0,
                    help="device memory budget in bytes (0 = ask the device)")
     p.add_argument(

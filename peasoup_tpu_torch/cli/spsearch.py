@@ -12,8 +12,9 @@ writes, in the output directory:
   overview.xml             header, DM trials, device, the
                            <single_pulse_search> section and the timers
 The JAX CLI's telemetry.json is not written: the port has no run
-telemetry yet. Flags of features the port does not have yet
-(--checkpoint, --tune) are refused.
+telemetry yet. ``--checkpoint FILE`` saves each DM block's events as it is
+searched and resumes from them; ``--tune`` is refused: the port has no
+tuning cache yet.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dm_link", type=int, default=2,
                    help="friends-of-friends DM-trial adjacency tolerance")
     p.add_argument("--checkpoint", default="",
-                   help="Checkpoint file for resumable searches (not ported yet)")
+                   help="Checkpoint file for resumable searches")
     p.add_argument("--hbm_bytes", type=int, default=0,
                    help="device memory budget in bytes (0 = ask the device)")
     p.add_argument("--dm_block", type=int, default=0,

@@ -307,3 +307,13 @@ def write_filterbank(path: str | os.PathLike, fil: Filterbank) -> None:
     with open(path, "wb") as f:
         write_sigproc_header(f, fil.header)
         f.write(pack_bits(fil.data.ravel(), fil.header.nbits).tobytes())
+
+
+def read_timeseries(path: str | os.PathLike) -> tuple[SigprocHeader, np.ndarray]:
+    """Read a sigproc .tim file: header + float32 samples
+    (reference: timeseries.hpp:137-160)."""
+    with open(path, "rb") as f:
+        hdr = read_sigproc_header(f)
+        f.seek(hdr.size, _io.SEEK_SET)
+        data = np.frombuffer(f.read(), dtype=np.float32)
+    return hdr, data

@@ -32,6 +32,7 @@ import torch
 from .. import kernels
 from ..device import check, on_cpu, stream_ptr
 from .peaks import find_peaks_device
+from .spectrum import row_sum
 
 # rows pad to a multiple of _QUANT samples, in tiles of at most _SPAN_MAX
 # (the JAX package's Pallas tiling); they fix tpad, and so the shape of
@@ -96,24 +97,23 @@ def normalise_trials(
     samples within ``clip_sigma`` of the running estimate, so a bright
     pulse does not inflate its own noise estimate. The clipped std is
     unbiased by the Gaussian truncation retention each round. Returns
-    (D, n) f32. Sums run in torch's order, not XLA's, so the result
-    differs from the JAX package's in the last bits."""
+    (D, n) f32. Sums run in :func:`row_sum`'s fixed order, not XLA's, so
+    the result differs from the JAX package's in the last bits, and a
+    trial's result does not depend on the trials beside it."""
     x = x.to(torch.float32)
     n = x.shape[-1]
     corr = torch.tensor(
         CLIP3_STD_RETENTION if clip_sigma == 3.0 else 1.0,
         dtype=torch.float32, device=x.device,
     )
-    mean = torch.sum(x, dim=-1, keepdim=True) / n
-    var = torch.sum((x - mean) ** 2, dim=-1, keepdim=True) / n
+    mean = row_sum(x)[..., None] / n
+    var = row_sum((x - mean) ** 2)[..., None] / n
     std = torch.sqrt(torch.clamp(var, min=1e-12))
     for _ in range(max(1, n_rounds)):
         keep = torch.abs(x - mean) <= clip_sigma * std
         nkeep = torch.clamp(torch.sum(keep, dim=-1, keepdim=True), min=1)
-        mean = torch.sum(torch.where(keep, x, 0.0), dim=-1, keepdim=True) / nkeep
-        var = torch.sum(
-            torch.where(keep, (x - mean) ** 2, 0.0), dim=-1, keepdim=True
-        ) / nkeep
+        mean = row_sum(torch.where(keep, x, 0.0))[..., None] / nkeep
+        var = row_sum(torch.where(keep, (x - mean) ** 2, 0.0))[..., None] / nkeep
         std = torch.sqrt(torch.clamp(var, min=1e-12)) / corr
     return (x - mean) / std
 

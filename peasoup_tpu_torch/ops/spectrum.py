@@ -35,6 +35,13 @@ def form_interpolated_parts(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.maximum(ampsq, ampsq_diff))
 
 
+def form_interpolated(fseries: torch.Tensor) -> torch.Tensor:
+    """:func:`form_interpolated_parts` of a complex spectrum."""
+    return form_interpolated_parts(
+        fseries.real.to(torch.float32), fseries.imag.to(torch.float32)
+    )
+
+
 def interp_deredden_zap(
     re: torch.Tensor,  # (..., nbins) f32 real part of the raw spectrum
     im: torch.Tensor,  # (..., nbins) f32 imaginary part
@@ -91,14 +98,45 @@ def specchain(
     return re_d, im_d, s0
 
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed order, in float64: add the row's
+    eighths in turn (a remainder of under 8 onto the first elements), then
+    fold the second half onto the first (an odd length's last element onto
+    the first) until one element is left; the sum is rounded to x's dtype
+    once. Elementwise adds only, so a row's sum has the same bits whatever
+    the rows around it, wherever the row starts in memory, and on the CPU
+    as on the card. torch.sum's order on the card follows the shape and
+    alignment of the whole tensor, so a DM trial's statistics (and its
+    candidates) would depend on the height of its DM block, which the
+    memory ladder halves, and on its place in it. The float64 buffer is a
+    quarter of x's bytes."""
+    n = x.shape[-1]
+    q = n // 8
+    if q == 0:
+        y = x.to(torch.float64)
+    else:
+        y = x[..., :q].to(torch.float64)
+        for k in range(1, 8):
+            y += x[..., k * q : (k + 1) * q]
+        if n > 8 * q:
+            y[..., : n - 8 * q] += x[..., 8 * q :]
+    while y.shape[-1] > 1:
+        h = y.shape[-1] // 2
+        z = y[..., :h] + y[..., h : 2 * h]
+        if y.shape[-1] % 2:
+            z[..., :1] += y[..., 2 * h :]
+        y = z
+    return y[..., 0].to(x.dtype)
+
+
 def spectrum_stats(
     x: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean, rms, std) over the last axis; std = sqrt(rms^2 - mean^2)
-    (stats.hpp:20-23)."""
+    (stats.hpp:20-23). Sums by :func:`row_sum`."""
     n = x.shape[-1]
-    mean = torch.sum(x, dim=-1) / n
-    rms = torch.sqrt(torch.sum(x * x, dim=-1) / n)
+    mean = row_sum(x) / n
+    rms = torch.sqrt(row_sum(x * x) / n)
     std = torch.sqrt(rms * rms - mean * mean)
     return mean, rms, std
 

@@ -37,7 +37,7 @@ from ..ops.harmonics import harmonic_sums, level_scales
 from ..ops.peaks import find_cluster_peaks_multi, find_harmonic_cluster_peaks
 from ..ops.rednoise import running_median
 from ..ops.resample import resample_rows
-from ..ops.spectrum import form_power, specchain, spectrum_stats
+from ..ops.spectrum import form_power, row_sum, specchain, spectrum_stats
 
 # spectrum rows are padded to a multiple of this many bins, as the JAX
 # package pads them to its peaks kernel's block (ops/pallas/peaks.py)
@@ -72,7 +72,7 @@ def _pad_trials(tims: torch.Tensor, *, size: int, nsamps_valid: int) -> torch.Te
     x = tims[:, :size].to(torch.float32)
     if nsamps_valid < size:
         x = torch.nn.functional.pad(x, (0, size - x.shape[1]))
-        mean_head = torch.mean(x[:, :nsamps_valid], dim=1, keepdim=True)
+        mean_head = row_sum(x[:, :nsamps_valid])[:, None] / nsamps_valid
         idx = torch.arange(size, device=x.device)
         x = torch.where(idx < nsamps_valid, x, mean_head)
     return x

@@ -56,12 +56,15 @@ class MultiFolder:
 
     def __init__(
         self,
-        trials: torch.Tensor,  # (ndm, nsamps) u8 dedispersed trials
+        trials,  # (ndm, nsamps) u8 dedispersed trials: a tensor, or numpy
+        # in host RAM (rows upload to ``device`` as they are folded)
         tsamp: float,
         pos5_freq: float = 0.05,
         pos25_freq: float = 0.5,
+        device: torch.device | None = None,
     ):
         self.trials = trials
+        self.device = device if device is not None else trials.device
         # the reference folds with the f32 tsamp member (timeseries.hpp:54;
         # the fold's phase-bin assignment is sensitive to it at the 1e-8
         # level) and tobs = nsamps*tsamp is a uint*float f32 product
@@ -96,13 +99,15 @@ class MultiFolder:
                 dm_map.setdefault(cands[ii].dm_idx, []).append(ii)
         if not dm_map:
             return []
-        dev = self.trials.device
+        dev = self.device
         used = NINTS * (self.nsamps // NINTS)
         folds, periods, cand_idx = [], [], []
         for dm_idx, cand_ids in dm_map.items():
+            tim = self.trials[dm_idx]
+            if isinstance(tim, np.ndarray):
+                tim = torch.from_numpy(tim).to(dev)
             xd = _deredden_tim(
-                self.trials[dm_idx], size=self.nsamps, pos5=self.pos5,
-                pos25=self.pos25,
+                tim, size=self.nsamps, pos5=self.pos5, pos25=self.pos25,
             )
             # (a*tsamp) is an f32 product in the reference's launcher
             # (float a, float tsamp, kernels.cu:367); accel_factor replays it

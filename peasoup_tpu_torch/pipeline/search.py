@@ -1,8 +1,8 @@
 """The host side of the search: the reference's `peasoup` main + Worker loop
 (reference: src/pipeline_multi.cu:262-419, 83-254) on one CUDA device.
 
-The DM trials are dedispersed in one kernel launch and stay on the
-device. Blocks of DM trials are preprocessed together, and their
+The DM trials are dedispersed on the device and stay there (or in host
+RAM, below). Blocks of DM trials are preprocessed together, and their
 (DM, accel) trials run as row batches of the acceleration chain
 (pipeline/accel_search.py), sized from the device's free memory. Cluster
 peaks come back to the host, where candidate building, distilling and
@@ -11,7 +11,7 @@ the native library (peasoup_tpu_torch/native, built with g++ at first
 use), or in Python where ``PEASOUP_NO_NATIVE=1`` asks for it.
 
 With npdmp > 0 the top candidates are folded and optimised
-(pipeline/folder.py) from the dedispersed trials the device still holds.
+(pipeline/folder.py) from the dedispersed trials the search kept.
 
 The spectrum and peaks routes of the acceleration chain are decided once
 per run (:func:`choose_routes`), as the JAX package decides them on a
@@ -19,9 +19,23 @@ TPU whose kernel probes pass; its switches ``PEASOUP_FUSED_DFT=0`` (or
 ``PEASOUP_FUSED_FFT=0``) and ``PEASOUP_MEGA_HARM=0`` turn the fused
 routes off here too.
 
-Not ported yet, and refused with NotImplementedError: subband or matmul
-dedispersion, checkpoints, the tuning cache, more than one device, and
-the JAX package's out-of-memory degradation ladder.
+Dedispersion takes the JAX package's engines: the dedisperse kernel,
+two-stage subband dedispersion (``subbands > 0``, its stages as scans or,
+with ``subband_matmul``, as banded contractions) or the banded-matmul
+engine (``dedisp_engine="matmul"``), the last two plain torch
+(ops/dedisperse.py). Trials whose block would pass
+``TRIALS_DEVICE_LIMIT`` bytes stay in host RAM and upload a DM block at a
+time. With ``checkpoint_file`` the per-DM results are saved after each DM
+block and restored on the next run, which searches only what is missing
+and skips dedispersion when nothing is (and nothing is folded). An
+out-of-memory error on the card steps down the JAX package's memory
+ladder, the rungs a card has: halve the DM block (and its row batches)
+while it can, then free the card's trials, dedisperse again into host
+RAM through the dedisperse kernel (segment by segment) and size the
+blocks afresh; past that it raises.
+
+Not ported yet, and refused with NotImplementedError: the tuning cache
+and more than one device.
 """
 
 from __future__ import annotations
@@ -41,7 +55,10 @@ from ..core.candidates import Candidate
 from ..device import resolve_device
 from ..io.masks import read_killfile, read_zapfile
 from ..io.sigproc import Filterbank
-from ..ops.dedisperse import dedisperse, fil_to_device, output_scale
+from ..ops.dedisperse import (
+    dedisperse, dedisperse_host, dedisperse_matmul, dedisperse_subband,
+    fil_to_device, output_scale,
+)
 from ..ops.dftspec import dftspec_supported
 from ..ops.resample import accel_factor, choose_block, select_span
 from ..ops.zap import birdie_mask
@@ -50,6 +67,7 @@ from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
 from .accel_search import padded_bins, preprocess_block, search_rows
+from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .folder import MultiFolder
 from .score import CandidateScorer
@@ -62,10 +80,13 @@ class SearchConfig:
     """Mirrors CmdLineOptions with the reference's defaults
     (include/utils/cmdline.hpp:69-209), and the JAX package's
     SearchConfig field for field. Fields for features the port does not
-    have yet must keep their defaults (PeasoupSearch refuses others);
-    the JAX package's TPU tuning knobs (dedisp_block, subband_matmul,
-    use_pallas, use_pallas_peaks, tuning_cache, max_num_threads) have no
-    effect here, and accel_bucket only pads the deduped results."""
+    have yet must keep their defaults (PeasoupSearch refuses others).
+    ``subband_matmul`` runs the subband stages as banded contractions
+    (the JAX package has no flag for it either); ``dedisp_block`` sizes
+    the segments of trials dedispersed into host RAM. The JAX package's
+    TPU knobs (use_pallas, use_pallas_peaks, tuning_cache,
+    max_num_threads) have no effect here, and accel_bucket only pads the
+    deduped results."""
 
     outdir: str = "."
     killfilename: str = ""
@@ -500,11 +521,24 @@ def choose_routes(size: int, af_max: float) -> dict[str, bool]:
     return dict(fused_dft=fused_dft, mega_harm=mega_harm)
 
 
+def _is_oom(exc: BaseException) -> bool:
+    """The card ran out of memory: the caching allocator's
+    torch.OutOfMemoryError, or cuFFT failing to allocate a plan's work
+    area. Any other error is not one."""
+    return isinstance(exc, torch.OutOfMemoryError) or (
+        isinstance(exc, RuntimeError) and "CUFFT_ALLOC_FAILED" in str(exc)
+    )
+
+
+def _release(device: torch.device) -> None:
+    """Return the allocator's cached blocks and cuFFT's plans to the card
+    before a retry of the memory ladder."""
+    if device.type == "cuda":
+        torch.backends.cuda.cufft_plan_cache[device.index or 0].clear()
+        torch.cuda.empty_cache()
+
+
 def _unsupported(cfg: SearchConfig) -> str | None:
-    if cfg.subbands > 0 or cfg.dedisp_engine == "matmul":
-        return "subband and matmul dedispersion are ROADMAP item A.3"
-    if cfg.checkpoint_file:
-        return "checkpoints are ROADMAP item A.4"
     if cfg.tune:
         return "the tuning cache is ROADMAP item A.10"
     if cfg.shard_devices > 1:
@@ -519,6 +553,9 @@ class PeasoupSearch:
     # series, its DFT, the spectrum, and their temporaries)
     ROW_BYTES_PER_SAMPLE = 64
     DM_BYTES_PER_SAMPLE = 64
+    # trial blocks larger than this stay in host RAM (the JAX package's
+    # limit: a third of the device memory, 4 GB where none is known)
+    TRIALS_DEVICE_LIMIT = 4_000_000_000
 
     def __init__(self, config: SearchConfig, device: str | torch.device = "cuda"):
         why = _unsupported(config)
@@ -531,6 +568,13 @@ class PeasoupSearch:
         # cluster slots learned from overflowing chunks, so later chunks
         # dispatch once
         self._learned_max_peaks = 0
+        limit = config.hbm_bytes
+        if not limit and self.device.type == "cuda":
+            limit = torch.cuda.mem_get_info(self.device)[1]
+        if limit:
+            self.TRIALS_DEVICE_LIMIT = int(limit) // 3
+        # DM trials the last run searched (the rest were restored)
+        self.n_searched = 0
 
     def build_dm_plan(self, fil: Filterbank) -> DMPlan:
         cfg = self.config
@@ -601,7 +645,6 @@ class PeasoupSearch:
     def run(self, fil: Filterbank, plan: SearchPlan | None = None) -> SearchResult:
         """Full search of ``fil``; ``plan`` defaults to :meth:`build_plan`."""
         cfg = self.config
-        dev = self.device
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
 
@@ -611,19 +654,37 @@ class PeasoupSearch:
         if plan.nharms != cfg.nharmonics:
             raise ValueError("plan windows do not match config.nharmonics")
         timers["plan"] = time.perf_counter() - t0
+        size = plan.size
+
+        # the checkpoint store, loaded once before dedispersion: when every
+        # trial is restored and nothing is folded, the trials are never read
+        ckpt = None
+        per_dm: dict[int, tuple] = {}
+        if cfg.checkpoint_file:
+            ckpt = SearchCheckpoint(
+                cfg.checkpoint_file, SearchCheckpoint.make_key(cfg, fil, size, plan.ndm)
+            )
+            per_dm = ckpt.load()
+            if per_dm:
+                log.info("resuming: %d/%d DM trials restored from %s",
+                         len(per_dm), plan.ndm, cfg.checkpoint_file)
+        skip_dedisp = (
+            ckpt is not None and cfg.npdmp == 0 and plan.ndm > 0
+            and all(d in per_dm for d in range(plan.ndm))
+        )
 
         t0 = time.perf_counter()
-        trials = dedisperse(
-            fil_to_device(fil, dev),
-            plan.delays,
-            plan.killmask,
-            plan.out_nsamps,
-            scale=output_scale(fil.nbits, int(plan.killmask.sum())),
-        )
+        scale = output_scale(fil.nbits, int(plan.killmask.sum()))
+        spill = plan.ndm * plan.out_nsamps > self.TRIALS_DEVICE_LIMIT
+        if skip_dedisp:
+            log.info("resume fast path: every DM trial restored and npdmp=0; "
+                     "dedispersion skipped")
+            trials = np.zeros((0, plan.out_nsamps), dtype=np.uint8)
+        else:
+            trials = self._dedisperse(fil, plan, scale, spill)
         self._sync()
         timers["dedispersion"] = time.perf_counter() - t0
 
-        size = plan.size
         tobs = float(np.float32(size) * np.float32(fil.tsamp))
         # float bin_width = 1.0/tobs (pipeline_multi.cu:119)
         bin_width = float(np.float32(1.0 / tobs))
@@ -654,8 +715,9 @@ class PeasoupSearch:
         )
 
         t0 = time.perf_counter()
-        per_dm = self._search_trials(
-            trials, plan, dispatch_lists, fil.tsamp, geometry, routes
+        trials = self._search_with_ladder(
+            fil, plan, trials, scale, skip_dedisp, per_dm, ckpt,
+            dispatch_lists, expand, geometry, routes,
         )
         if cfg.npdmp <= 0:
             trials = None  # only the folder reads the trials again
@@ -665,17 +727,7 @@ class PeasoupSearch:
         t_host = time.perf_counter()
         harm_finder = HarmonicDistiller(cfg.freq_tol, cfg.max_harm, keep_related=False)
         acc_still = AccelerationDistiller(tobs, cfg.freq_tol, keep_related=True)
-        results = []
-        for dm_idx in range(plan.ndm):
-            vi, vs, cc = per_dm.pop(dm_idx)
-            if expand[dm_idx] is not None:
-                # deduped dispatch: replicate the representative's results
-                # onto every accel trial of its class
-                vi, vs, cc = _expand_accel_results(
-                    vi, vs, cc, expand[dm_idx],
-                    _accel_pad(len(accel_lists[dm_idx]), cfg.accel_bucket),
-                )
-            results.append((vi, vs, cc))
+        results = [per_dm.pop(dm_idx) for dm_idx in range(plan.ndm)]
         distil = _distill_segmented if native.enabled() else _distill_per_trial
         log.info("distil: %s", distil.__name__.lstrip("_"))
         cands = distil(plan, accel_lists, results, harm_finder, acc_still)
@@ -695,31 +747,124 @@ class PeasoupSearch:
         )
         return self.finalize(fil, part)
 
-    def _search_trials(self, trials, plan, dispatch_lists, tsamp, geometry, routes):
-        """Run every dispatched (DM, accel) trial on the acceleration
-        chain's ``routes`` (:func:`choose_routes`). Returns per DM trial its
-        ragged cluster stream (bins, snrs, counts (nlev, n_dispatch)):
-        the valid cluster slots of every (level, accel) cell in C order,
-        as the JAX package packs them."""
+    def _dedisperse(self, fil: Filterbank, plan: SearchPlan, scale: float, spill: bool):
+        """All DM trials, by the engine the configuration names (the JAX
+        package's dispatch, its pipeline/search.py:689-736): on the device,
+        or in host RAM (numpy) where ``spill``."""
         cfg = self.config
-        dev = self.device
-        size = geometry["size"]
+        x = fil_to_device(fil, self.device)
+        args = (x, plan.delays, plan.killmask, plan.out_nsamps)
+        if cfg.subbands > 0:
+            log.info("dedispersion: subband (nsub %d, max_smear %s, %s stages)%s",
+                     cfg.subbands, cfg.subband_smear,
+                     "matmul" if cfg.subband_matmul else "scan",
+                     ", trials in host RAM" if spill else "")
+            return dedisperse_subband(
+                *args, nsub=cfg.subbands, max_smear=cfg.subband_smear,
+                scale=scale, to_host=spill, use_matmul=cfg.subband_matmul,
+            )
+        if cfg.dedisp_engine == "matmul" and not spill:
+            log.info("dedispersion: banded matmul")
+            return dedisperse_matmul(*args, scale=scale)
+        if spill:
+            log.info("dedispersion: dedisperse kernel, trials in host RAM")
+            return dedisperse_host(*args, scale=scale, block=cfg.dedisp_block)
+        log.info("dedispersion: dedisperse kernel")
+        return dedisperse(*args, scale=scale)
+
+    def _search_with_ladder(self, fil, plan, trials, scale, skip_dedisp, per_dm, ckpt,
+                            dispatch_lists, expand, geometry, routes):
+        """:meth:`_search_trials` under the JAX package's memory ladder
+        (its pipeline/search.py:1117-1240), the rungs a card has: on an
+        out-of-memory error, halve the DM block and its row batches and
+        retry (the trials already searched are kept); at one trial and one
+        row, free the device-resident trials, dedisperse again into host
+        RAM (the dedisperse kernel segment by segment, the same bits) and
+        size the blocks afresh. This is the JAX package's subband rung,
+        whose exact subbands serve only to put the trials in host RAM.
+        Past that, raise. Returns the trials the search ended with."""
+        cfg = self.config
+        shrink, fell_host, retry = 1, False, False
+        while True:
+            if retry:
+                _release(self.device)
+            try:
+                self._search_trials(trials, plan, dispatch_lists, expand, fil.tsamp,
+                                    geometry, routes, per_dm, ckpt, shrink)
+                return trials
+            except Exception as exc:
+                if not _is_oom(exc):
+                    raise
+                d_blk, row_blk = self._blocks(plan, geometry["size"], shrink)
+                retry = True
+                if d_blk > 1 or row_blk > 1:
+                    shrink *= 2
+                    log.warning(
+                        "device OOM at dm_block=%d (row batch %d); retrying with "
+                        "half-size blocks (dm_block=%d, row batch %d): %.200s",
+                        d_blk, row_blk, *self._blocks(plan, geometry["size"], shrink), exc,
+                    )
+                    continue
+                if (fell_host or cfg.subbands > 0 or skip_dedisp
+                        or isinstance(trials, np.ndarray)):
+                    raise
+                fell_host, shrink = True, 1
+                log.warning(
+                    "device OOM with dm_block at the floor; dedispersing again "
+                    "into host RAM (dedisperse kernel, segment by segment): %.200s",
+                    exc,
+                )
+            trials = None
+            _release(self.device)
+            trials = dedisperse_host(
+                fil_to_device(fil, self.device), plan.delays, plan.killmask,
+                plan.out_nsamps, scale=scale, block=cfg.dedisp_block,
+            )
+
+    def _blocks(self, plan, size: int, shrink: int = 1) -> tuple[int, int]:
+        """(DM trials a preprocessed block, rows a batch), each divided by
+        ``shrink`` (at least 1)."""
         budget = self._memory_budget()
-        d_blk = cfg.dm_block or max(
+        d_blk = self.config.dm_block or max(
             1, min(plan.ndm, budget // 2 // (self.DM_BYTES_PER_SAMPLE * size))
         )
         row_blk = max(1, budget // 2 // (self.ROW_BYTES_PER_SAMPLE * size))
+        return max(1, d_blk // shrink), max(1, row_blk // shrink)
+
+    def _search_trials(self, trials, plan, dispatch_lists, expand, tsamp, geometry,
+                       routes, per_dm, ckpt, shrink=1):
+        """Search every dispatched (DM, accel) trial of the DM trials missing
+        from ``per_dm`` on the acceleration chain's ``routes``
+        (:func:`choose_routes`), and put each DM trial's ragged cluster
+        stream there, (bins, snrs, counts (nlev, A)) over its full accel
+        list (a deduped dispatch's results replicated onto its class): the
+        valid cluster slots of every (level, accel) cell in C order, as the
+        JAX package packs and checkpoints them. DM blocks keep their places
+        whatever was restored; a block with restored trials is preprocessed
+        whole and only its missing trials' rows are searched. ``trials``
+        on the host upload a block at a time. ``ckpt`` saves after each
+        block."""
+        cfg = self.config
+        dev = self.device
+        size = geometry["size"]
+        d_blk, row_blk = self._blocks(plan, size, shrink)
         zapmask = torch.from_numpy(plan.zapmask).to(dev)
         threshold = float(np.float32(cfg.min_snr))
-        per_dm: dict[int, list] = {}
+        self.n_searched = 0
         for lo in range(0, plan.ndm, d_blk):
-            dms = range(lo, min(lo + d_blk, plan.ndm))
-            tims = trials[lo : dms[-1] + 1, :size]
+            hi = min(lo + d_blk, plan.ndm)
+            todo = [d for d in range(lo, hi) if d not in per_dm]
+            if not todo:
+                continue
+            tims = trials[lo:hi, :size]
+            if isinstance(tims, np.ndarray):
+                tims = torch.from_numpy(np.ascontiguousarray(tims)).to(dev)
             xd, mean, std = preprocess_block(tims, zapmask, **geometry)
-            rows = [(d - lo, a) for d in dms for a in range(len(dispatch_lists[d]))]
+            del tims
+            rows = [(d - lo, a) for d in todo for a in range(len(dispatch_lists[d]))]
             afs_all = {
                 d: accel_factor(dispatch_lists[d], tsamp).astype(np.float32)
-                for d in dms
+                for d in todo
             }
             results = []
             for r0 in range(0, len(rows), row_blk):
@@ -749,19 +894,28 @@ class PeasoupSearch:
             )
             cc = np.concatenate([r[2] for r in results])
             r0 = 0
-            for d in dms:
+            for d in todo:
                 r1 = r0 + len(dispatch_lists[d])
                 # (level, accel) cells in C order, as the JAX package's
                 # device pack streams them
                 cells = cc[r0:r1].T
                 keep = np.arange(mx) < cells[..., None]
-                per_dm[d] = (
-                    idxs[r0:r1].transpose(1, 0, 2)[keep],
-                    snrs[r0:r1].transpose(1, 0, 2)[keep],
-                    cells,
-                )
+                vi = idxs[r0:r1].transpose(1, 0, 2)[keep]
+                vs = snrs[r0:r1].transpose(1, 0, 2)[keep]
+                if expand[d] is not None:
+                    # deduped dispatch: replicate the representative's
+                    # results onto every accel trial of its class
+                    vi, vs, cells = _expand_accel_results(
+                        vi, vs, cells, expand[d],
+                        _accel_pad(len(plan.accel_lists[d]), cfg.accel_bucket),
+                    )
+                per_dm[d] = (vi, vs, cells)
                 r0 = r1
-        return per_dm
+            self.n_searched += len(todo)
+            if ckpt is not None:
+                ckpt.save(per_dm)
+        log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
+                 plan.ndm, plan.ndm - self.n_searched)
 
     def _search_batch(self, xd, row_dm, afs, mean, std, windows, threshold, routes):
         """One row batch of the DM block ``xd``, re-dispatched at the next
@@ -811,7 +965,7 @@ class PeasoupSearch:
         t0 = time.perf_counter()
         if cfg.npdmp > 0:
             folder = MultiFolder(
-                part.trials, fil.tsamp,
+                part.trials, fil.tsamp, device=self.device,
                 pos5_freq=cfg.boundary_5_freq, pos25_freq=cfg.boundary_25_freq,
             )
             cands = folder.fold_n(cands, cfg.npdmp)

@@ -3,7 +3,7 @@ package's transient search (peasoup_tpu/pipeline/single_pulse.py) over
 the dedispersed DM-time plane.
 
 The DM trials are dedispersed in one kernel launch (csrc/dedisperse.cu)
-and stay on the device. Blocks of them, sized from the device's free
+and stay on the device (or in host RAM, below). Blocks of them, sized from the device's free
 memory, are normalised, swept by the boxcar bank with its dec-fold
 (csrc/spchain.cu) and compacted to per-trial events
 (ops/singlepulse.single_pulse_search_block). The events come back to the
@@ -12,10 +12,17 @@ detections of one pulse at many DM trials, widths and samples into one
 candidate with its footprint (the clustering stage of Heimdall and GSP,
 arXiv:2110.12749).
 
-Not ported yet, and refused with NotImplementedError: checkpoints, the
-tuning cache, and more than one device or host. An out-of-memory error
-on the card raises: the JAX package's memory ladder, which ends on the
-CPU backend, has no counterpart here.
+With ``checkpoint_file`` each DM block's events are saved once it is
+searched, a later run restores them and searches only the blocks with a
+trial missing, and a run with every trial restored skips dedispersion.
+Trials whose block would pass ``TRIALS_DEVICE_LIMIT`` bytes stay in host
+RAM and upload a block at a time. An out-of-memory error on the card
+halves the DM block and retries, keeping the trials already searched (the
+JAX package's ``dm_block_shrink`` rung); at one trial a block it raises
+(the JAX package's last rung, the CPU backend, is not ported).
+
+Not ported yet, and refused with NotImplementedError: the tuning cache,
+and more than one device or host.
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ from ..core.candidates import SinglePulseCandidate, SinglePulseCandidateCollecti
 from ..device import resolve_device
 from ..io.masks import read_killfile
 from ..io.sigproc import Filterbank
-from ..ops.dedisperse import dedisperse, fil_to_device, output_scale
+from ..ops.dedisperse import dedisperse, dedisperse_host, fil_to_device, output_scale
 from ..ops.singlepulse import default_widths, plan_pad, single_pulse_search_block
 from ..plan.dm_plan import DMPlan
+from .checkpoint import SearchCheckpoint
+from .search import _is_oom, _release
 
 log = logging.getLogger("peasoup_tpu_torch.single_pulse")
 
@@ -194,9 +203,28 @@ def candidates_from_clusters(
     return out
 
 
+def make_checkpoint_key(
+    cfg: SinglePulseConfig, fil, global_ndm: int, widths: tuple[int, ...]
+) -> str:
+    """The single-pulse search's checkpoint key: everything that changes
+    its per-trial events, the observation's header included, under its
+    own format tag so a periodicity store never resumes it (the JAX
+    package's make_checkpoint_key, field for field)."""
+    h = fil.header
+    fields = (
+        "sp-v1",  # single-pulse per-trial payload format version
+        fil.nsamps, fil.nchans, global_ndm,
+        fil.tsamp, fil.fch1, fil.foff,
+        getattr(h, "tstart", None), getattr(h, "source_name", None),
+        getattr(h, "nbits", None),
+        cfg.dm_start, cfg.dm_end, cfg.dm_tol, cfg.dm_pulse_width,
+        cfg.min_snr, tuple(int(w) for w in widths), cfg.max_events,
+        cfg.decimate, cfg.killfilename,
+    )
+    return repr(fields)
+
+
 def _unsupported(cfg: SinglePulseConfig) -> str | None:
-    if cfg.checkpoint_file:
-        return "checkpoints are ROADMAP item A.4"
     if cfg.tune:
         return "the tuning cache is ROADMAP item A.10"
     if cfg.shard_devices > 1:
@@ -213,6 +241,9 @@ class SinglePulseSearch:
     MAX_DM_BLOCK = 256
     # the JAX package's budget where the device reports none (the CPU)
     DEFAULT_MEMORY = 12_000_000_000
+    # trial blocks larger than this stay in host RAM (a third of the device
+    # memory, 4 GB where none is known, as the JAX package sets it)
+    TRIALS_DEVICE_LIMIT = 4_000_000_000
 
     def __init__(self, config: SinglePulseConfig, device: str | torch.device = "cuda"):
         why = _unsupported(config)
@@ -220,6 +251,13 @@ class SinglePulseSearch:
             raise NotImplementedError(f"not ported yet: {why}")
         self.config = config
         self.device = resolve_device(device)
+        limit = config.hbm_bytes
+        if not limit and self.device.type == "cuda":
+            limit = torch.cuda.mem_get_info(self.device)[1]
+        if limit:
+            self.TRIALS_DEVICE_LIMIT = int(limit) // 3
+        # DM trials the last run searched (the rest were restored)
+        self.n_searched = 0
 
     def build_dm_plan(self, fil: Filterbank) -> DMPlan:
         """The dedispersion plan: the same construction as the
@@ -266,7 +304,6 @@ class SinglePulseSearch:
         """Full search of ``fil``: plan, dedisperse, search the DM trials
         block by block, then cluster (:meth:`finalize`)."""
         cfg = self.config
-        dev = self.device
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
 
@@ -275,44 +312,71 @@ class SinglePulseSearch:
         widths = self.widths_for(plan.out_nsamps)
         timers["plan"] = time.perf_counter() - t0
 
+        # the checkpoint store, loaded before dedispersion: a run whose every
+        # trial is restored skips it
+        ckpt = None
+        per_dm: dict[int, tuple] = {}
+        if cfg.checkpoint_file:
+            ckpt = SearchCheckpoint(
+                cfg.checkpoint_file, make_checkpoint_key(cfg, fil, plan.ndm, widths)
+            )
+            per_dm = ckpt.load()
+            if per_dm:
+                log.info("resuming: %d/%d DM trials restored from %s",
+                         len(per_dm), plan.ndm, cfg.checkpoint_file)
+        skip_dedisp = plan.ndm > 0 and all(d in per_dm for d in range(plan.ndm))
+
         t0 = time.perf_counter()
-        trials = dedisperse(
-            fil_to_device(fil, dev),
-            plan.delay_samples(),
-            plan.killmask,
-            plan.out_nsamps,
-            scale=output_scale(fil.nbits, int(plan.killmask.sum())),
-        )
+        spill = plan.ndm * plan.out_nsamps > self.TRIALS_DEVICE_LIMIT
+        if skip_dedisp:
+            log.info("resume fast path: all %d trials restored; dedispersion "
+                     "skipped", plan.ndm)
+            trials = np.zeros((0, plan.out_nsamps), dtype=np.uint8)
+        else:
+            dd = dedisperse_host if spill else dedisperse
+            trials = dd(
+                fil_to_device(fil, self.device),
+                plan.delay_samples(),
+                plan.killmask,
+                plan.out_nsamps,
+                scale=output_scale(fil.nbits, int(plan.killmask.sum())),
+            )
         self._sync()
         timers["dedispersion"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         tpad, _ = plan_pad(plan.out_nsamps)
-        blk = self.dm_block(tpad)
-        threshold = float(cfg.min_snr)
-        recs = []
-        n_overflowed = 0
-        for lo in range(0, plan.ndm, blk):
-            hi = min(lo + blk, plan.ndm)
-            samples, widx, snrs, counts = (
-                a.cpu().numpy()
-                for a in single_pulse_search_block(
-                    trials[lo:hi], widths, threshold, cfg.max_events, cfg.decimate
-                )
-            )
-            # the first max_events events of each trial, in ascending time
-            for j in range(hi - lo):
-                k = min(int(counts[j]), cfg.max_events)
-                n_overflowed += int(counts[j]) > cfg.max_events
-                recs.extend(
-                    (lo + j, int(samples[j, i]), int(widx[j, i]), float(snrs[j, i]))
-                    for i in range(k)
-                )
-            log.debug("DM trials %d..%d searched", lo, hi - 1)
+        dm_block = self.dm_block(tpad)
+        shrink, retry = 1, False
+        while True:
+            if retry:
+                _release(self.device)
+            blk = max(1, dm_block // shrink)
+            try:
+                self._search_blocks(trials, plan.ndm, blk, widths, per_dm, ckpt)
+                break
+            except Exception as exc:
+                if not _is_oom(exc) or blk <= 1:
+                    raise
+                shrink *= 2
+                retry = True
+                log.warning("device OOM at dm_block=%d; retrying with dm_block=%d: "
+                            "%.200s", blk, max(1, dm_block // shrink), exc)
         del trials
         self._sync()
         timers["searching"] = time.perf_counter() - t0
 
+        recs = []
+        n_overflowed = 0
+        for dm_idx in range(plan.ndm):
+            pos_w, snrs, count = per_dm[dm_idx]
+            c = int(count)
+            n_overflowed += c > len(snrs)
+            # the first max_events events of each trial, in ascending time
+            recs.extend(
+                (dm_idx, int(pos_w[0, i]), int(pos_w[1, i]), float(snrs[i]))
+                for i in range(min(c, len(snrs)))
+            )
         events = np.asarray(recs, dtype=_EVENT_DTYPE)
         if n_overflowed:
             log.warning(
@@ -325,6 +389,41 @@ class SinglePulseSearch:
             nsamps=fil.nsamps, n_overflowed=n_overflowed, t_total_start=t_total,
         )
         return self.finalize(fil, part)
+
+    def _search_blocks(self, trials, ndm: int, blk: int, widths, per_dm, ckpt) -> None:
+        """Search the DM trials in blocks of ``blk`` and put each trial's
+        (positions and widths (2, K) i32, snrs (K,) f32, count) in
+        ``per_dm``; a block whose every trial is there already is skipped,
+        one with a trial missing is searched whole. ``trials`` on the host
+        upload a block at a time. ``ckpt`` saves after each block."""
+        cfg = self.config
+        threshold = float(cfg.min_snr)
+        self.n_searched = 0
+        for lo in range(0, ndm, blk):
+            hi = min(lo + blk, ndm)
+            if all(d in per_dm for d in range(lo, hi)):
+                continue
+            block = trials[lo:hi]
+            if isinstance(block, np.ndarray):
+                block = torch.from_numpy(block).to(self.device)
+            samples, widx, snrs, counts = (
+                a.cpu().numpy()
+                for a in single_pulse_search_block(
+                    block, widths, threshold, cfg.max_events, cfg.decimate
+                )
+            )
+            for j in range(hi - lo):
+                per_dm[lo + j] = (
+                    np.stack([samples[j], widx[j]]).astype(np.int32),
+                    snrs[j].astype(np.float32),
+                    np.int32(counts[j]),
+                )
+            self.n_searched += hi - lo
+            if ckpt is not None:
+                ckpt.save(per_dm)
+            log.debug("DM trials %d..%d searched", lo, hi - 1)
+        log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
+                 ndm, ndm - self.n_searched)
 
     def finalize(
         self, fil: Filterbank, part: PartialSinglePulseResult

@@ -1,5 +1,5 @@
-"""The port stands alone: peasoup_tpu_torch and chip_smoke.py import
-neither JAX nor the JAX package, and a request for the card where there
+"""The port stands alone: peasoup_tpu_torch, chip_smoke.py and
+ab_grids.py import neither JAX nor the JAX package, and a request for the card where there
 is none raises instead of running on the CPU."""
 
 import ast
@@ -65,7 +65,7 @@ def test_importing_every_module_loads_no_jax():
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "ab_grids.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_import_in_source(path):
@@ -81,6 +81,24 @@ def test_cuda_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         SinglePulseSearch(SinglePulseConfig())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("cli", ["ffa", "coincidencer", "accmap"])
+def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
+    # the FFA, coincidencer and accmap entry points run on the card unless
+    # asked for the CPU: without one they raise before reading any input
+    import importlib
+
+    from peasoup_tpu_torch.pipeline.ffa import FFAConfig, FFASearch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        FFASearch(FFAConfig())
+    main = importlib.import_module(f"peasoup_tpu_torch.cli.{cli}").main
+    missing = str(tmp_path / "missing.fil")
+    argv = {"ffa": ["-i", missing], "coincidencer": [missing], "accmap": [missing]}[cli]
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(argv)
 
 
 def test_chip_smoke_fails_without_a_card():

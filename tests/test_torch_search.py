@@ -179,8 +179,6 @@ def test_cli_writes_both_files(synthetic, tmp_path, port_result):
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(subbands=4), "A.3"),
-        (dict(checkpoint_file="ck.json"), "A.4"),
         (dict(tune=True), "A.10"),
         (dict(shard_devices=2), "A.9"),
     ],
@@ -188,6 +186,29 @@ def test_cli_writes_both_files(synthetic, tmp_path, port_result):
 def test_unported_options_are_refused(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         PeasoupSearch(SearchConfig(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        dict(subbands=4, subband_smear=0.0),  # ROADMAP A.3, ported
+        dict(checkpoint_file="ck.npz"),  # ROADMAP A.4, ported
+    ],
+)
+def test_ported_options_now_run(synthetic, port_result, tmp_path, overrides):
+    # options the port refused before they were ported now run, and give
+    # the default run's candidates (exact subbands are the direct sum)
+    path, _, _ = synthetic
+    if "checkpoint_file" in overrides:
+        overrides = dict(checkpoint_file=str(tmp_path / overrides["checkpoint_file"]))
+    res = PeasoupSearch(SearchConfig(**KW, **overrides), device="cpu").run(
+        read_filterbank(path)
+    )
+    assert [(_identity(c), c.snr) for c in res.candidates] == [
+        (_identity(c), c.snr) for c in port_result.candidates
+    ]
+    if "checkpoint_file" in overrides:
+        assert os.path.getsize(overrides["checkpoint_file"]) > 0
 
 
 # --- an accelerated pulsar, searched with folding -------------------------

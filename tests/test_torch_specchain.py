@@ -81,6 +81,22 @@ def test_stats_and_normalise_match_jax():
     np.testing.assert_allclose(s, (x - want[0][:, None]) / want[2][:, None], rtol=1e-6)
 
 
+@pytest.mark.parametrize("n", [1, 7, 8, 12_345, (1 << 16) + 1])
+def test_row_sum_is_each_rows_own(n):
+    # a row's sum has the same bits alone, in any batch and from a start
+    # that is not vector aligned, and is the float64 sum rounded to float32
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(3.0, 2.0, size=(7, n)).astype(np.float32))
+    full = spectrum.row_sum(x)
+    for i in range(7):
+        assert torch.equal(spectrum.row_sum(x[i : i + 1])[0], full[i])
+        assert torch.equal(spectrum.row_sum(x[i].clone()), full[i])
+    shifted = torch.empty(7 * n + 3)[3:].view(7, n)
+    shifted.copy_(x)
+    assert torch.equal(spectrum.row_sum(shifted), full)
+    assert torch.equal(full, x.double().sum(-1).float())
+
+
 @pytest.mark.parametrize("nbins,pos5,pos25", [(4097, 30, 300), (1001, 0, 7), (4, 1, 2)])
 def test_running_median_matches_jax(nbins, pos5, pos25):
     rng = np.random.default_rng(nbins)

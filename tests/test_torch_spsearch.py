@@ -145,7 +145,6 @@ def test_cli_output_parses_and_matches_jax(small, tmp_path):
 @pytest.mark.parametrize(
     "overrides,item",
     [
-        (dict(checkpoint_file="sp.ckpt"), "A.4"),
         (dict(tune=True), "A.10"),
         (dict(shard_devices=2), "A.9"),
     ],
@@ -153,6 +152,18 @@ def test_cli_output_parses_and_matches_jax(small, tmp_path):
 def test_unported_options_are_refused(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         SinglePulseSearch(SinglePulseConfig(**overrides), device="cpu")
+
+
+def test_checkpoint_option_now_runs(small, results, tmp_path):
+    # ROADMAP A.4, ported: the option the port refused now runs, writes its
+    # store and gives the default run's candidates
+    _, got = results
+    ckpt = tmp_path / "sp.ckpt"
+    res = SinglePulseSearch(
+        SinglePulseConfig(**KW, checkpoint_file=str(ckpt)), device="cpu"
+    ).run(read_filterbank(small[0]))
+    assert [vars(c) for c in res.candidates] == [vars(c) for c in got.candidates]
+    assert ckpt.stat().st_size > 0
 
 
 def test_config_defaults_match_jax():
