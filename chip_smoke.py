@@ -43,8 +43,8 @@ Phases, each fatal on failure:
   which distil ran and its `search_host` and `total` timers.
   7. Hold each kernel against its plain torch version on the card at the
      launch shape a CLI run used most (resample: the binary grid's;
-     dftspec and peaks: the tutorial grid's; spchain and boxcar: the
-     single-pulse grid's spchain shape; the others: the big grid's), and
+     dftspec and peaks: the tutorial grid's; spchain: the single-pulse
+     grid's; boxcar: the stream's, phase 18; the others: the big grid's), and
      time both (CUDA events, median of a few runs) beside the least time
      the card could take; dftspec also beside torch.fft.fft + the
      interbin kernel, at m = 2^14, 2^15 and 2^17, and with the memory it
@@ -86,14 +86,38 @@ Phases, each fatal on failure:
      out-of-memory errors, at least one DM-block shrink in its log, and
      the unconstrained run's candidates.
  14. `peasoup-ffa` on the big grid's geometry with a P = 1.2 s pulsar at
-     DM 10: the top candidate within 1e-3 of its period, and dedisperse
-     ran.
+     DM 10: the top candidate's period is the JAX package's on the same
+     file (FFA_JAX_PERIOD, to 1e-6; its row-to-period map reads it
+     2e-3 long), and dedisperse ran.
  15. `coincidencer` on 13 beams of the tutorial grid's geometry (a burst
      in 10, a tone in all, a pulsar in one): the mask flags the burst
      only, birdies.txt lists the tone, and the card's mask is the CPU's.
  16. `accmap` on four beams with planted lags: every lag found.
  17. The subband search (smear 1.0) on the card against the CPU on a
      small 8-bit input: the same strong candidates, bitwise trials.
+ 18. `peasoup-stream --replay` of the single-pulse grid's file (run inside
+     phase 6's section; --rate 0, dm_end 250, -m 7, the default chunk of
+     16,384 samples and 12 widths, dec 32: ~128 chunks of 179 DM trials):
+     the three pulses among the triggers at their DM trials, samples,
+     widths and matched-filter S/N (phase 6's standard); dedisperse and
+     boxcar launch once a chunk, spchain never; prints the chunk latency
+     p50/p95 and the drops. boxcar's kernels-line entry is checked and
+     timed at the stream's modal launch shape (path "stream"), the
+     single-pulse grid's shape under other_shapes.
+ 19. `peasoup-fdas` on the FDAS grid (the big grid's geometry, a faint
+     P = 5.03 ms square-wave pulsar at DM 10 drifting z = -24 bins;
+     --dm_end 20, zmax 64, 4 harmonics: 77 DM x 65 templates of 2^20 + 1
+     bins): the top candidate within 2e-3 of the period, within 0.99 of DM
+     10 and at a negative z; dedisperse ran; prints its timers and the
+     host cluster walk's time.
+ 20. FDAS on the card against the CPU on tests/test_fdas.py's input: the
+     same candidates at the recall standard; template batches of 5 and 8
+     give the auto run's candidates field for field on the card.
+ 21. The streaming search on the card against the CPU on
+     tests/test_stream.py's input: the same triggers.
+ 22. The batch single-pulse search at decimate 48 (the boxcar kernel and
+     the torch dec-fold; spchain takes powers of two only): the CPU's
+     candidates on the card.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -104,6 +128,7 @@ import argparse
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -156,7 +181,8 @@ from peasoup_tpu_torch.pipeline.single_pulse import (  # noqa: E402
     SinglePulseConfig, SinglePulseSearch,
 )
 from peasoup_tpu_torch.plan.accel_plan import AccelerationPlan  # noqa: E402
-from peasoup_tpu_torch.plan.dm_plan import delay_table  # noqa: E402
+from peasoup_tpu_torch.plan.dm_plan import DMPlan, delay_table  # noqa: E402
+from peasoup_tpu_torch.fdas.templates import SPEED_OF_LIGHT  # noqa: E402
 
 # the H100 SXM's published peaks (NVIDIA data sheet, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1232,7 +1258,6 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     ))]
     del wargs, w_got, w_ref
 
-    before = kernels.launches["boxcar"]
     best, bw = boxcar_best(*args)
     ref = boxcar_best_plain(*args)
     torch.cuda.synchronize()
@@ -1244,24 +1269,25 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     require(all(bitwise_equal(a, b) for a, b in zip(folded, got)),
             "the dec-fold of boxcar's output is spchain's")
     del best, bw, folded, got
+    # boxcar is not on the batch search's path (spchain is): the stream's
+    # path takes its modal shape, this one is listed under other_shapes
     out["boxcar"] = dict(
+        path="single-pulse grid (spchain's shape)",
         max_abs_err=err,
         ms=time_ms(lambda: boxcar_best(*args)),
         plain_ms=time_ms(lambda: boxcar_best_plain(*args), reps=3),
         bound=bound(d * (tpad + wext) * 4 + d * tpad * 8, ops),
         shape=f"({d}, {tpad + wext}) f32, {nw} widths -> 2 x ({d}, {tpad})",
     )
-    # boxcar is not on the search's path: its entry counts this phase's
-    # launches (the check, the warm-up and the timed runs)
-    out["boxcar"]["launches"] = kernels.launches["boxcar"] - before
     return out
 
 
-def sp_small_fil(path: str) -> tuple[int, list]:
-    """8-bit 16-channel filterbank with one narrow (8 samples) and one
-    broad (64 samples) dispersed top-hat pulse at the middle DM trial of
-    a dm_end 60 plan (tests/test_singlepulse.py:make_sp_fil's recipe)."""
-    nsamps, nchans, tsamp, fch1, foff = 1 << 15, 16, 0.000256, 1400.0, -8.0
+def sp_small_fil(path: str, nsamps: int = 1 << 15) -> tuple[int, list]:
+    """8-bit 16-channel filterbank of ``nsamps`` samples with one narrow (8
+    samples) and one broad (64 samples) dispersed top-hat pulse at the
+    middle DM trial of a dm_end 60 plan (tests/test_singlepulse.py:
+    make_sp_fil's recipe)."""
+    nchans, tsamp, fch1, foff = 16, 0.000256, 1400.0, -8.0
     hdr = SigprocHeader(
         source_name="SPFAKE", tsamp=tsamp, tstart=55000.0, fch1=fch1, foff=foff,
         nchans=nchans, nbits=8, nifs=1, data_type=1,
@@ -1318,6 +1344,10 @@ ENG_NCHANS, ENG_NSAMPS, ENG_DM_END, ENG_NSUB = 256, 1 << 20, 40.0, 16
 # duty 0.02 at DM 10
 FFA_PERIOD, FFA_DUTY = 1.2, 0.02
 FFA_FLAGS = ["--dm_end", "20", "--p_start", "0.8", "--p_end", "5"]
+# the JAX package's top period on this file (`python -m peasoup_tpu.cli.ffa`
+# with FFA_FLAGS on ffa_grid_fil's file, on the CPU): its row-to-period map,
+# which the port follows, reads the 1.2 s pulsar 2e-3 long (ROADMAP §C)
+FFA_JAX_PERIOD = 1.20239452252252
 # the memory ladder's phase: the caching allocator may hold this much, less
 # than the big grid's first DM block and row batch take
 OOM_LIMIT_BYTES = 3_000_000_000
@@ -1581,8 +1611,9 @@ def ffa_grid_fil(path: str) -> None:
 
 
 def ffa_phase(tmp: str) -> dict:
-    """`peasoup-ffa` on the FFA grid: the top candidate's period is within
-    1e-3 of 1.2 s, and dedisperse ran."""
+    """`peasoup-ffa` on the FFA grid: the top candidate's period is the JAX
+    package's on the same file (FFA_JAX_PERIOD) to 1e-6, and dedisperse
+    ran."""
     from peasoup_tpu_torch.cli.ffa import main
 
     path = os.path.join(tmp, "ffa.fil")
@@ -1603,8 +1634,9 @@ def ffa_phase(tmp: str) -> dict:
         say("  ffa candidate " + ", ".join(
             f"{k} {e.find(k).text}" for k in ("period", "dm", "snr", "width", "duty_cycle")))
     top = float(cands[0].find("period").text)
-    require(abs(top - FFA_PERIOD) / FFA_PERIOD < 1e-3,
-            f"the top FFA candidate's period {top} within 1e-3 of {FFA_PERIOD}")
+    require(abs(top - FFA_JAX_PERIOD) / FFA_JAX_PERIOD < 1e-6,
+            f"the top FFA candidate's period {top} within 1e-6 of the JAX package's "
+            f"{FFA_JAX_PERIOD}")
     timers = {e.tag: float(e.text) for e in root.find("execution_times")}
     say(f"ffa: {root.find('dedispersion_trials').get('count')} DM trials, {len(cands)} "
         f"candidates, {wall:.3f} s CLI wall, dedisperse launches {launches['dedisperse']}; "
@@ -1722,6 +1754,382 @@ def subband_agreement_phase(tmp: str) -> int:
     require(torch.equal(trials["cuda"], trials["cpu"]),
             "the card's subband trials are the CPU's bit for bit")
     return len(strong)
+
+
+# --- the FDAS search, the streaming search and odd decimations (their
+# phases after the smaller searches') -----------------------------------------
+
+# the FDAS grid: the big grid's geometry and noise (seed 7) with a P = 5.03 ms
+# pulsar at DM 10, its phase following the FDAS template model at z = -24
+# bins over the 2^21-sample FFT (tests/test_fdas.py:_make_fil's recipe);
+# `peasoup-fdas --dm_end 20` with the CLI's defaults, --zmax 64 (65
+# templates) and --nharmonics 4. The pulse is a square wave (duty 0.5),
+# which has no even harmonics: one template serves every harmonic sum
+# level, so a narrow pulse's second harmonic (z = -48, inside zmax) wins
+# over its fundamental (on the H100 with the binary grid's duty-0.03
+# pulse). It is faint, each in-pulse 2-bit sample raised a level with
+# probability 0.005: the spectrum's own mean and std normalise it, and a
+# bright pulsar inflates them most at its own DM, moving its top S/N a few
+# trials off (PERF.md §6). Its
+# fundamental tells DM trials apart only by the smear across the band
+# (1.015 ms a unit of DM), so the top candidate's DM is held within a
+# fifth of the period's smear, |DM - 10| <= 0.99.
+FDAS_Z, FDAS_SIZE, FDAS_DUTY, FDAS_Q = -24.0, 1 << 21, 0.5, 0.005
+FDAS_DM_TOL = 0.99
+FDAS_FLAGS = ["--dm_end", "20"]
+# FDAS card against CPU: tests/test_fdas.py's geometry (8 channels of 8-bit
+# samples at 4 ms, a 2^15-point FFT) and its config, the "midz" pulsar
+FDAS_SMALL = dict(nchans=8, tsamp=0.004, fch1=1500.0, foff=-20.0, fftn=1 << 15,
+                  period=0.02, dm=60.0)
+FDAS_SMALL_CONFIG = dict(dm_start=50.0, dm_end=70.0, zmax=32.0, zstep=2.0,
+                         nharmonics=2, limit=20)
+# the streaming grid: `peasoup-stream --replay` of the single-pulse grid's
+# file as fast as it drains, the batch search's DM range and threshold, the
+# CLI's default chunk (16,384 samples) and widths (12), dec 32
+STREAM_FLAGS = ["--rate", "0", "--dm_end", "250", "-m", "7", "--decimate", "32"]
+STREAM_KERNELS = ("dedisperse", "boxcar")
+# streaming card against CPU: tests/test_stream.py's stream_fil and config
+STREAM_SMALL_CONFIG = dict(dm_end=20.0, min_snr=7.0, n_widths=6, decimate=8,
+                           chunk_samples=1024, latency_slo_s=30.0, warmup=False)
+# the batch single-pulse search at a decimation spchain does not take: the
+# small single-pulse input cut to 24,576 samples (tpad 24,576 = 512 x 48)
+ODD_DEC, ODD_NSAMPS = 48, 24_576
+
+
+def fdas_grid_fil(path: str) -> None:
+    """The FDAS grid's filterbank: the big grid's geometry and noise (seed
+    7), a P = 5.03 ms square-wave pulse (FDAS_DUTY) whose phase is b0*u +
+    z*u^2/2 (u = t/T over the FFT length, z = FDAS_Z, mean frequency 1/P),
+    at DM 10 with whole-sample delays, each in-pulse sample of each
+    channel raised a level with probability FDAS_Q."""
+    nchans, nsamps = NCHANS, NSAMPS
+    rng = np.random.default_rng(7)
+    delays = np.rint(
+        np.float32(PULSAR_DM) * np.abs(delay_table(FCH1, FOFF, nchans, TSAMP))
+    ).astype(np.int64)
+    j = np.arange(nsamps, dtype=np.float64)
+    u = j / FDAS_SIZE
+    b0 = FDAS_SIZE * TSAMP / BIN_PERIOD - FDAS_Z / 2.0
+    pulse = ((b0 * u + FDAS_Z * u * u / 2.0) % 1.0) < FDAS_DUTY
+    data = rng.integers(0, 3, size=(nsamps, nchans), dtype=np.uint8)
+    for c in range(nchans):
+        src = np.clip(j - delays[c], 0, nsamps - 1).astype(np.int64)
+        data[:, c] += pulse[src] & (rng.random(nsamps) < FDAS_Q)
+    hdr = SigprocHeader(
+        source_name="fdas_grid_synth", data_type=1, nchans=nchans, nbits=2,
+        nifs=1, tsamp=TSAMP, tstart=51000.0, fch1=FCH1, foff=FOFF,
+    )
+    write_filterbank(path, Filterbank(header=hdr, data=data))
+
+
+def fdas_small_fil(path: str, z: float = -24.0, seed: int = 7) -> None:
+    """tests/test_fdas.py:_make_fil's filterbank (8 channels, 8-bit, a
+    P = 20 ms pulsar at DM 60) with a constant acceleration of z bins of
+    drift, injected through the resampler's inverse map."""
+    g = FDAS_SMALL
+    rng = np.random.default_rng(seed)
+    size = g["fftn"] + 64
+    plan = DMPlan.create(size + 64, g["nchans"], g["tsamp"], g["fch1"], g["foff"],
+                         0.0, 100.0)
+    nsamps = size + plan.max_delay
+    j = np.arange(nsamps, dtype=np.float64)
+    f0, tobs = 1.0 / g["period"], g["fftn"] * g["tsamp"]
+    accel = -z * SPEED_OF_LIGHT / (f0 * tobs * tobs)
+    af = float(accel_factor(np.array([accel]), g["tsamp"])[0])
+    phase = (j - af * j * (j - g["fftn"])) * g["tsamp"] / g["period"]
+    pulse = ((phase % 1.0) < 0.08) * 20.0
+    delays = np.rint(
+        (np.float32(g["dm"]) * np.abs(plan.delays)).astype(np.float32)
+    ).astype(int)
+    data = rng.normal(100, 8, size=(nsamps, g["nchans"]))
+    for c in range(g["nchans"]):
+        src = np.clip(j - delays[c], 0, nsamps - 1).astype(int)
+        data[:, c] += pulse[src]
+    hdr = SigprocHeader(
+        source_name="fdas_inj", data_type=1, nchans=g["nchans"], nbits=8, nifs=1,
+        tsamp=g["tsamp"], tstart=50000.0, fch1=g["fch1"], foff=g["foff"],
+    )
+    write_filterbank(path, Filterbank(header=hdr,
+                                      data=np.clip(data, 0, 255).astype(np.uint8)))
+
+
+def stream_small_fil(path: str) -> None:
+    """tests/test_stream.py's stream_fil: 4,096 8-bit samples in 8 channels
+    with two dispersed 4-sample pulses at samples 900 and 2040 (the second
+    inside a 1,024-sample chunk's deferred zone) at the middle DM trial of
+    a dm_end 20 plan."""
+    nsamps, nchans, tsamp, fch1, foff = 1 << 12, 8, 0.000256, 1400.0, -16.0
+    plan = DMPlan.create(nsamps, nchans, tsamp, fch1, foff, 0.0, 20.0)
+    delays = plan.delay_samples()[plan.ndm // 2]
+    rng = np.random.default_rng(3)
+    data = rng.normal(32.0, 4.0, size=(nsamps, nchans))
+    for s0 in (900, 2040):
+        for c in range(nchans):
+            data[s0 + delays[c] : s0 + 4 + delays[c], c] += 16.0
+    hdr = SigprocHeader(
+        source_name="STREAMTEST", tsamp=tsamp, tstart=55000.0, fch1=fch1, foff=foff,
+        nchans=nchans, nbits=8, nifs=1, data_type=1,
+    )
+    write_filterbank(path, Filterbank(header=hdr,
+                                      data=np.clip(np.rint(data), 0, 255).astype(np.uint8)))
+
+
+def fdas_phase(tmp: str) -> dict:
+    """`peasoup-fdas` on the FDAS grid at full width (77 DM x 65 templates
+    of 2^20 + 1 bins): the top candidate within 2e-3 of the pulsar's
+    period, within FDAS_DM_TOL of DM 10 and at a negative z; dedisperse ran.
+    Prints its stage timers, and times the host's cluster walk
+    (ops/peaks.py:cluster_peaks_device, a Python loop of max_peaks + 1
+    steps) a call at the run's tile, and the calls a run makes."""
+    from peasoup_tpu_torch.cli.fdas import main
+    from peasoup_tpu_torch.ops.peaks import cluster_peaks_device
+
+    path = os.path.join(tmp, "fdas.fil")
+    fdas_grid_fil(path)
+    outdir = os.path.join(tmp, "fdas")
+    with LogLines("peasoup_tpu_torch.fdas") as logs:
+        run = cli_phase(main, ["-i", path, "-o", outdir, *FDAS_FLAGS], outdir,
+                        ("candidates.peasoup", "candidates.fdas", "overview.xml"),
+                        ("dedisperse",))
+    os.remove(path)
+    root = run["root"]
+    cands = root.findall("candidates/candidate")
+    require(len(cands) > 0, "peasoup-fdas found candidates")
+    fields = ("period", "dm", "acc", "nh", "snr", "z", "w", "fdot")
+    for e in cands[:5]:
+        say("  fdas candidate " + ", ".join(f"{k} {e.find(k).text}" for k in fields))
+    top = {k: float(cands[0].find(k).text) for k in fields}
+    dms = np.array([float(e.text) for e in root.findall("dedispersion_trials/trial")])
+    near = dms[int(np.argmin(np.abs(dms - PULSAR_DM)))]
+    require(abs(top["period"] - BIN_PERIOD) / BIN_PERIOD < 2e-3,
+            f"the top FDAS candidate's period {top['period']} within 2e-3 of {BIN_PERIOD}")
+    require(abs(top["dm"] - PULSAR_DM) <= FDAS_DM_TOL,
+            f"the top FDAS candidate's DM {top['dm']} within {FDAS_DM_TOL} of "
+            f"{PULSAR_DM} (the nearest trial {near})")
+    require(top["z"] < 0, f"the top FDAS candidate's z {top['z']} is negative")
+    timers = run["timers"]
+    say(f"fdas: {len(dms)} DM trials x {root.find('fdas_search/fdot_trials').get('count')} "
+        f"templates; top candidate z {top['z']:g}, nh {top['nh']:g}, DM {top['dm']!r} "
+        f"(injected z {FDAS_Z:g} at DM {PULSAR_DM}, the nearest trial {near!r}); "
+        f"dedisperse launches {run['launches']['dedisperse']}; {run['wall']:.3f} s CLI wall")
+    say("fdas stage timers (s): " + json.dumps(
+        {k: timers[k] for k in ("plan", "dedispersion", "search_device", "search_host",
+                                "distilling", "total")}))
+    tiles = [ln for ln in logs.lines if "in tiles of" in ln]
+    require(len(tiles) == 1, "the FDAS search logged its tiles")
+    db, tb = (int(v) for v in tiles[0].split("tiles of ")[1].split(" templates")[0]
+              .split(" DM x "))
+    ntemplates = int(root.find("fdas_search/fdot_trials").get("count"))
+    calls = -(-len(dms) // db) * -(-ntemplates // tb) * (4 + 1)
+    cells, k = db * tb, 128
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    idxs = torch.sort(torch.randint(0, 1 << 20, (cells, k), generator=gen), dim=1)[0].to(dev)
+    snrs = (9.0 + torch.rand((cells, k), generator=gen)).to(dev)
+    counts = torch.randint(0, k + 1, (cells,), generator=gen).to(dev)
+    walk_ms = time_ms(lambda: cluster_peaks_device(idxs, snrs, counts, nbins=1 << 20))
+    say(f"fdas: tiles of {db} DM x {tb} templates; the cluster walk "
+        f"(cluster_peaks_device) {walk_ms:.3f} ms a call at ({cells}, {k}) cells x "
+        f"slots (CUDA events), {calls} calls a run, ~{walk_ms * calls / 1e3:.3f} s; "
+        f"the candidate loop and distils are search_host")
+    return dict(run, top=top, walk_ms=walk_ms, walk_calls=calls, tiles=(db, tb))
+
+
+def fdas_agreement_phase(tmp: str) -> int:
+    """FdasSearch on the card against the CPU on tests/test_fdas.py's input:
+    the same candidates at the recall standard (freq, DM, z, w and nh
+    exact, S/N within 1e-3 relative, the same ranks); and on the card,
+    template batches of 5 and 8 give the auto run's candidates field for
+    field."""
+    from peasoup_tpu_torch.pipeline.fdas import FdasConfig, FdasSearch
+
+    path = os.path.join(tmp, "fdas_small.fil")
+    fdas_small_fil(path)
+    fil = read_filterbank(path)
+
+    def cands(device, **kw):
+        res = FdasSearch(FdasConfig(**FDAS_SMALL_CONFIG, **kw), device=device).run(fil)
+        return [(c.freq, c.dm, c.z, c.w, c.nh, c.snr, c.acc, c.fdot) for c in res.candidates]
+
+    gpu, cpu = cands("cuda"), cands("cpu")
+    require(len(gpu) == len(cpu) > 0, "the same number of FDAS candidates, card and cpu")
+    for a, b in zip(cpu, gpu):
+        require(a[:5] == b[:5] and abs(a[5] - b[5]) <= 1e-3 * a[5],
+                f"FDAS candidate agrees: cpu {a} vs cuda {b}")
+    for tb in (5, 8):
+        require(cands("cuda", template_block=tb) == gpu,
+                f"--template_block {tb} gives the auto run's candidates on the card")
+    say(f"fdas small input: top z {gpu[0][2]:g}, S/N {gpu[0][5]:.4f} (cuda) / "
+        f"{cpu[0][5]:.4f} (cpu)")
+    # the z = 0 row is an exact delta: measure how close cuFFT's round trip
+    # comes to the time-domain search's S/N (XLA:CPU is bitwise there,
+    # tests/test_fdas.py; torch's CPU FFT within 1e-6, test_torch_fdas.py)
+    z0 = os.path.join(tmp, "fdas_z0.fil")
+    fdas_small_fil(z0, z=0.0)
+    fil = read_filterbank(z0)
+    ftop = FdasSearch(FdasConfig(**FDAS_SMALL_CONFIG), device="cuda").run(fil).candidates[0]
+    ttop = PeasoupSearch(SearchConfig(
+        dm_start=50.0, dm_end=70.0, acc_start=-30.0, acc_end=30.0, acc_pulse_width=834.0,
+        nharmonics=2, limit=20), device="cuda").run(fil).candidates[0]
+    say(f"fdas z = 0 row on the card: top freq {ftop.freq!r} (time domain {ttop.freq!r}), "
+        f"S/N {ftop.snr!r} (time domain {ttop.snr!r}, relative difference "
+        f"{(ftop.snr - ttop.snr) / ttop.snr:.3e}), z {ftop.z:g}")
+    return len(gpu)
+
+
+def stream_phase(path: str, tmp: str, pulses: list) -> dict:
+    """`peasoup-stream --replay` of the single-pulse grid's file: the three
+    injected pulses among the triggers at their DM trial, within 2 + w/8
+    samples of their start and one width step, with S/N within 15% of the
+    matched filter; dedisperse and boxcar launched once a chunk, spchain
+    never. Prints the chunk latency p50/p95 and the drops."""
+    import contextlib
+    import io
+
+    from peasoup_tpu_torch.cli.stream import main
+
+    outdir = os.path.join(tmp, "stream")
+    kernels.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(["--replay", path, "-o", outdir, *STREAM_FLAGS, "-v"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(rc == 0, "peasoup-stream exit code 0")
+    drained, timer_line = out.getvalue().strip().splitlines()[-2:]
+    say(drained)
+    m = re.match(r"Stream drained: (\d+) chunks, (\d+) triggers -> .* \(latency p50 "
+                 r"([\d.]+) ms, p95 ([\d.]+) ms vs SLO .*; (\d+) dropped blocks, "
+                 r"(\d+) gap samples\)", drained)
+    require(m is not None, "peasoup-stream -v printed its chunks, latency and drops")
+    n = int(m.group(1))
+    stats = dict(chunks=n, triggers=int(m.group(2)), p50_ms=float(m.group(3)),
+                 p95_ms=float(m.group(4)), drops=dict(blocks=int(m.group(5)),
+                                                       gap_samples=int(m.group(6))),
+                 timers=json.loads(timer_line.split(": ", 1)[1]))
+    launches = dict(kernels.launches)
+    shapes = {k: v.copy() for k, v in kernels.launch_shapes.items()}
+    for name in STREAM_KERNELS:
+        require(launches[name] == n, f"{name} launched once a chunk ({launches[name]} "
+                                     f"launches, {n} chunks)")
+    require(launches["spchain"] == 0, "spchain not launched by the stream")
+    with open(os.path.join(outdir, "triggers.jsonl")) as f:
+        trig = [json.loads(ln) for ln in f]
+    for p in pulses:
+        hits = [t for t in trig if t["dm_idx"] == p["dm_idx"]
+                and abs(t["sample"] - p["start"]) <= 2 + p["width"] / 8]
+        require(len(hits) == 1, f"pulse {p['label']} among the triggers at its DM trial")
+        t = hits[0]
+        say(f"stream pulse {p['label']}: trigger at trial {t['dm_idx']}, sample "
+            f"{t['sample']}, width {t['width']}, S/N {t['snr']} (matched filter "
+            f"{p['snr']:.3f}, ratio {t['snr'] / p['snr']:.4f}), latency {t['latency_s']} s")
+        require(abs(t["width_idx"] - np.log2(p["width"])) <= 1,
+                f"pulse {p['label']} width within one step")
+        require(abs(t["snr"] / p["snr"] - 1.0) <= 0.15,
+                f"pulse {p['label']} S/N within 15% of the matched filter")
+    say(f"stream: {n} chunks, {len(trig)} triggers, chunk latency p50 {stats['p50_ms']} "
+        f"ms, p95 {stats['p95_ms']} ms, drops {json.dumps(stats['drops'])}, {wall:.3f} s "
+        f"CLI wall; stage timers (s): {json.dumps(stats['timers'], sort_keys=True)}; "
+        f"kernel launches: {json.dumps(launches)}")
+    return dict(launches=launches, shapes=shapes, wall=wall, stats=stats)
+
+
+def stream_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
+    """boxcar against its plain version at the stream's modal launch shape:
+    the prefix sums of a full window (the first hold + chunk samples of
+    every DM trial, normalised as the step does), bit for bit, and timed."""
+    from peasoup_tpu_torch.ops.streaming import normalise_window, stream_geometry
+    from peasoup_tpu_torch.stream import StreamConfig, StreamingSearch
+
+    d, tpad, wext, nw = main_shape(shapes, "boxcar")
+    cfg = StreamConfig(dm_end=250.0, min_snr=7.0, decimate=32)
+    search = StreamingSearch(cfg, device=dev)
+    plan = search.plan_for(fil)
+    widths = search.widths_for()
+    w = stream_geometry(widths, cfg.chunk_samples, cfg.decimate) + cfg.chunk_samples
+    require((d, wext, nw) == (plan.ndm, width_extent(widths), len(widths))
+            and plan_pad(w)[0] == tpad, "boxcar ran at the stream's window")
+    n_in = w + plan.max_delay
+    x = torch.from_numpy(np.ascontiguousarray(fil.data[:n_in])).to(dev)
+    trials = dedisperse(x, plan.delay_samples(), plan.killmask, w,
+                        scale=output_scale(fil.nbits, int(plan.killmask.sum())))
+    norm = normalise_window(trials, torch.ones(w, dtype=torch.bool, device=dev))
+    del x, trials
+    args = (prefix_sum_padded(norm, tpad, wext), widths, width_scales(widths), w, tpad)
+    del norm
+    best, bw = boxcar_best(*args)
+    ref = boxcar_best_plain(*args)
+    torch.cuda.synchronize()
+    require(bitwise_equal(best, ref[0]) and bitwise_equal(bw, ref[1]),
+            "boxcar bitwise equal to its plain version at the stream's shape")
+    err = max_abs_err(best, ref[0])
+    del best, bw, ref
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: boxcar_best(*args)),
+        plain_ms=time_ms(lambda: boxcar_best_plain(*args), reps=3),
+        bound=bound(d * (tpad + wext) * 4 + d * tpad * 8, 5.0 * d * tpad * nw),
+        shape=f"({d}, {tpad + wext}) f32, {nw} widths -> 2 x ({d}, {tpad})",
+    )
+
+
+def stream_agreement_phase(tmp: str) -> int:
+    """StreamingSearch on the card against the CPU on tests/test_stream.py's
+    input: the same triggers, (dm_idx, sample, width, members) exactly and
+    S/N within 1e-4 relative, and the same drop and gap accounting."""
+    from peasoup_tpu_torch.io.stream_source import ReplaySource
+    from peasoup_tpu_torch.stream import StreamConfig, StreamingSearch
+
+    path = os.path.join(tmp, "stream_small.fil")
+    stream_small_fil(path)
+    fil = read_filterbank(path)
+    res = {
+        device: StreamingSearch(
+            StreamConfig(outdir=os.path.join(tmp, f"stream_small_{device}"),
+                         **STREAM_SMALL_CONFIG), device=device,
+        ).run(ReplaySource(fil, 256, rate=0.0))
+        for device in ("cuda", "cpu")
+    }
+    gpu, cpu = res["cuda"], res["cpu"]
+    require(len(cpu.candidates) >= 2, "the small stream yields both pulses")
+    require(len(gpu.candidates) == len(cpu.candidates), "the same number of triggers")
+    for a, b in zip(cpu.candidates, gpu.candidates):
+        require((a.dm_idx, a.sample, a.width, a.members) == (b.dm_idx, b.sample, b.width,
+                                                             b.members)
+                and abs(a.snr - b.snr) <= 1e-4 * a.snr,
+                f"trigger agrees: cpu {a} vs cuda {b}")
+    require((gpu.n_chunks, gpu.n_events, gpu.drops) == (cpu.n_chunks, cpu.n_events,
+                                                         cpu.drops),
+            "the same chunks, events and drops")
+    return len(gpu.candidates)
+
+
+def odd_decimation_phase(tmp: str) -> int:
+    """The batch single-pulse search at decimate 48, which spchain does not
+    take: on the card the boxcar kernel and the torch dec-fold run (spchain
+    does not), and the candidates are the CPU's, (dm_idx, sample,
+    width_idx) exactly and S/N within 1e-4 relative."""
+    path = os.path.join(tmp, "sp_odd.fil")
+    idx, starts = sp_small_fil(path, nsamps=ODD_NSAMPS)
+    fil = read_filterbank(path)
+    cfg = SinglePulseConfig(dm_end=60.0, min_snr=7.0, n_widths=8, decimate=ODD_DEC)
+    kernels.reset_launches()
+    gpu = SinglePulseSearch(cfg, device="cuda").run(fil).candidates
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    cpu = SinglePulseSearch(cfg, device="cpu").run(fil).candidates
+    require(launches["boxcar"] > 0 and launches["spchain"] == 0,
+            f"decimate {ODD_DEC} ran boxcar, not spchain ({json.dumps(launches)})")
+    require(len(gpu) == len(cpu) >= 2, "the same candidates, both pulses among them")
+    for a, b in zip(cpu, gpu):
+        require((a.dm_idx, a.sample, a.width_idx) == (b.dm_idx, b.sample, b.width_idx)
+                and abs(a.snr - b.snr) <= 1e-4 * a.snr,
+                f"decimate {ODD_DEC} candidate agrees: cpu {a} vs cuda {b}")
+    for s in starts:
+        require(any(c.dm_idx == idx and abs(c.sample - s) <= ODD_DEC for c in gpu),
+                f"the pulse at sample {s} is found at DM trial {idx}")
+    return len(gpu)
 
 
 def print_profile(prof, wall: float) -> None:
@@ -1858,14 +2266,31 @@ def main() -> int:
         say(f"{label} launch shapes: " + json.dumps(
             {k: {str(s): n for s, n in v.items()} for k, v in run["shapes"].items()}
         ))
-        for name, c in sp_kernel_phase(dev, fil, run["shapes"]).items():
+        sp_checks = sp_kernel_phase(dev, fil, run["shapes"])
+        for name, c in sp_checks.items():
             if name == "dedisperse":  # the main path's second dedisperse shape
                 say(f"dedisperse ({label}): {c['shape']}: {c['ms']:.4f} ms kernel, "
                     f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
                     f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
                 checks[name].setdefault("other_shapes", []).append(other_shape(c))
-            else:
+            elif name == "spchain":
                 checks[name] = dict(c, path=label)
+        torch.cuda.empty_cache()
+
+        # the streaming search replays the same file: boxcar's path
+        t0 = time.perf_counter()
+        stream = stream_phase(path, tmp, run["pulses"])
+        runs["stream"] = stream
+        say(f"stream launch shapes: " + json.dumps(
+            {k: {str(s): n for s, n in v.items()} for k, v in stream["shapes"].items()}
+        ))
+        c = sp_checks["boxcar"]
+        say(f"boxcar ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
+            f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
+            f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
+        checks["boxcar"] = dict(stream_kernel_phase(dev, fil, stream["shapes"]),
+                                path="stream", other_shapes=[other_shape(c)])
+        say(f"phase stream: {time.perf_counter() - t0:.1f} s wall")
         del fil
         os.remove(path)
         torch.cuda.empty_cache()
@@ -1901,6 +2326,11 @@ def main() -> int:
             ("coincidencer", lambda: coincidence_phase(tmp)),
             ("accmap", lambda: accmap_phase(tmp)),
             ("subband search, card against cpu", lambda: subband_agreement_phase(tmp)),
+            ("fdas", lambda: fdas_phase(tmp)),
+            ("fdas, card against cpu", lambda: fdas_agreement_phase(tmp)),
+            ("stream, card against cpu", lambda: stream_agreement_phase(tmp)),
+            (f"single-pulse search at decimate {ODD_DEC}, card against cpu",
+             lambda: odd_decimation_phase(tmp)),
         ):
             t0 = time.perf_counter()
             fn()
@@ -1908,14 +2338,14 @@ def main() -> int:
             say(f"phase {label}: {time.perf_counter() - t0:.1f} s wall")
 
     # each kernel with the launches of the run whose launch shape it was
-    # checked and timed at (boxcar, off the search's path, with its own)
+    # checked and timed at
     entries = [
         {
             "name": name,
             "route": "cuda",
             "source": f"peasoup_tpu_torch/csrc/{name}.cu",
             "replaces": SOURCES[name],
-            "launches": c.get("launches", runs[c["path"]]["launches"][name]),
+            "launches": runs[c["path"]]["launches"][name],
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],

@@ -68,6 +68,24 @@ class Candidate:
 
 
 @dataclass
+class FdasCandidate(Candidate):
+    """A periodicity candidate of the Fourier-domain acceleration search
+    (pipeline/fdas.py) with its (f-dot, f-ddot) trial beside the base
+    fields (the JAX package's core/candidates.py:FdasCandidate).
+
+    ``acc`` holds the equivalent line-of-sight acceleration ``-fdot * c /
+    f``, so the distillers, the folder and the writers treat an FDAS
+    detection like a time-domain one; fdot and fddot keep the native
+    Fourier-domain parameters (overview.xml writes them as extra
+    candidate fields)."""
+
+    fdot: float = 0.0  # Hz/s at the detection frequency
+    fddot: float = 0.0  # Hz/s^2 (0 unless the jerk plane is searched)
+    z: float = 0.0  # matched template drift in bins over the observation
+    w: float = 0.0  # matched template curvature in bins
+
+
+@dataclass
 class SinglePulseCandidate:
     """One clustered single-pulse detection in the DM-time plane: the
     peak detection (dm, time, width, snr) plus the cluster's extent in

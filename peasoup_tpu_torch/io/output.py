@@ -12,7 +12,9 @@ info, candidates, execution_times.
 The single-pulse search (no reference equivalent) writes the JAX
 package's ``.singlepulse`` text table (PRESTO's first five columns, then
 the cluster footprint) and a ``<single_pulse_search>`` overview.xml
-section; the JAX package's tools.parsers read both.
+section; the JAX package's tools.parsers read both. The FDAS search
+writes the JAX package's ``.fdas`` table and ``<fdas_search>`` section,
+and its candidates with their f-dot provenance.
 """
 
 from __future__ import annotations
@@ -81,6 +83,27 @@ def write_singlepulse(path: str, candidates: Sequence) -> str:
                 f"{c.width:d} {c.width_idx:d} {c.dm_idx:d} {c.members:d} "
                 f"{c.sample_lo:d} {c.sample_hi:d} {c.dm_idx_lo:d} "
                 f"{c.dm_idx_hi:d} {c.width_lo:d} {c.width_hi:d}\n"
+            )
+    return path
+
+
+# .fdas column order: periodicity fields plus the Fourier-domain
+# provenance, self-describing like the .singlepulse table
+FDAS_COLUMNS = ("period", "dm", "acc", "fdot", "fddot", "z", "w", "nh", "snr")
+
+
+def write_fdas_candidates(path: str, candidates: Sequence) -> str:
+    """Write FdasCandidates as a whitespace-delimited text table (one row
+    per distilled candidate, in the order given), the JAX package's
+    ``.fdas`` format. ``acc`` is the equivalent line-of-sight acceleration
+    -fdot*c/f."""
+    with open(path, "w", encoding="ascii") as f:
+        f.write("# " + " ".join(FDAS_COLUMNS) + "\n")
+        for c in candidates:
+            f.write(
+                f"{c.period:.12g} {c.dm:.6f} {c.acc:.6f} "
+                f"{c.fdot:.9g} {c.fddot:.9g} {c.z:.3f} {c.w:.3f} "
+                f"{c.nh:d} {c.snr:.4f}\n"
             )
     return path
 
@@ -221,6 +244,56 @@ class OutputFileWriter:
             e.append(Element("is_physical", c.is_physical))
             e.append(Element("ddm_count_ratio", float(np.float32(c.ddm_count_ratio))))
             e.append(Element("ddm_snr_ratio", float(np.float32(c.ddm_snr_ratio))))
+            e.append(Element("nassoc", c.count_assoc()))
+            e.append(Element("byte_offset", byte_map.get(ii, 0)))
+            cands.append(e)
+
+    def add_fdas_section(self, cfg, zs: Iterable[float], ws: Iterable[float]) -> None:
+        """The ``<fdas_search>`` element: the FDAS search parameters and
+        the (z, w) template trial ladders, as the JAX package writes it."""
+        sec = self.root.append(Element("fdas_search"))
+        params = sec.append(Element("search_parameters"))
+        params.append(Element("outdir", cfg.outdir))
+        params.append(Element("killfilename", cfg.killfilename))
+        params.append(Element("zapfilename", cfg.zapfilename))
+        params.append(Element("size", cfg.size))
+        for name in ("dm_start", "dm_end", "dm_tol", "dm_pulse_width", "zmax",
+                     "zstep", "wmax", "wstep"):
+            params.append(Element(name, float(np.float32(getattr(cfg, name)))))
+        params.append(Element("nharmonics", cfg.nharmonics))
+        for name in ("min_snr", "min_freq", "max_freq"):
+            params.append(Element(name, float(np.float32(getattr(cfg, name)))))
+        params.append(Element("max_harm", cfg.max_harm))
+        params.append(Element("freq_tol", float(np.float32(cfg.freq_tol))))
+        for tag, trials in (("fdot_trials", zs), ("fddot_trials", ws)):
+            el = sec.append(Element(tag))
+            trials = [float(v) for v in trials]
+            el.add_attribute("count", len(trials))
+            el.add_attribute("unit", "bins")
+            for ii, v in enumerate(trials):
+                t = Element("trial", v)
+                t.add_attribute("id", ii)
+                el.append(t)
+
+    def add_candidates_fdas(
+        self, candidates: Sequence[Candidate], byte_map: dict[int, int]
+    ) -> None:
+        """Top-level <candidates> in the periodicity layout plus the FDAS
+        provenance (fdot Hz/s, fddot Hz/s^2, z and w in bins), as the JAX
+        package writes them."""
+        cands = self.root.append(Element("candidates"))
+        for ii, c in enumerate(candidates):
+            e = Element("candidate")
+            e.add_attribute("id", ii)
+            e.append(Element("period", 1.0 / c.freq if c.freq else float("inf")))
+            e.append(Element("opt_period", c.opt_period))
+            e.append(Element("dm", float(np.float32(c.dm))))
+            e.append(Element("acc", float(np.float32(c.acc))))
+            e.append(Element("nh", c.nh))
+            e.append(Element("snr", float(np.float32(c.snr))))
+            e.append(Element("folded_snr", float(np.float32(c.folded_snr))))
+            for name in ("fdot", "fddot", "z", "w"):
+                e.append(Element(name, float(np.float32(getattr(c, name, 0.0)))))
             e.append(Element("nassoc", c.count_assoc()))
             e.append(Element("byte_offset", byte_map.get(ii, 0)))
             cands.append(e)

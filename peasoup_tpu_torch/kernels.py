@@ -157,6 +157,14 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def load(names=KERNELS) -> None:
+    """Build (where missing) and load every named kernel's library, so no
+    later launch waits for ``nvcc``."""
+    build(names)
+    for name in names:
+        _load(name)
+
+
 def launch(name: str, *args, shape: tuple) -> None:
     """Call kernel ``name``'s C entry (which launches on the stream given
     as its last argument) and count the launch under its ``shape`` (the

@@ -26,8 +26,8 @@ The transform's adds are the JAX package's, in its order, so
 sums and prefix sums run in torch's order, not XLA's, so its S/N differs
 from the JAX package's in the last bits. The search's preparation (mean
 removal, downsampling, candidate extraction and collapse) is the JAX
-package's numpy code, but for the period a row stands for (see
-:func:`_extract_octave`).
+package's numpy code, its row-to-period map included, which is off where
+the series fills fewer than m_pad rows (see :func:`_extract_octave`).
 """
 
 from __future__ import annotations
@@ -173,25 +173,25 @@ class FFACandidate(NamedTuple):
     dc: float  # duty cycle = width / period_bins
 
 
-def _extract_octave(snr, wid, tcur, p_start, p_end, snr_min, dm, m_pad, out) -> None:
+def _extract_octave(snr, wid, n, tcur, p_start, p_end, snr_min, dm, m_pad, out) -> None:
     """The candidates of one trial's octave: per base period in range, the
-    best row above ``snr_min``, at its period. Row j of an m_pad-row
-    transform shifts input row i by round(i*j/(m_pad-1)) (the JAX
-    package's own shift oracle, its tests/test_ffa.py), whether or not
-    the series fills all m_pad rows: every row is a fold, at period
-    p0 + j/(m_pad-1). (The JAX package searches rows j < m, the complete
-    periods in the series, and places them at p0 + j/(m-1): where m <
-    m_pad its periods are off and the folds past row m unsearched, a
-    fault of the reference this port does not copy; ROADMAP §C.)"""
+    best of the rows j < m (the complete periods of the ``n``-sample
+    series, at least 2) above ``snr_min``, at period p0 + j/(m-1): the JAX
+    package's row-to-period map (its ops/ffa.py:_extract_octave). Row j of
+    the m_pad-row transform holds the fold at p0 + j/(m_pad-1), so where m
+    < m_pad these periods are off by up to (m_pad-1)/(m-1) - 1 bins; the
+    port keeps the reference's map until the reference is repaired
+    (ROADMAP §C)."""
     for pi in range(snr.shape[0]):
         p0 = _PMIN + pi
         p_lo, p_hi = p0 * tcur, (p0 + 1) * tcur
         if p_hi < p_start or p_lo > p_end:
             continue
-        row = int(np.argmax(snr[pi, :m_pad]))
+        m = min(max(n // p0, 2), m_pad)
+        row = int(np.argmax(snr[pi, :m]))
         s = float(snr[pi, row])
         if s >= snr_min:
-            period = (p0 + row / (m_pad - 1)) * tcur
+            period = (p0 + row / max(m - 1, 1)) * tcur
             if p_start <= period <= p_end:
                 out.append(FFACandidate(
                     period=period, dm=dm, snr=s, width=int(wid[pi, row]),
@@ -240,8 +240,8 @@ def ffa_search_block(
             res = ffa_octave(torch.from_numpy(Xd[s0 : s0 + d_blk]).to(dev), m_pad, widths)
             snr, wid = res.snr.cpu().numpy(), res.width.cpu().numpy()
             for d in range(snr.shape[0]):
-                _extract_octave(snr[d], wid[d], tcur, p_start, p_end, snr_min,
-                                float(dms[s0 + d]), m_pad, cands)
+                _extract_octave(snr[d], wid[d], Xd.shape[1], tcur, p_start, p_end,
+                                snr_min, float(dms[s0 + d]), m_pad, cands)
         oct_i += 1
         if progress is not None:
             progress(min(1.0, oct_i / n_oct))

@@ -39,16 +39,34 @@ def find_peaks_device(
     threshold: float,
     start_idx: torch.Tensor,  # (cells,) first bin to consider
     limit: torch.Tensor,  # (cells,) one-past-last bin
+    *,
+    max_peaks: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Every threshold crossing ``s > threshold`` inside [start, limit)
-    of each cell, ascending. Returns (idxs (cells, K) i64 padded with
-    nbins, snrs (cells, K) f32 padded with 0, counts (cells,) i64); K is
-    the largest count (at least 1)."""
+    """Threshold crossings ``s > threshold`` inside [start, limit) of each
+    cell, ascending. Returns (idxs (cells, K) i64 padded with nbins, snrs
+    (cells, K) f32 padded with 0, counts (cells,) i64, every crossing
+    counted). With ``max_peaks`` K is max_peaks and the first max_peaks
+    crossings are kept, the JAX package's semantics (its
+    ops/peaks.py:find_peaks_device): the key -index of each crossing, the
+    K largest in order, so nothing is read back to the host. Without it K
+    is the largest count (at least 1), which the host reads."""
     cells, nbins = spec.shape
     i = torch.arange(nbins, device=spec.device)
     thr = torch.tensor(threshold, dtype=torch.float32, device=spec.device)
     mask = (i >= start_idx[:, None]) & (i < limit[:, None]) & (spec > thr)
     counts = mask.sum(dim=-1)
+    if max_peaks is not None:
+        k = min(max_peaks, nbins)
+        none = -nbins - 1
+        key = torch.where(mask, -i.to(torch.int32), none)
+        kv, ki = torch.topk(key, k, dim=-1, sorted=True)
+        valid = kv > none
+        idxs = torch.where(valid, ki, nbins)
+        snrs = torch.where(valid, torch.gather(spec, 1, ki), 0.0)
+        if k < max_peaks:
+            idxs = torch.nn.functional.pad(idxs, (0, max_peaks - k), value=nbins)
+            snrs = torch.nn.functional.pad(snrs, (0, max_peaks - k))
+        return idxs, snrs, counts
     k = max(int(counts.max()) if cells else 0, 1)
     cell, idx = mask.nonzero(as_tuple=True)  # row-major: ascending per cell
     starts = torch.cumsum(counts, 0) - counts
@@ -75,7 +93,6 @@ def cluster_peaks_device(
     count (cells,))."""
     cells, k = idxs.shape
     dev = idxs.device
-    rows = torch.arange(cells, device=dev)
     open_ = torch.zeros(cells, dtype=torch.bool, device=dev)
     cpeak = torch.zeros(cells, dtype=torch.float32, device=dev)
     cpeakidx = torch.zeros(cells, dtype=torch.int64, device=dev)
@@ -91,8 +108,11 @@ def cluster_peaks_device(
             idx, snr = lastidx, cpeak
             valid = torch.zeros_like(open_)
         close = open_ & (~valid | (idx - lastidx >= min_gap))
-        cidx[rows[close], cursor[close]] = cpeakidx[close]
-        csnr[rows[close], cursor[close]] = cpeak[close]
+        # a cell that closes no cluster writes to column k, which no
+        # cluster reaches (a cell holds at most k), so nothing syncs
+        at = torch.where(close, cursor, k)[:, None]
+        cidx.scatter_(1, at, cpeakidx[:, None])
+        csnr.scatter_(1, at, cpeak[:, None])
         cursor = cursor + close
         start = (~open_ | close) & valid
         take = start | (open_ & ~close & valid & (snr > cpeak))

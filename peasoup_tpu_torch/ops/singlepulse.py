@@ -16,12 +16,14 @@ best-width plane (best S/N and its width index; ties keep the narrowest
 width), and the search reads a ``dec``-fold max-decimated view of it:
 block max, the first sample reaching it, and the width there.
 
-:func:`boxcar_best` (the sweep alone) and :func:`boxcar_dec_best` (the
-sweep and the dec-fold, which the search runs) launch the hand-written
-kernels csrc/boxcar.cu and csrc/spchain.cu for CUDA tensors and run
-their plain versions :func:`boxcar_best_plain` and
-:func:`boxcar_dec_best_plain` for CPU tensors. Both kernels are bitwise
-equal to the plain versions given the same prefix sums.
+:func:`boxcar_best` (the sweep alone, which the streaming search runs)
+and :func:`boxcar_dec_best` (the sweep and the dec-fold, which the batch
+search runs) launch the hand-written kernels csrc/boxcar.cu and
+csrc/spchain.cu for CUDA tensors and run their plain versions
+:func:`boxcar_best_plain` and :func:`boxcar_dec_best_plain` for CPU
+tensors. A dec-fold the spchain kernel does not take (not a power of two
+<= 1024) runs the boxcar kernel and :func:`dec_fold`. Both kernels are
+bitwise equal to the plain versions given the same prefix sums.
 """
 
 from __future__ import annotations
@@ -199,11 +201,16 @@ def _check_sweep(csum_pad, widths, scales, tpad) -> int:
 
 
 def _check_dec(dec: int, tpad: int) -> None:
-    if dec < 1 or dec > _QUANT or dec & (dec - 1) or tpad % dec:
-        raise ValueError(
-            f"decimate={dec} must divide the padded trial length {tpad} "
-            f"(use a power of two <= {_QUANT})"
-        )
+    if dec < 1 or tpad % dec:
+        raise ValueError(f"decimate={dec} must divide the padded trial length {tpad}")
+
+
+def spchain_takes(dec: int) -> bool:
+    """Whether the spchain kernel takes the dec-fold ``dec``: a power of
+    two <= 1024. Any other ``dec`` that divides the padded trial length
+    goes through the boxcar kernel and :func:`dec_fold` (the JAX package's
+    boxcar rung, its pipeline/single_pulse.py:select_sp_kernels)."""
+    return 1 <= dec <= _QUANT and not dec & (dec - 1)
 
 
 def _kernel_bank(csum_pad, widths, scales, wext):
@@ -258,18 +265,22 @@ def boxcar_dec_best(
     tpad: int,
     dec: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The width sweep and its dec-fold in one pass: (block max S/N
-    (D, tpad/dec) f32, first in-block argmax (D, tpad/dec) i32, width
-    index at the argmax (D, tpad/dec) i32); bitwise equal to
-    :func:`boxcar_dec_best_plain`. ``dec`` is a power of two <= 1024 that
-    divides ``tpad``. CUDA tensors go through the spchain kernel, which
-    also needs ``tpad`` a multiple of 512 and 16-byte aligned rows of a
-    multiple of 4 samples, and widths up to ~53k samples; CPU tensors
-    through the plain version."""
+    """The width sweep and its dec-fold: (block max S/N (D, tpad/dec) f32,
+    first in-block argmax (D, tpad/dec) i32, width index at the argmax
+    (D, tpad/dec) i32); bitwise equal to :func:`boxcar_dec_best_plain`.
+    ``dec`` divides ``tpad``. For CUDA tensors a ``dec`` that
+    :func:`spchain_takes` goes through the spchain kernel, which does both
+    in one pass (and needs ``tpad`` a multiple of 512, 16-byte aligned rows
+    of a multiple of 4 samples, and widths up to ~53k samples); any other
+    through the boxcar kernel (:func:`boxcar_best`) and :func:`dec_fold` in
+    torch. The route follows from ``dec`` alone. CPU tensors take the plain
+    version."""
     _check_dec(dec, tpad)
     wext = _check_sweep(csum_pad, widths, scales, tpad)
     if on_cpu(csum_pad):
         return boxcar_dec_best_plain(csum_pad, widths, scales, nvalid, tpad, dec)
+    if not spchain_takes(dec):
+        return dec_fold(*boxcar_best(csum_pad, widths, scales, nvalid, tpad), dec)
     check(csum_pad, "csum_pad", torch.float32, 2)
     if len(widths) > MAX_WIDTHS:
         raise ValueError(f"the boxcar kernels take at most {MAX_WIDTHS} widths")

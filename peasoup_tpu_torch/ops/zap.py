@@ -3,8 +3,9 @@
 Reference: zap_birdies_kernel (src/kernels.cu:1036-1069) sets spectrum
 bins in [(f-w)/bw_floor, (f+w)/bw_ceil) to 1+0j. The bin mask is
 precomputed on the host from the (freq, width) list (it only depends on
-the plan, not the data) and applied as a select inside the fused
-spectrum chain (ops/spectrum.py:specchain).
+the plan, not the data) and applied as a select: inside the fused
+spectrum chain (ops/spectrum.py:specchain) in the periodicity search, by
+:func:`zap_birdies` in the FDAS search.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 
 def birdie_mask(
@@ -36,3 +38,10 @@ def birdie_mask(
             high = nbins - 1
         mask[low:high] = True
     return mask
+
+
+def zap_birdies(fseries: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Replace the masked bins of the complex spectrum with 1+0j (the JAX
+    package's ops/zap.py:zap_birdies)."""
+    one = torch.ones((), dtype=fseries.dtype, device=fseries.device)
+    return torch.where(mask, one, fseries)

@@ -163,6 +163,15 @@ class DMPlan:
     def ndm(self) -> int:
         return len(self.dm_list)
 
+    def subset(self, lo: int, hi: int) -> "DMPlan":
+        """The [lo, hi) slice of the trial list, keeping the whole list's
+        max_delay and out_nsamps, so every slice's trials have the same
+        length (the JAX package's DMPlan.subset)."""
+        return DMPlan(
+            dm_list=self.dm_list[lo:hi], delays=self.delays, killmask=self.killmask,
+            max_delay=self.max_delay, out_nsamps=self.out_nsamps,
+        )
+
     def delay_samples(self) -> np.ndarray:
         """Integer delay (ndm, nchans) in samples: round-half-even of
         the F32 product ``dm * delay_table[c]`` (the dedisp kernel's

@@ -45,7 +45,10 @@ def test_importing_every_module_loads_no_jax():
     assert len(mods) > 20
     for name in ("pipeline.search", "pipeline.folder", "ops.fold", "ops.fold_optimise",
                  "ops.resample", "ops.rednoise", "ops.singlepulse",
-                 "pipeline.single_pulse", "cli.spsearch"):
+                 "pipeline.single_pulse", "cli.spsearch", "fdas.templates", "ops.fdas",
+                 "pipeline.fdas", "cli.fdas", "io.dada", "io.stream_source",
+                 "ops.streaming", "stream.driver", "stream.queue", "stream.triggers",
+                 "cli.stream"):
         assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -83,20 +86,26 @@ def test_cuda_without_a_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("cli", ["ffa", "coincidencer", "accmap"])
+@pytest.mark.parametrize("cli", ["ffa", "coincidencer", "accmap", "fdas", "stream"])
 def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
-    # the FFA, coincidencer and accmap entry points run on the card unless
-    # asked for the CPU: without one they raise before reading any input
+    # the FFA, coincidencer, accmap, FDAS and streaming entry points run on
+    # the card unless asked for the CPU: without one they raise before
+    # reading any input
     import importlib
 
+    from peasoup_tpu_torch.pipeline.fdas import FdasConfig, FdasSearch
     from peasoup_tpu_torch.pipeline.ffa import FFAConfig, FFASearch
+    from peasoup_tpu_torch.stream import StreamConfig, StreamingSearch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="is_available"):
-        FFASearch(FFAConfig())
+    for search, cfg in ((FFASearch, FFAConfig), (FdasSearch, FdasConfig),
+                        (StreamingSearch, StreamConfig)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            search(cfg())
     main = importlib.import_module(f"peasoup_tpu_torch.cli.{cli}").main
     missing = str(tmp_path / "missing.fil")
-    argv = {"ffa": ["-i", missing], "coincidencer": [missing], "accmap": [missing]}[cli]
+    argv = {"ffa": ["-i", missing], "coincidencer": [missing], "accmap": [missing],
+            "fdas": ["-i", missing], "stream": ["--replay", missing]}[cli]
     with pytest.raises(RuntimeError, match="is_available"):
         main(argv)
 

@@ -197,15 +197,22 @@ def test_unported_options_are_refused(overrides, item):
 )
 def test_ported_options_now_run(synthetic, port_result, tmp_path, overrides):
     # options the port refused before they were ported now run, and give
-    # the default run's candidates (exact subbands are the direct sum)
+    # the default run's candidates (exact subbands are the direct sum). The
+    # default run is made here, beside the option's run, so the two share
+    # one process state; port_result, made after the JAX package's search
+    # in another test's fixture, gave other S/N bits once under xdist, for
+    # a cause not found (ROADMAP §C), so only its identities are compared.
     path, _, _ = synthetic
     if "checkpoint_file" in overrides:
         overrides = dict(checkpoint_file=str(tmp_path / overrides["checkpoint_file"]))
-    res = PeasoupSearch(SearchConfig(**KW, **overrides), device="cpu").run(
-        read_filterbank(path)
-    )
+    fil = read_filterbank(path)
+    base = PeasoupSearch(SearchConfig(**KW), device="cpu").run(fil)
+    res = PeasoupSearch(SearchConfig(**KW, **overrides), device="cpu").run(fil)
     assert [(_identity(c), c.snr) for c in res.candidates] == [
-        (_identity(c), c.snr) for c in port_result.candidates
+        (_identity(c), c.snr) for c in base.candidates
+    ]
+    assert [_identity(c) for c in res.candidates] == [
+        _identity(c) for c in port_result.candidates
     ]
     if "checkpoint_file" in overrides:
         assert os.path.getsize(overrides["checkpoint_file"]) > 0

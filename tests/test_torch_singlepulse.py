@@ -119,12 +119,32 @@ def test_boxcar_dec_best_bitwise(nsamps, n_widths, dec):
         assert torch.equal(f, g)
 
 
+@pytest.mark.parametrize("dec", [48, 96, 2048, 3072])
+def test_odd_decimations_run(dec):
+    # a decimation spchain does not take (not a power of two <= 1024) but
+    # that divides tpad (20000 -> 24576 = 2^13 x 3): the JAX twin's result,
+    # bit for bit, through the sweep and the torch dec-fold
+    nsamps = 20000
+    csum, widths, scales, tpad, _ = _jax_csum(nsamps, 8, 5)
+    assert not sp.spchain_takes(dec) and tpad % dec == 0
+    got = sp.boxcar_dec_best(torch.from_numpy(np.array(csum)), widths, scales, nsamps,
+                             tpad, dec)
+    want = jsp.boxcar_dec_best_twin(csum, widths, scales, nsamps, tpad, dec)
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == np.asarray(w).dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert [sp.spchain_takes(d) for d in (1, 2, 32, 1024, 2048, 48, 0)] == [
+        True, True, True, True, False, False, False]
+
+
 @pytest.mark.parametrize("dec", [0, 24, 2048])
 def test_bad_decimation_is_refused(dec):
+    # a decimation must divide the padded trial length (5,120 here), as in
+    # the JAX package; any that does is taken (test_odd_decimations_run)
     widths = sp.default_widths(4)
-    csum = torch.zeros((1, 2048 + sp.width_extent(widths)))
+    csum = torch.zeros((1, 5120 + sp.width_extent(widths)))
     with pytest.raises(ValueError, match="decimate"):
-        sp.boxcar_dec_best(csum, widths, sp.width_scales(widths), 2000, 2048, dec)
+        sp.boxcar_dec_best(csum, widths, sp.width_scales(widths), 5000, 5120, dec)
 
 
 def test_narrow_prefix_rows_are_refused():

@@ -166,6 +166,21 @@ def test_checkpoint_option_now_runs(small, results, tmp_path):
     assert ckpt.stat().st_size > 0
 
 
+@pytest.mark.parametrize("dec", [48, 2048])
+def test_odd_decimations_match_jax(tmp_path_factory, dec):
+    # decimations the spchain kernel does not take, which the JAX package
+    # runs on its boxcar rung: the small input cut to 24,576 samples, whose
+    # padded trials (24,576) both divide
+    path = tmp_path_factory.mktemp("torch_spsearch_dec") / "sp_odd.fil"
+    idx, starts = chip_smoke.sp_small_fil(str(path), nsamps=24_576)
+    want, got = _run_both(path, decimate=dec)
+    assert got.candidates and len(got.candidates) == len(want.candidates)
+    _assert_same_candidates(want, got, dec=dec)
+    assert (got.n_events, got.n_overflowed) == (want.n_events, want.n_overflowed)
+    for s in starts:
+        assert any(c.dm_idx == idx and abs(c.sample - s) < dec for c in got.candidates)
+
+
 def test_config_defaults_match_jax():
     # the port's fields are the JAX package's without its TPU knobs
     want, got = vars(JaxConfig()), vars(SinglePulseConfig())
