@@ -103,7 +103,13 @@ Phases, each fatal on failure:
      boxcar launch once a chunk, spchain never; prints the chunk latency
      p50/p95 and the drops. boxcar's kernels-line entry is checked and
      timed at the stream's modal launch shape (path "stream"), the
-     single-pulse grid's shape under other_shapes.
+     single-pulse grid's shape under other_shapes: at each, one call
+     under CUDA events (``ms``), the kernel's device time alone
+     (torch.profiler, ``kernel_ms``, the mean over the launches it
+     recorded of 10) and a call's share of 20 queued back to back
+     (``queued_ms``); the loaded kernel's registers, local memory
+     (spills) and static shared memory, as the runtime reports them, are
+     printed after the build and kept as ``resources``.
  19. `peasoup-fdas` on the FDAS grid (the big grid's geometry, a faint
      P = 5.03 ms square-wave pulsar at DM 10 drifting z = -24 bins;
      --dm_end 20, zmax 64, 4 harmonics: 77 DM x 65 templates of 2^20 + 1
@@ -293,40 +299,34 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def kernel_split(fn, names: tuple, reps: int = 5, tries: int = 3) -> dict:
+def kernel_split(fn, names: tuple, reps: int = 10) -> tuple[dict, dict]:
     """Device time in ms of each CUDA kernel whose name holds one of
-    ``names``, each launched once a call of fn(): torch.profiler over
-    ``reps`` calls after a warm-up step it discards, the mean over the
-    launches it recorded. The profiler can miss a launch (one peaks_mask
-    in five, on an H100): a profile that did not record exactly one
-    launch of each a call is taken again, up to ``tries`` times, and the
-    split fails if none did."""
+    ``names``, and how many launches of each it is taken over:
+    torch.profiler over ``reps`` calls of fn() after a warm-up call, the
+    mean over the launches it recorded. The profiler can miss a launch
+    (one peaks_mask in five, 2-4 of 5 boxcar launches, on an H100); a
+    missed launch counts in neither the sum nor the count. Fails if it
+    recorded no launch of a kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=reps, repeat=1)) as prof:
-            for _ in range(1 + reps):
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-        total = dict.fromkeys(names, 0.0)
-        count = dict.fromkeys(names, 0)
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                for n in names:
-                    if n in e.name:
-                        total[n] += e.device_time_total / 1e3
-                        count[n] += 1
-        if all(c == reps for c in count.values()):
-            return {n: total[n] / count[n] for n in names}
-        seen.append(count)
-    require(False, f"the profiler recorded one launch of each of {names} a call "
-                   f"({reps} calls): {seen}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    count = dict.fromkeys(names, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    total[n] += e.device_time_total / 1e3
+                    count[n] += 1
+    require(all(count.values()), f"the profiler recorded a launch of each of {names} "
+                                 f"({reps} calls): {count}")
+    return {n: total[n] / count[n] for n in names}, count
 
 
 def time_ms_queued(fn, reps: int = 20) -> float:
@@ -349,6 +349,15 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sweep_work(d: int, nvalid: int, tpad: int, row_len: int, nw: int) -> tuple[int, float]:
+    """What a width sweep of d prefix-sum rows of row_len must read, in
+    bytes, and the operations it must do: csum[:, 0 .. nvalid] (no boxcar
+    reads past csum[nvalid]), and five operations (subtract, multiply,
+    compare, two selects) a width at each sample with a boxcar (t <
+    nvalid)."""
+    return d * min(nvalid + 1, row_len) * 4, 5.0 * d * min(nvalid, tpad) * nw
 
 
 def require(cond: bool, what: str) -> None:
@@ -729,8 +738,8 @@ def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dic
         require(bitwise_equal(a, b), f"harmpeaks {name} equal to the plain version")
     require(int(k_out[3].sum()) > 0, "harmpeaks test rows hold clusters")
     nlev = nharms + 1
-    split = kernel_split(lambda: find_harmonic_cluster_peaks(spec, windows, **kw),
-                         ("harm_mask", "harm_walk"))
+    split, _ = kernel_split(lambda: find_harmonic_cluster_peaks(spec, windows, **kw),
+                            ("harm_mask", "harm_walk"))
     say(f"harmpeaks phases (torch.profiler device time a call): mask "
         f"{split['harm_mask']:.4f} ms, walk {split['harm_walk']:.4f} ms")
     out["harmpeaks"] = dict(
@@ -955,7 +964,8 @@ def other_shape(c: dict) -> dict:
     """The record of a kernel checked at a launch shape besides its modal
     one, as the kernels line lists it under ``other_shapes``."""
     return {k: c[k] for k in ("path", "shape", "max_abs_err", "accuracy_max",
-                              "accuracy_q999", "scratch_bytes", "ms", "plain_ms",
+                              "accuracy_q999", "scratch_bytes", "ms", "kernel_ms",
+                              "kernel_ms_launches", "queued_ms", "plain_ms",
                               "library_ms")
             if k in c} | {"bound_ms": c["bound"][0], "bound_by": c["bound"][1]}
 
@@ -1056,8 +1066,8 @@ def tutorial_kernel_phase(dev: torch.device, fil, runs: dict) -> tuple[dict, dic
     nclusters = int(k_out[3].sum())
     require(nclusters > 0, "peaks test rows hold clusters")
     # the two phases (mask, then the walk harmpeaks shares), by kernel
-    split = kernel_split(lambda: find_cluster_peaks_multi(levels, windows, **kw),
-                         ("peaks_mask", "peaks_walk"))
+    split, _ = kernel_split(lambda: find_cluster_peaks_multi(levels, windows, **kw),
+                            ("peaks_mask", "peaks_walk"))
     # a cross-check of the mask's time by CUDA events: calls queued back to
     # back at a threshold no bin crosses, whose walk only reads its mask
     # words; and the profiler's split of such calls
@@ -1065,8 +1075,8 @@ def tutorial_kernel_phase(dev: torch.device, fil, runs: dict) -> tuple[dict, dic
     require(int(find_cluster_peaks_multi(levels, windows, **kw_none)[2].sum()) == 0,
             "an infinite threshold crosses nowhere")
     none_ms = time_ms_queued(lambda: find_cluster_peaks_multi(levels, windows, **kw_none))
-    split_none = kernel_split(lambda: find_cluster_peaks_multi(levels, windows, **kw_none),
-                              ("peaks_mask", "peaks_walk"))
+    split_none, _ = kernel_split(lambda: find_cluster_peaks_multi(levels, windows, **kw_none),
+                                 ("peaks_mask", "peaks_walk"))
     queued_ms = time_ms_queued(lambda: find_cluster_peaks_multi(levels, windows, **kw))
     win_bytes = rows * win_bins * 4
     say(f"peaks phases (torch.profiler device time a launch): mask "
@@ -1224,13 +1234,13 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     torch.cuda.synchronize()
     for a, b, name in zip(got, ref, ("bmax", "barg", "bwidx")):
         require(bitwise_equal(a, b), f"spchain {name} bitwise equal to its plain version")
-    ops = 5.0 * d * tpad * nw
+    csum_bytes, ops = sweep_work(d, n, tpad, tpad + wext, nw)
     out["spchain"] = dict(
         max_abs_err=max_abs_err(got[0], ref[0]),
         ms=time_ms(lambda: boxcar_dec_best(*args, dec)),
         plain_ms=time_ms(lambda: boxcar_dec_best_plain(*args, dec), reps=3),
         # the prefix sums read once, the three planes written once
-        bound=bound(d * (tpad + wext) * 4 + 3 * d * (tpad // dec) * 4, ops),
+        bound=bound(csum_bytes + 3 * d * (tpad // dec) * 4, ops),
         shape=f"({d}, {tpad + wext}) f32, {nw} widths, dec {dec} -> "
               f"3 x ({d}, {tpad // dec})",
     )
@@ -1239,6 +1249,7 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     wide = default_widths(16)
     wext16 = width_extent(wide)
     wargs = (prefix_sum_padded(norm, tpad, wext16), wide, width_scales(wide), n, tpad)
+    wide_bytes, wide_ops = sweep_work(d, n, tpad, tpad + wext16, len(wide))
     del norm
     w_got = boxcar_dec_best(*wargs, dec)
     w_ref = boxcar_dec_best_plain(*wargs, dec)
@@ -1251,8 +1262,7 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
         max_abs_err=max_abs_err(w_got[0], w_ref[0]),
         ms=time_ms(lambda: boxcar_dec_best(*wargs, dec)),
         plain_ms=time_ms(lambda: boxcar_dec_best_plain(*wargs, dec), reps=3),
-        bound=bound(d * (tpad + wext16) * 4 + 3 * d * (tpad // dec) * 4,
-                    5.0 * d * tpad * len(wide)),
+        bound=bound(wide_bytes + 3 * d * (tpad // dec) * 4, wide_ops),
         shape=f"({d}, {tpad + wext16}) f32, {len(wide)} widths, dec {dec} -> "
               f"3 x ({d}, {tpad // dec})",
     ))]
@@ -1272,14 +1282,28 @@ def sp_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     # boxcar is not on the batch search's path (spchain is): the stream's
     # path takes its modal shape, this one is listed under other_shapes
     out["boxcar"] = dict(
+        boxcar_times(args),
         path="single-pulse grid (spchain's shape)",
         max_abs_err=err,
-        ms=time_ms(lambda: boxcar_best(*args)),
         plain_ms=time_ms(lambda: boxcar_best_plain(*args), reps=3),
-        bound=bound(d * (tpad + wext) * 4 + d * tpad * 8, ops),
+        bound=bound(csum_bytes + d * tpad * 8, ops),
         shape=f"({d}, {tpad + wext}) f32, {nw} widths -> 2 x ({d}, {tpad})",
     )
     return out
+
+
+def boxcar_times(args: tuple) -> dict:
+    """boxcar's times at one shape: a call of the wrapper as the stream
+    sees it (``ms``: CUDA events around one call on an idle card, the
+    host's part included), the kernel's device time alone (``kernel_ms``,
+    kernel_split over the ``kernel_ms_launches`` launches the profiler
+    recorded of 10) and a call's share of 20 queued back to back
+    (``queued_ms``)."""
+    fn = lambda: boxcar_best(*args)  # noqa: E731
+    kernel_ms, recorded = kernel_split(fn, ("boxcar_kernel",))
+    return dict(ms=time_ms(fn), kernel_ms=kernel_ms["boxcar_kernel"],
+                kernel_ms_launches=recorded["boxcar_kernel"],
+                queued_ms=time_ms_queued(fn))
 
 
 def sp_small_fil(path: str, nsamps: int = 1 << 15) -> tuple[int, list]:
@@ -2057,6 +2081,7 @@ def stream_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     norm = normalise_window(trials, torch.ones(w, dtype=torch.bool, device=dev))
     del x, trials
     args = (prefix_sum_padded(norm, tpad, wext), widths, width_scales(widths), w, tpad)
+    csum_bytes, ops = sweep_work(d, w, tpad, tpad + wext, nw)
     del norm
     best, bw = boxcar_best(*args)
     ref = boxcar_best_plain(*args)
@@ -2066,10 +2091,10 @@ def stream_kernel_phase(dev: torch.device, fil, shapes: dict) -> dict:
     err = max_abs_err(best, ref[0])
     del best, bw, ref
     return dict(
+        boxcar_times(args),
         max_abs_err=err,
-        ms=time_ms(lambda: boxcar_best(*args)),
         plain_ms=time_ms(lambda: boxcar_best_plain(*args), reps=3),
-        bound=bound(d * (tpad + wext) * 4 + d * tpad * 8, 5.0 * d * tpad * nw),
+        bound=bound(csum_bytes + d * tpad * 8, ops),
         shape=f"({d}, {tpad + wext}) f32, {nw} widths -> 2 x ({d}, {tpad})",
     )
 
@@ -2171,6 +2196,10 @@ def main() -> int:
     built = kernels.build()
     say(f"built kernels in {time.perf_counter() - t0:.1f} s wall: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
+    resources = kernels.boxcar_resources()
+    say(f"boxcar's resources (cudaFuncGetAttributes): {json.dumps(resources)}")
+    require(all(r["registers"] > 0 for r in resources.values()),
+            "the runtime reported boxcar's registers")
 
     runs, checks = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2286,10 +2315,12 @@ def main() -> int:
         ))
         c = sp_checks["boxcar"]
         say(f"boxcar ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
-            f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
+            f"{c['kernel_ms']:.4f} ms device time alone, {c['queued_ms']:.4f} ms "
+            f"queued, {c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
             f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
         checks["boxcar"] = dict(stream_kernel_phase(dev, fil, stream["shapes"]),
-                                path="stream", other_shapes=[other_shape(c)])
+                                path="stream", other_shapes=[other_shape(c)],
+                                resources=resources)
         say(f"phase stream: {time.perf_counter() - t0:.1f} s wall")
         del fil
         os.remove(path)
@@ -2299,7 +2330,9 @@ def main() -> int:
             c = checks[name]
             lib = c.get("library_ms")
             say(f"{name} ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
-                f"{c['plain_ms']:.4f} ms plain, "
+                + (f"{c['kernel_ms']:.4f} ms device time alone, {c['queued_ms']:.4f} "
+                   "ms queued, " if "kernel_ms" in c else "")
+                + f"{c['plain_ms']:.4f} ms plain, "
                 + (f"{lib:.4f} ms library, " if lib is not None else "")
                 + f"bound {c['bound'][0]:.4f} ms ({c['bound'][1]}), "
                 f"max |err| {c['max_abs_err']}")
@@ -2357,7 +2390,9 @@ def main() -> int:
             "path": c["path"],
             "shape": c["shape"],
             **{k: c[k] for k in ("accuracy_max", "accuracy_q999", "scratch_bytes",
-                                 "phases_ms", "other_shapes")
+                                 "phases_ms", "kernel_ms", "kernel_ms_launches",
+                                 "queued_ms", "resources",
+                                 "other_shapes")
                if k in c},
         }
         for name, c in ((name, checks[name]) for name in SOURCES)

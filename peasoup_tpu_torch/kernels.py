@@ -66,11 +66,14 @@ _ENTRIES = {
 KERNELS = tuple(_ENTRIES)
 
 # (kernel, negative return code) -> why its entry refused the arguments
+_RING = ("the widest boxcar's window does not fit the kernel's shared-memory ring "
+         "(widths up to ~53k samples); use narrower widths")
+_ROWS = "the prefix-sum rows 16-byte aligned and a multiple of 4 samples long"
 REFUSALS = {
-    ("spchain", -1): "the widest boxcar's window does not fit the kernel's "
-                     "shared-memory ring (widths up to ~53k samples); use narrower widths",
-    ("spchain", -2): "tpad must be a multiple of 512 and of dec, and the prefix-sum "
-                     "rows 16-byte aligned and a multiple of 4 samples long",
+    ("spchain", -1): _RING,
+    ("spchain", -2): f"tpad must be a multiple of 512 and of dec, and {_ROWS}",
+    ("boxcar", -1): _RING,
+    ("boxcar", -2): f"tpad must be a multiple of 512, and {_ROWS}",
 }
 
 launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -140,6 +143,27 @@ def build(names=KERNELS) -> dict[str, float]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return times
+
+
+def boxcar_resources(lib: ctypes.CDLL | None = None) -> dict[str, dict[str, int]]:
+    """The boxcar kernel's registers a thread, local memory a thread
+    (spills) and static shared memory a block, as the runtime reports them
+    for the loaded binary (``cudaFuncGetAttributes``, through the
+    library's ``boxcar_attributes``), for its contiguous ring and its
+    wrapping one. ``lib``: another build of ``boxcar.cu`` (default: the
+    port's)."""
+    fn = (lib or _load("boxcar")).boxcar_attributes
+    fn.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = _I
+    out = {}
+    for wrap, ring in ((0, "contiguous ring"), (1, "wrapping ring")):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        rc = fn(wrap, *(ctypes.byref(v) for v in vals))
+        if rc != 0:
+            raise RuntimeError(f"boxcar_attributes returned CUDA error {rc}")
+        out[ring] = dict(zip(("registers", "local_bytes", "static_shared_bytes"),
+                             (v.value for v in vals)))
+    return out
 
 
 def _load(name: str) -> ctypes.CDLL:

@@ -49,14 +49,11 @@ _SPAN_MAX = 8192
 CLIP3_STD_RETENTION = 0.9865835
 DEFAULT_N_WIDTHS = 12
 
-# the kernels' limits. A boxcar block holds its tile's prefix-sum window
-# in shared memory. A spchain block streams its rows through a ring whose
-# geometry csrc/spchain_map.cuh alone decides; its entry refuses a bank or
-# a layout that does not fit (kernels.launch raises ValueError). The width
-# bank lives in a fixed array.
-BOXCAR_TILE = 8192
+# the kernels' limits. Both kernels stream their rows through a ring
+# whose geometry csrc/spchain_map.cuh alone decides; an entry refuses a
+# bank or a layout that does not fit (kernels.launch raises ValueError).
+# The width bank goes to a kernel by value, in a fixed array.
 MAX_WIDTHS = 32
-_SMEM_BYTES = 232_448 - 4096  # an H100 block's shared memory, less static use
 
 
 def default_widths(n_widths: int = DEFAULT_N_WIDTHS, max_width: int = 0):
@@ -213,22 +210,13 @@ def spchain_takes(dec: int) -> bool:
     return 1 <= dec <= _QUANT and not dec & (dec - 1)
 
 
-def _kernel_bank(csum_pad, widths, scales, wext):
-    """The boxcar kernel's checks, and the width bank as device tensors
-    (widths i32, scales f32)."""
+def _kernel_bank(csum_pad, widths, scales):
+    """The kernels' checks, and the width bank in host memory (widths i32,
+    scales f32), which the C entries pass to the kernel by value."""
     check(csum_pad, "csum_pad", torch.float32, 2)
     if len(widths) > MAX_WIDTHS:
         raise ValueError(f"the boxcar kernels take at most {MAX_WIDTHS} widths")
-    if (BOXCAR_TILE + wext) * 4 > _SMEM_BYTES:
-        raise ValueError(
-            f"a width extent of {wext} samples does not fit the kernels' "
-            "shared-memory window; use fewer or narrower widths"
-        )
-    dev = csum_pad.device
-    return (
-        torch.tensor(widths, dtype=torch.int32, device=dev),
-        torch.from_numpy(np.asarray(scales, dtype=np.float32)).to(dev),
-    )
+    return np.asarray(widths, dtype=np.int32), np.asarray(scales, dtype=np.float32)
 
 
 def boxcar_best(
@@ -240,17 +228,20 @@ def boxcar_best(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The width sweep: (best S/N (D, tpad) f32, best width index (D, tpad)
     i32); bitwise equal to :func:`boxcar_best_plain`. CUDA tensors go
-    through the boxcar kernel, CPU tensors through the plain version."""
+    through the boxcar kernel (which needs ``tpad`` a multiple of 512,
+    16-byte aligned rows of a multiple of 4 samples, and widths up to ~53k
+    samples), CPU tensors through the plain version. On the card the call
+    allocates the two outputs and nothing else."""
     wext = _check_sweep(csum_pad, widths, scales, tpad)
     if on_cpu(csum_pad):
         return boxcar_best_plain(csum_pad, widths, scales, nvalid, tpad)
-    w_dev, s_dev = _kernel_bank(csum_pad, widths, scales, wext)
+    w_host, s_host = _kernel_bank(csum_pad, widths, scales)
     d = csum_pad.shape[0]
     dev = csum_pad.device
     best = torch.empty((d, tpad), dtype=torch.float32, device=dev)
     bw = torch.empty((d, tpad), dtype=torch.int32, device=dev)
     kernels.launch(
-        "boxcar", csum_pad.data_ptr(), w_dev.data_ptr(), s_dev.data_ptr(),
+        "boxcar", csum_pad.data_ptr(), w_host.ctypes.data, s_host.ctypes.data,
         len(widths), d, tpad + wext, tpad, nvalid, best.data_ptr(), bw.data_ptr(),
         stream_ptr(dev), shape=(d, tpad, wext, len(widths)),
     )
@@ -281,18 +272,13 @@ def boxcar_dec_best(
         return boxcar_dec_best_plain(csum_pad, widths, scales, nvalid, tpad, dec)
     if not spchain_takes(dec):
         return dec_fold(*boxcar_best(csum_pad, widths, scales, nvalid, tpad), dec)
-    check(csum_pad, "csum_pad", torch.float32, 2)
-    if len(widths) > MAX_WIDTHS:
-        raise ValueError(f"the boxcar kernels take at most {MAX_WIDTHS} widths")
+    w_host, s_host = _kernel_bank(csum_pad, widths, scales)
     d = csum_pad.shape[0]
     dev = csum_pad.device
     nbd = tpad // dec
     bmax = torch.empty((d, nbd), dtype=torch.float32, device=dev)
     barg = torch.empty((d, nbd), dtype=torch.int32, device=dev)
     bwidx = torch.empty((d, nbd), dtype=torch.int32, device=dev)
-    # the bank goes to the kernel by value, from host memory
-    w_host = np.asarray(widths, dtype=np.int32)
-    s_host = np.asarray(scales, dtype=np.float32)
     kernels.launch(
         "spchain", csum_pad.data_ptr(), w_host.ctypes.data, s_host.ctypes.data,
         len(widths), d, tpad + wext, tpad, nvalid, dec, bmax.data_ptr(),

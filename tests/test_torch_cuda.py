@@ -2,7 +2,8 @@
 small shapes with the edge cases (odd widths, birdies at block edges,
 every dftspec factorisation, garbage padding, cluster overflow, rows out of order, offsets past 2^31,
 boxcars past the trial's end, a tile shorter than the kernel's, -inf
-blocks, flat stretches, more harmpeaks rows than SMs, dense crossing
+blocks, flat stretches; boxcar on a reduced stream window, with widths
+that are not multiples of 4, signed zeros and the widest bank that fits, more harmpeaks rows than SMs, dense crossing
 runs; spchain with ties, signed zeros, a bank that is not powers of two,
 nvalid inside a tile, more rows than the card's resident blocks and banks
 wide enough (to 48,126 samples) that a window wraps round the ring;
@@ -24,6 +25,7 @@ JAX is not installed (the tests' conftest.py imports JAX; skip it):
 import numpy as np
 import pytest
 import torch
+import torch_boxcar_cases as boxcar_cases
 
 from peasoup_tpu_torch.ops import (
     dedisperse, dftspec, fft, harmonics, peaks, resample, singlepulse, spectrum,
@@ -263,14 +265,24 @@ def _boxcar_inputs(dev, nsamps, n_widths, seed):
     return csum, widths, singlepulse.width_scales(widths), nsamps, tpad
 
 
-@pytest.mark.parametrize("nsamps,n_widths", [(20000, 12), (5000, 5), (70001, 14)])
-def test_boxcar(dev, nsamps, n_widths):
-    args = _boxcar_inputs(dev, nsamps, n_widths, 6)
+@pytest.mark.parametrize(
+    "case", ["20000x12", "5000x5", "70001x14", *boxcar_cases.CASES],
+)
+def test_boxcar(dev, case):
+    if case[0].isdigit():  # nsamps x widths
+        nsamps, n_widths = map(int, case.split("x"))
+        args = _boxcar_inputs(dev, nsamps, n_widths, 6)
+    else:  # the host emulation's edges (tests/test_torch_kernel_host.py)
+        csum, *rest = boxcar_cases.boxcar_case(case)
+        args = (*_on(dev, csum), *rest)
+    nvalid = args[3]
     got = singlepulse.boxcar_best(*args)
     want = singlepulse.boxcar_best_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert bool(torch.isneginf(got[0][:, nsamps:]).all())
+    # bit for bit, the sign of a zero S/N included
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert bool(torch.isneginf(got[0][:, nvalid:]).all())
 
 
 @pytest.mark.parametrize("dec", [1, 8, 32, 64, 1024])

@@ -4,7 +4,8 @@ csrc/cluster_step.cuh (the cluster walk's step, shared by harmpeaks and
 peaks), csrc/dftmap.cuh (who holds what in dftspec's cluster),
 csrc/interbin_map.cuh (interbin's mirror pairs), csrc/dedisp_map.cuh
 (dedisperse's staged windows and packed sums), csrc/spchain_map.cuh
-(spchain's ring of prefix-sum chunks, its sweep and its winner rule) and
+(spchain's ring of prefix-sum chunks, its sweep and its winner rule),
+csrc/boxcar_map.cuh (boxcar's strips and stores on that ring) and
 csrc/peaks_map.cuh (peaks' mask lanes).
 
 A small C++ shim that includes those headers is compiled with g++ into a
@@ -48,6 +49,13 @@ holds:
   windows wrap round the ring's end; the ring's geometry (it holds a
   tile's window, wraps only where copies do not fit, and takes every
   bank the one-window design before it took);
+- boxcar's blocks emulated through csrc/boxcar_map.cuh on spchain's
+  ring (the strips, the carried halo, the per-tile validity predicate,
+  the sweep and each group's aligned 16-byte store, every output written
+  once) bitwise against the port's plain version and the JAX package's
+  twin: a reduced stream window, nvalid inside a tile and at 0, widths
+  that are not multiples of 4, ties, signed zeros, the widest bank that
+  fits and tpad below a tile;
 - peaks' two phases emulated (16-byte reads inside each level's window,
   nibbles into mask words clipped at the window's edges, then the shared
   walk with one load a crossing's value) bitwise against the port's plain
@@ -82,6 +90,7 @@ SHIM = r"""
 #include <cstring>
 #include <vector>
 
+#include "boxcar_map.cuh"
 #include "cluster_step.cuh"
 #include "dedisp_map.cuh"
 #include "dftmap.cuh"
@@ -492,6 +501,149 @@ int spchain_emulate(const float* csum, const int* w, const float* sc, int nw, lo
   return 0;
 }
 
+// boxcar.cu's blocks run on the host through boxcar_map.cuh, on the same
+// poisoned ring and checked reads as spchain's: each block's strip of
+// tiles (block_tiles), its loads in order, each tile's chunks checked present,
+// the tile's validity predicate choosing the sweep, each warp's threads
+// swept (sweep) where the warp is active, and each group's four samples
+// stored as one aligned run at group_offset. Returns 1-5 as spchain_emulate
+// does, 6 if an output sample is written other than once, 7 if a group's
+// store is not 16-byte aligned; stats gets the tiles swept unmasked and
+// masked, whether the ring wraps, the loads issued, the chunks the tiles
+// read, the chunks carried from a tile to the next of its strip, the
+// warps that skip their sweep (every sample at or past nvalid), the
+// prefix sums loaded (chunk_floats a load; the rest of its slot
+// poisoned), and the most work (row_work's units) a block's strip holds
+// and the work of all strips. Returns 8 if the strips do not start at
+// tile 0 and end at the last.
+// bxmap::block_strip's strips of rows x ceil(tpad / kTile) tiles for
+// nblocks blocks: g[b] block b's first tile, g[nblocks] the end.
+void boxcar_strips(long long rows, long long tpad, long long nvalid, int n, long long nblocks,
+                   long long* g) {
+  spmap::Plan plan{};
+  plan.tpr = (tpad + spmap::kTile - 1) / spmap::kTile;
+  for (long long b = 0; b < nblocks; ++b) {
+    int64_t g0, g1;
+    bxmap::block_strip(plan, rows, tpad, nvalid, n, nblocks, b, g0, g1);
+    g[b] = g0;
+    g[b + 1] = g1;
+  }
+}
+
+int boxcar_emulate(const float* csum, const int* w, const float* sc, int nw, long long rows,
+                   long long row_len, long long tpad, long long nvalid, long long nblocks,
+                   float* best, int* bw, long long* stats) {
+  using namespace spmap;
+  std::vector<Width> ord(nw);
+  int wmax = 0;
+  for (int k = 0; k < nw; ++k) {
+    ord[k] = Width{w[k], sc[k]};
+    wmax = w[k] > wmax ? w[k] : wmax;
+  }
+  const SpBank by_ord{ord.data()};
+  Plan plan;
+  if (!bxmap::make_plan(tpad, row_len, w, nw, plan)) return 5;
+  const int lslots = __builtin_ctz(plan.slots);
+  const int64_t tiles = rows * plan.tpr;
+  const int nring = ring_chunks(plan.slots, plan.nwin, plan.wrap);
+  std::vector<float> ring(std::size_t(nring) * kChunk);
+  std::vector<int64_t> tag(nring);
+  std::vector<int> writes(std::size_t(rows * tpad), 0);
+  for (int i = 0; i < 10; ++i) stats[i] = 0;
+  stats[2] = plan.wrap;
+  for (int64_t blk = 0; blk < nblocks; ++blk) {
+    int64_t g0, g1;
+    bxmap::block_strip(plan, rows, tpad, nvalid, nw, nblocks, blk, g0, g1);
+    if (blk == 0 && g0 != 0) return 8;
+    if (blk == nblocks - 1 && g1 != tiles) return 8;
+    const int64_t work = (g1 / plan.tpr - g0 / plan.tpr) * bxmap::row_work(tpad, nvalid, nw, plan.tpr) +
+                         bxmap::row_work(tpad, nvalid, nw, g1 % plan.tpr) -
+                         bxmap::row_work(tpad, nvalid, nw, g0 % plan.tpr);
+    stats[8] = work > stats[8] ? work : stats[8];
+    stats[9] += work;
+    if (g0 >= g1) continue;
+    std::fill(ring.begin(), ring.end(), 1e30f);
+    std::fill(tag.begin(), tag.end(), -1);
+    const int64_t nloads = total_loads(plan, g0, g1);
+    stats[3] += nloads;
+    Loader ld;
+    loader_start(plan, g0, g1, ld);
+    const auto issue = [&](int64_t upto) {
+      for (; ld.n < nloads && ld.n < upto; loader_next(plan, g0, g1, ld)) {
+        const int64_t len = bxmap::chunk_floats(row_len, nvalid, ld.c);
+        stats[7] += len;
+        int s;
+        uint32_t ph;
+        ring_pos(ld.n, plan.slots, lslots, plan.wrap, s, ph);
+        const float* src = csum + ld.row * row_len + ld.c * kChunk;
+        const auto fill = [&](int slot) {
+          std::copy(src, src + len, ring.begin() + slot * kChunk);
+          std::fill(ring.begin() + slot * kChunk + len, ring.begin() + (slot + 1) * kChunk, 1e30f);
+          tag[slot] = ld.n;
+        };
+        fill(s);
+        if (!plan.wrap && s < plan.nwin - 1) fill(plan.slots + s);
+      }
+    };
+    issue(plan.slots);
+    Cursor cur;
+    cursor_start(plan, g0, cur);
+    int err = 0;
+    while (cur.g < g1) {
+      const int64_t t0 = cur.k * kTile;
+      const int tile_n = int(tpad - t0 < kTile ? tpad - t0 : kTile);
+      const int64_t have = bxmap::tile_chunks(plan, cur.k);
+      stats[4] += have;
+      if (cur.g + 1 < g1) stats[5] += bxmap::carried_chunks(plan, cur.k);
+      int s0;
+      uint32_t ph0;
+      ring_pos(cur.n0, plan.slots, lslots, plan.wrap, s0, ph0);
+      for (int64_t j = 0; j < have; ++j) {
+        if (tag[ring_at(s0, int(j * kChunk), plan.slots, plan.wrap) / kChunk] != cur.n0 + j) return 1;
+      }
+      const SpRing rd{ring.data(), tag.data(), cur.n0, s0, plan.slots, plan.wrap,
+                      int(have * kChunk), &err};
+      const bool fits = bxmap::tile_fits(nvalid, t0, wmax);
+      ++stats[fits ? 0 : 1];
+      for (int tid = 0; tid < kThreads; ++tid) {
+        if (!bxmap::warp_active(tid, tile_n)) continue;
+        float v[kPer];
+        int wv[kPer];
+        const int o = sample_of(tid, 0);
+        if (bxmap::none_fit(nvalid, t0 + (tid >> 5) * kWarpSamples)) {
+          stats[6] += (tid & 31) == 0;
+          for (int j = 0; j < kPer; ++j) {
+            v[j] = neg_inf();
+            wv[j] = 0;
+          }
+        } else if (fits) {
+          bxmap::sweep<false>(rd, o, by_ord, nw, 0, v, wv);
+        } else {
+          bxmap::sweep<true>(rd, o, by_ord, nw, bxmap::room_of(nvalid, t0 + o), v, wv);
+        }
+        for (int G = 0; G < kGroups; ++G) {
+          const int at = bxmap::group_offset(tid, G);
+          const int64_t q = cur.row * tpad + t0 + at;
+          if (q % 4 != 0 || at + 4 > tile_n) return 7;
+          for (int i = 0; i < 4; ++i) {
+            best[q + i] = v[4 * G + i];
+            bw[q + i] = wv[4 * G + i];
+            ++writes[q + i];
+          }
+        }
+      }
+      if (err) return err;
+      cursor_next(plan, g0, g1, cur);
+      issue(cur.n0 + plan.slots);
+    }
+    if (ld.n != nloads) return 4;
+  }
+  for (const int n : writes) {
+    if (n != 1) return 6;
+  }
+  return 0;
+}
+
 int levels(const float* s, int nbins, int nharms, float* out) {
   switch (nharms + 1) {
     case 2: levels_all<2>(s, nbins, out); break;
@@ -781,6 +933,10 @@ _SIGNATURES = {
     "interbin_map": [_I, _I] + [_P] * 5,
     "peaks": [_P] * 6 + [_I, _I, _I, _I, _P, _P, _F, _I, _I, _P, _P, _P, _P],
     "spchain_geometry": [_P, _I, _P],
+    "boxcar_strips": [ctypes.c_longlong] * 3 + [_I, ctypes.c_longlong, _P],
+    "boxcar_emulate": [_P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                       _P, _P, _P],
     "spchain_emulate": [_P, _P, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_longlong, ctypes.c_longlong, _I, ctypes.c_longlong,
                         _P, _P, _P, _P],
@@ -1331,6 +1487,122 @@ def test_spchain_ring_geometry(shim, widths):
         assert copy + g["nwin"] - 1 > 14  # wraps only where copies do not fit
     if max(widths) <= 2048:
         assert not g["wrap"]  # the default bank keeps its contiguous windows
+
+
+def _bx_emulate(shim, csum, widths, scales, nvalid, tpad, nblocks):
+    rows, row_len = csum.shape
+    best = np.full((rows, tpad), 7.5, np.float32)
+    bw = np.full((rows, tpad), -9, np.int32)
+    stats = np.zeros(10, np.int64)
+    w = np.asarray(widths, np.int32)
+    sc = np.asarray(scales, np.float32)
+    rc = shim.boxcar_emulate(_ptr(csum), _ptr(w), _ptr(sc), len(widths), rows, row_len, tpad,
+                             nvalid, nblocks, _ptr(best), _ptr(bw), _ptr(stats))
+    assert rc == 0
+    return best, bw, stats
+
+
+@pytest.mark.parametrize(
+    "case,nblocks",
+    [
+        ("stream_window", 13), ("stream_window", 1),  # one block walks every row
+        ("stream_window", 1000),  # more blocks than tiles: a tile each, some idle
+        ("nvalid_mid_tile", 7), ("nvalid_zero", 4), ("odd_widths", 9), ("ties", 11),
+        ("signed_zeros", 5), ("widest_bank", 3), ("short_tpad", 3), ("short_tpad", 1),
+    ],
+)
+def test_boxcar_blocks_match_plain(shim, case, nblocks):
+    # boxcar.cu's blocks emulated through csrc/boxcar_map.cuh, bitwise
+    # against the port's plain version and the JAX package's twin
+    from peasoup_tpu.ops import singlepulse as jsp
+    from peasoup_tpu_torch.ops import singlepulse as sp
+    from torch_boxcar_cases import boxcar_case
+
+    csum, widths, scales, nvalid, tpad = boxcar_case(case)
+    best, bw, stats = _bx_emulate(shim, csum, widths, scales, nvalid, tpad, nblocks)
+    want = sp.boxcar_best_plain(torch.from_numpy(csum), widths, scales, nvalid, tpad)
+    twin = jsp.boxcar_best_twin(jnp.asarray(csum), widths, scales, nvalid, tpad)
+    # XLA:CPU flushes subnormals to zero, the card and torch keep them: the
+    # twin is held bit for bit wherever no boxcar reads a subnormal
+    sub = (csum != 0) & (np.abs(csum) < np.finfo(np.float32).tiny)
+    reach = np.cumsum(np.pad(sub, ((0, 0), (1, 0))), axis=1)
+    wmax = max(widths)
+    clean = reach[:, wmax + 1 : tpad + wmax + 1] == reach[:, :tpad]
+    assert clean.mean() > 0.9
+    for g, p, j, name in zip((best, bw), want, twin, ("best", "bw")):
+        np.testing.assert_array_equal(_bits(g), _bits(p.numpy()), err_msg=name)
+        np.testing.assert_array_equal(_bits(g)[clean], _bits(np.asarray(j))[clean],
+                                      err_msg=name)
+    rows, row_len = csum.shape
+    geo = _sp_geometry(shim, widths)
+    tile, tpr = geo["tile"], -(-tpad // geo["tile"])
+    assert stats[:2].sum() == rows * tpr  # every tile swept once
+    # the per-tile predicate: the masked sweep takes exactly the tiles
+    # where some boxcar passes nvalid
+    t0 = np.arange(tpr) * tile
+    assert stats[1] == rows * int((t0 + tile - 1 + max(widths) > nvalid).sum())
+    assert stats[2] == (case == "widest_bank")  # only a bank past ~20k samples wraps
+    # the halo is carried: a load for each chunk the tiles read less those
+    # the previous tile of the strip left in the ring, so a row's prefix
+    # sums are read once, and again only at a strip's first tile in it
+    assert stats[3] == stats[4] - stats[5]
+    once = rows * min(tpr - 1 + geo["nwin"], -(-row_len // geo["chunk"]))
+    assert once <= stats[3] <= once + min(nblocks, rows * tpr) * (geo["nwin"] - 1)
+    if nblocks == 1:
+        assert stats[3] == once
+    # a load brings in no prefix sum past csum[nvalid] (the last a boxcar
+    # reads, rounded up to a 16-byte copy): a row's first min(nvalid + 1,
+    # row_len) once, with the rest of each slot poisoned, and the output
+    # still bitwise the plain version's
+    need = min(-(-(nvalid + 1) // 4) * 4, row_len)
+    if nblocks == 1:
+        assert stats[7] == rows * need
+    halo = min(nblocks, rows * tpr) * (geo["nwin"] - 1) * geo["chunk"]
+    assert rows * need <= stats[7] <= rows * need + halo
+    # strips of near equal work: a warp's stores count 4, its sweep one a
+    # width, and no block takes more than its share and one tile
+    warps = np.arange(0, tpad, 512)
+    work = rows * (4 * len(warps) + len(widths) * int((warps < nvalid).sum()))
+    assert stats[9] == work
+    assert stats[8] <= work / min(nblocks, rows * tpr) + 8 * (4 + len(widths))
+    # the warps whose samples all start at or past nvalid skip the sweep
+    assert stats[6] == rows * int((warps >= nvalid).sum())
+    if case == "nvalid_zero":
+        assert np.isneginf(best).all() and not bw.any()
+    if case == "ties":
+        assert (best[:, 200:2900] == 0).all()  # past every width
+    if case == "signed_zeros":
+        zero = best == 0
+        assert np.signbit(best[zero]).any() and not np.signbit(best[zero]).all()
+    if case == "odd_widths":
+        assert len(set(bw.ravel().tolist())) == len(widths)
+
+
+@pytest.mark.parametrize(
+    "rows,nvalid,tpad,nblocks",
+    [(179, 18_432, 24_576, 264),  # the stream's window on an H100's 264 blocks
+     (179, 2_101_288, 2_105_344, 264),  # the single-pulse grid's block
+     (3, 0, 8192, 5), (7, 5000, 5120, 32), (5, 20_000, 24_576, 7)],
+)
+def test_boxcar_strips_balance_work(shim, rows, nvalid, tpad, nblocks):
+    # each block's strip of consecutive tiles holds near its share of the
+    # work (a warp's stores 4, its sweep one a width): at most one tile more
+    n = 12
+    g = np.zeros(nblocks + 1, np.int64)
+    shim.boxcar_strips(rows, tpad, nvalid, n, nblocks, _ptr(g))
+    tpr = -(-tpad // 4096)
+    assert g[0] == 0 and g[-1] == rows * tpr and (np.diff(g) >= 0).all()
+    warp0 = np.arange(0, tpr * 4096, 512).reshape(tpr, 8)
+    tile_work = np.where(warp0 < tpad, 4 + n * (warp0 < nvalid), 0).sum(axis=1)
+    cum = np.concatenate([[0], np.cumsum(np.tile(tile_work, rows))])
+    work = cum[g[1:]] - cum[g[:-1]]
+    assert work.max() <= cum[-1] / nblocks + tile_work.max()
+    if (nvalid, nblocks) == (18_432, 264):
+        # no block sweeps more than 4 tiles, where equal strips of tiles
+        # (4-5 a block) would put 4.5 tiles' sweeps on some
+        eq = rows * tpr * np.arange(nblocks + 1) // nblocks
+        eq_work = cum[eq[1:]] - cum[eq[:-1]]
+        assert work.max() <= 4 * tile_work.max() < eq_work.max()
 
 
 def _peaks_case(case):

@@ -173,6 +173,93 @@ def test_spchain_entry_refusals_are_worded(monkeypatch, rc, error, words):
     assert kernels.launches["spchain"] == before
 
 
+@pytest.mark.parametrize(
+    "rc,error,words",
+    [(-1, ValueError, "shared-memory ring"), (-2, ValueError, "multiple of 512"),
+     (1, RuntimeError, "CUDA error 1")],
+)
+def test_boxcar_entry_refusals_are_worded(monkeypatch, rc, error, words):
+    # the boxcar entry alone decides its ring and layout, as spchain's
+    from types import SimpleNamespace
+
+    from peasoup_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "_load", lambda name: SimpleNamespace(boxcar_best=lambda *a: rc))
+    before = kernels.launches["boxcar"]
+    with pytest.raises(error, match=words):
+        kernels.launch("boxcar", shape=(1, 2048, 1024, 1))
+    assert kernels.launches["boxcar"] == before
+
+
+@pytest.mark.parametrize("widths", [sp.default_widths(12), (1, 3, 5, 7, 12)])
+def test_boxcar_bank_goes_by_value(monkeypatch, widths):
+    # on the card's path the wrapper hands the C entry the bank in host
+    # memory (the entry passes it to the kernel by value) and allocates
+    # the two outputs and nothing else: no device tensor, no copy
+    import ctypes
+    from types import SimpleNamespace
+
+    from peasoup_tpu_torch import kernels
+
+    seen = {}
+
+    def entry(csum, w_ptr, s_ptr, n, rows, row_len, tpad, nvalid, best, bw, stream):
+        seen["bank"] = (np.ctypeslib.as_array((ctypes.c_int32 * n).from_address(w_ptr)).copy(),
+                        np.ctypeslib.as_array((ctypes.c_float * n).from_address(s_ptr)).copy())
+        seen["sizes"] = (rows, row_len, tpad, nvalid)
+        return 0
+
+    made = []
+    empty = torch.empty
+
+    def counted_empty(*a, **k):
+        made.append((a, k.get("dtype")))
+        return empty(*a, **k)
+
+    def refused(*a, **k):
+        raise AssertionError("the wrapper made a tensor for the bank")
+
+    monkeypatch.setattr(kernels, "_load", lambda name: SimpleNamespace(boxcar_best=entry))
+    monkeypatch.setattr(sp, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(sp, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch, "empty", counted_empty)
+    for name in ("tensor", "as_tensor", "from_numpy", "zeros", "full"):
+        monkeypatch.setattr(torch, name, refused)
+    tpad, wext = 8192, sp.width_extent(widths)
+    scales = sp.width_scales(widths)
+    csum = empty((3, tpad + wext), dtype=torch.float32)
+    before = kernels.launches["boxcar"]
+    best, bw = sp.boxcar_best(csum, widths, scales, 8000, tpad)
+    assert kernels.launches["boxcar"] == before + 1
+    assert made == [(((3, tpad),), torch.float32), (((3, tpad),), torch.int32)]
+    assert best.shape == bw.shape == (3, tpad)
+    np.testing.assert_array_equal(seen["bank"][0], np.asarray(widths, np.int32))
+    np.testing.assert_array_equal(seen["bank"][1].view(np.int32), scales.view(np.int32))
+    assert seen["sizes"] == (3, tpad + wext, tpad, 8000)
+
+
+def test_boxcar_probe_variants_apply():
+    # boxcar_probe.py builds each variant by defining macros: each must be
+    # one boxcar.cu tests (an unknown one would quietly build the kernel
+    # itself), and the port's own build defines none of them
+    import sys
+    from pathlib import Path
+
+    from peasoup_tpu_torch import kernels
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import boxcar_probe
+
+    text = kernels.source("boxcar").read_text()
+    assert boxcar_probe.VARIANTS["kernel"] == []
+    macros = [m for ms in boxcar_probe.VARIANTS.values() for m in ms]
+    assert len(macros) == len(set(macros)) == len(boxcar_probe.VARIANTS) - 1
+    for m in macros:
+        assert f"#if defined({m})" in text, m
+        assert not any(m in flag for flag in kernels.NVCC_FLAGS), m
+
+
 @pytest.mark.parametrize("max_events", [1, 3, 64])
 def test_search_block_matches_jax(max_events):
     # rows 0 and 1 hold several events each, so small max_events overflow
