@@ -124,6 +124,26 @@ Phases, each fatal on failure:
  22. The batch single-pulse search at decimate 48 (the boxcar kernel and
      the torch dec-fold; spchain takes powers of two only): the CPU's
      candidates on the card.
+ 23. A campaign of this run's own outputs: the big grid's and the tutorial
+     grid's three routes' output directories ingested (CandidateDB.
+     ingest_job) as four observations, sifted by `cli.sift run` with the
+     default SiftConfig (each observation re-dedispersed with the
+     dedisperse kernel at its candidates' DMs, fold batch 64, up to 256
+     folded an observation, DM-curve refold, scoring), then `cli.sift
+     report` and `cli.rank score`: the dedisperse kernel launched (its
+     launch shapes printed), a 2^21-sample fold bucket folded, the
+     tutorial pulsar one catalogue row over the 3 observations and the big
+     grid's pulsar a row, each folded to S/N >= 6, every scored row tiered
+     with the shipped model's fingerprint, and rank score's scores the
+     sift's; prints the stage timers and the fold buckets. dedisperse is
+     checked and timed at the sift's big-grid launch (``other_shapes``).
+ 24. The sift on the card against the CPU on tests/test_sift.py's
+     seed_campaign recipe (and its six-beam RFI variant) and a pulsar
+     campaign: the same catalogue, known matches and repeat sources
+     (folded S/N to 1e-3, scores to 2e-3); the survey folder bit for bit
+     the per-observation folder on the card at batch 4 and 64; `rank
+     train` on the card and the CPU from one seed (weights within 1e-5),
+     each model through `rank eval`'s ROC gate.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -2157,6 +2177,372 @@ def odd_decimation_phase(tmp: str) -> int:
     return len(gpu)
 
 
+# --- the survey sift and candidate ranking (phases 23-24) --------------------
+
+# phase 23's campaign: the big grid's and the tutorial grid's own outputs
+# (the tutorial grid's three routes as three observations of one file)
+SIFT_TUT_PERIOD_TOL = SIFT_BIG_PERIOD_TOL = 2e-3
+SIFT_MIN_FOLDED_SNR = 6.0
+# phase 24 and tests/test_torch_sift.py: card and CPU agree to these (the
+# dereddening FFTs round differently, so folded S/N to 1e-3 relative;
+# scores through those folds to 2e-3)
+SIFT_SNR_RTOL, SIFT_SCORE_ATOL = 1e-3, 2e-3
+# rank train on the card against the CPU from one seed
+RANK_WEIGHT_ATOL = 1e-5
+SIFT_P0 = 0.714519699726  # J0332+5434, tests/test_sift.py's P0
+SIFT_PSR_P, SIFT_PSR_DM = 0.05, 20.0
+
+
+def sift_seed_campaign(root: str, with_rfi: bool = False) -> str:
+    """tests/test_sift.py:seed_campaign's database and filterbanks, written
+    by the port: two 4,096-sample 8-bit observations (six with the RFI
+    variant, one beam each) of noise, the known pulsar J0332+5434 at its
+    fundamental in one and its 1/2 harmonic in the other, an unrelated
+    candidate, a repeating single-pulse source (P = 0.5 s) across both,
+    and with the RFI variant a comb in every beam. Returns the campaign
+    directory."""
+    from peasoup_tpu_torch.campaign.db import CandidateDB
+
+    camp = os.path.join(root, "camp")
+    os.makedirs(camp, exist_ok=True)
+    nsamps, nchans, tsamp = 4096, 8, 0.000256
+    rng = np.random.default_rng(0)
+    prrat = 0.5
+    with CandidateDB(os.path.join(camp, "candidates.sqlite")) as db:
+        conn = db._conn
+        for i in range(6 if with_rfi else 2):
+            data = np.clip(np.rint(rng.normal(32.0, 4.0, size=(nsamps, nchans))),
+                           0, 255).astype(np.uint8)
+            hdr = SigprocHeader(source_name=f"OBS{i}", tsamp=tsamp, tstart=55000.0 + i * 0.01,
+                                fch1=1400.0, foff=-16.0, nchans=nchans, nbits=8, nifs=1,
+                                data_type=1, ibeam=i + 1)
+            path = os.path.join(camp, f"obs{i}.fil")
+            write_filterbank(path, Filterbank(header=hdr, data=data))
+            conn.execute(
+                "INSERT INTO observations (job_id, input, source_name, tstart, tsamp, nchans,"
+                " nsamps, ingested_unix, beam, src_raj, src_dej) VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+                (f"job{i}", path, f"OBS{i}", 55000.0 + i * 0.01, tsamp, nchans, nsamps, 0.0,
+                 i + 1, 0.0, 0.0),
+            )
+        for job, dm, snr, period, nh in (("job0", 26.76, 12.0, SIFT_P0, 2),
+                                         ("job1", 26.80, 9.0, SIFT_P0 / 2, 1),
+                                         ("job1", 80.0, 8.0, 0.1234, 1)):
+            conn.execute("INSERT INTO candidates (job_id, kind, dm, snr, period, acc, nh) "
+                         "VALUES (?, 'periodicity', ?, ?, ?, 0.0, ?)",
+                         (job, dm, snr, period, nh))
+        if with_rfi:
+            for i in range(6):
+                conn.execute("INSERT INTO candidates (job_id, kind, dm, snr, period, acc, nh) "
+                             "VALUES (?, 'periodicity', 5.0, 9.5, 0.02, 0.0, 1)", (f"job{i}",))
+        for i, ks in enumerate([(1, 3, 7), (2, 5, 11)]):
+            for k in ks:
+                t = 0.05 + k * prrat
+                conn.execute("INSERT INTO candidates (job_id, kind, dm, snr, time_s, sample, "
+                             "width, members) VALUES (?, 'single_pulse', ?, 8.0, ?, ?, 4, 3)",
+                             (f"job{i}", 40.0 + 0.1 * i, t, int(t / tsamp)))
+        conn.commit()
+    return camp
+
+
+def sift_pulsar_campaign(root: str) -> str:
+    """Two 16,384-sample, 16-channel 8-bit observations holding a P = 50 ms
+    pulsar at DM 20 (the second listed at its 1/2 harmonic), with the
+    candidates a search would list: the pulsar, a detection at zero DM,
+    one at the wrong period and one unrelated. Returns the campaign
+    directory."""
+    from peasoup_tpu_torch.campaign.db import CandidateDB
+
+    camp = os.path.join(root, "pcamp")
+    os.makedirs(camp)
+    nsamps, nchans, tsamp, fch1, foff = 1 << 14, 16, 0.000256, 1400.0, -16.0
+    delays = np.rint(SIFT_PSR_DM * np.abs(delay_table(fch1, foff, nchans, tsamp))).astype(int)
+    rng = np.random.default_rng(11)
+    with CandidateDB(os.path.join(camp, "candidates.sqlite")) as db:
+        conn = db._conn
+        for i in range(2):
+            data = rng.normal(32.0, 4.0, size=(nsamps, nchans))
+            t = np.arange(nsamps)[:, None] - delays[None, :]
+            data += 12.0 * (((t * tsamp / SIFT_PSR_P) % 1.0) < 0.06)
+            data = np.clip(np.rint(data), 0, 255).astype(np.uint8)
+            hdr = SigprocHeader(source_name=f"PSR{i}", tsamp=tsamp, tstart=55000.0 + i,
+                                fch1=fch1, foff=foff, nchans=nchans, nbits=8, nifs=1,
+                                data_type=1, ibeam=i + 1)
+            path = os.path.join(camp, f"p{i}.fil")
+            write_filterbank(path, Filterbank(header=hdr, data=data))
+            conn.execute(
+                "INSERT INTO observations (job_id, input, source_name, tstart, tsamp, nchans,"
+                " nsamps, ingested_unix, beam, src_raj, src_dej) VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+                (f"pjob{i}", path, f"PSR{i}", 55000.0 + i, tsamp, nchans, nsamps, 0.0,
+                 i + 1, 0.0, 0.0),
+            )
+        for job, dm, snr, period, acc in (
+            ("pjob0", SIFT_PSR_DM, 15.0, SIFT_PSR_P, 0.0), ("pjob0", 0.0, 8.0, SIFT_PSR_P, 0.0),
+            ("pjob0", SIFT_PSR_DM, 7.0, 0.0377, 1.5),
+            ("pjob1", SIFT_PSR_DM + 0.3, 14.0, SIFT_PSR_P / 2, 0.0),
+            ("pjob1", 35.0, 6.5, 0.2, -2.0),
+        ):
+            conn.execute("INSERT INTO candidates (job_id, kind, dm, snr, period, acc, nh) "
+                         "VALUES (?, 'periodicity', ?, ?, ?, ?, 1)", (job, dm, snr, period, acc))
+        conn.commit()
+    return camp
+
+
+def sift_catalogue(camp: str) -> list[dict]:
+    """The sifted catalogue of a campaign, fold stamps parsed."""
+    from peasoup_tpu_torch.campaign.db import CandidateDB
+
+    with CandidateDB(os.path.join(camp, "candidates.sqlite")) as db:
+        rows = db.sift_catalogue()
+    for r in rows:
+        r["fold"] = json.loads(r.pop("fold_json") or "null")
+    return rows
+
+
+def run_cli(main, argv: list) -> tuple[int, str]:
+    """``main(argv)`` with its standard output captured (and echoed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        say("  | " + line)
+    return rc, out
+
+
+def sift_campaign_phase(tmp: str, dev: torch.device) -> dict:
+    """Phase 23: a campaign of this run's own outputs on the card. The big
+    grid's and the tutorial grid's three routes' output directories are
+    ingested (four observations) into a fresh database with the port's
+    CandidateDB; `cli.sift run` sifts it with the default SiftConfig (fold
+    batch 64, 64 bins x 16 subints, up to 256 folded per observation,
+    scoring on), re-dedispersing each observation with the dedisperse
+    kernel; then `cli.sift report` and `cli.rank score`. Returns the
+    dedisperse kernel's check at the sift's big-grid launch shape."""
+    from peasoup_tpu_torch.campaign.db import CandidateDB
+    from peasoup_tpu_torch.cli.rank import main as rank_main
+    from peasoup_tpu_torch.cli.sift import main as sift_main
+    from peasoup_tpu_torch.rank.model import SCORE_TIER1, SCORE_TIER2, RankModel
+    from peasoup_tpu_torch.sift.service import SiftConfig
+
+    camp = os.path.join(tmp, "campaign")
+    big, tut = os.path.join(tmp, "big.fil"), os.path.join(tmp, "tut.fil")
+    jobs = [("big", os.path.join(tmp, "big_grid"), big)] + [
+        (f"tut{i}", os.path.join(tmp, label.split(", ")[-1].replace(" ", "_")), tut)
+        for i, (label, *_) in enumerate(TUT_RUNS)
+    ]
+    with CandidateDB(os.path.join(camp, "candidates.sqlite")) as db:
+        for job, outdir, path in jobs:
+            say(f"ingested {job} ({outdir}): {db.ingest_job(job, outdir, path)}")
+    cfg = SiftConfig()
+    say(f"sift config: fold batch {cfg.fold_batch}, {cfg.fold_nbins} bins x "
+        f"{cfg.fold_nints} subints, up to {cfg.max_fold_per_obs} folded an observation, "
+        f"scoring {cfg.score}")
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc, out = run_cli(sift_main, ["run", "-w", camp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    shapes = {str(s): n for s, n in kernels.launch_shapes["dedisperse"].items()}
+    require(rc == 0, "cli.sift run exit code 0")
+    say(f"sift run: {wall:.3f} s wall; kernel launches {json.dumps(launches)}")
+    say(f"sift dedisperse launch shapes (T, C, DM trials, out samples): {json.dumps(shapes)}")
+    require(launches["dedisperse"] > 0, "the sift re-dedispersed with the dedisperse kernel")
+    timers = json.loads(re.search(r"peasoup-sift timers \(s\): (.*)", out).group(1))
+    buckets = json.loads(re.search(r"peasoup-sift fold buckets: (.*)", out).group(1))
+    say(f"sift stage timers (s): {json.dumps(timers, sort_keys=True)}")
+    for name, bs in buckets.items():
+        say(f"sift fold buckets ({name}): " + ", ".join(
+            f"2^{int(b['size']).bit_length() - 1} samples: {b['candidates']} candidates "
+            f"at batch {b['batch']}" for b in bs))
+    require(any(b["size"] == 1 << 21 for b in buckets["survey"]),
+            "the survey fold folded a 2^21-sample bucket")
+
+    cat = sift_catalogue(camp)
+    fp = RankModel.from_file().fingerprint
+    for r in cat[:8]:
+        say("  catalogue " + ", ".join(f"{k} {r[k]}" for k in (
+            "label", "tier", "period", "dm", "snr", "folded_snr", "n_obs", "members",
+            "known_source", "score", "score_tier")))
+    # the tutorial pulsar's strongest row: its detections in the three
+    # routes merged into one row
+    tut_rows = sorted((r for r in cat if abs(r["period"] - TUT_PERIOD) / TUT_PERIOD
+                       < SIFT_TUT_PERIOD_TOL), key=lambda r: -r["snr"])
+    require(len(tut_rows) >= 1 and tut_rows[0]["n_obs"] == 3
+            and (tut_rows[0]["folded_snr"] or 0) >= SIFT_MIN_FOLDED_SNR,
+            f"the tutorial pulsar is one catalogue row over 3 observations, folded S/N "
+            f">= {SIFT_MIN_FOLDED_SNR}")
+    say(f"catalogue rows within {SIFT_TUT_PERIOD_TOL} of the tutorial pulsar's period: "
+        f"{len(tut_rows)}, n_obs {[r['n_obs'] for r in tut_rows]}")
+    big_rows = [r for r in cat if abs(r["period"] - PERIOD) / PERIOD < SIFT_BIG_PERIOD_TOL
+                and (r["folded_snr"] or 0) >= SIFT_MIN_FOLDED_SNR]
+    require(len(big_rows) >= 1, f"the big grid's pulsar has a catalogue row folded to S/N "
+            f">= {SIFT_MIN_FOLDED_SNR}")
+    scored = [r for r in cat if r["score"] is not None]
+    require(len(scored) > 0 and all(r["score_tier"] in (1, 2, 3) and r["model_fp"] == fp
+                                    for r in scored),
+            "every scored row has a tier and the shipped model's fingerprint")
+    say(f"sift catalogue: {len(cat)} rows, {len(scored)} scored; tutorial pulsar folded S/N "
+        f"{tut_rows[0]['folded_snr']!r}, score {tut_rows[0]['score']!r}; big grid pulsar "
+        f"folded S/N {big_rows[0]['folded_snr']!r}, score {big_rows[0]['score']!r}")
+
+    rc, _ = run_cli(sift_main, ["report", "-w", camp])
+    require(rc == 0 and os.path.getsize(os.path.join(camp, "sift", "report.html")) > 1000,
+            "cli.sift report wrote the report")
+    # rank score recomputes from the fold stamps as stored (3 decimals):
+    # the sift's scores to SIFT_SCORE_ATOL, and its tiers where a score is
+    # that far clear of a tier's threshold
+    rc, _ = run_cli(rank_main, ["score", "-w", camp])
+    require(rc == 0, "cli.rank score exit code 0")
+    after = {r["id"]: r for r in sift_catalogue(camp)}
+    worst = 0.0
+    for r in scored:
+        a = after[r["id"]]
+        near = min(abs(r["score"] - t) for t in (SCORE_TIER1, SCORE_TIER2)) <= SIFT_SCORE_ATOL
+        require(a["model_fp"] == fp and abs(a["score"] - r["score"]) <= SIFT_SCORE_ATOL
+                and (near or a["score_tier"] == r["score_tier"]),
+                f"rank score rewrote the sift's score: {r['score']} (tier {r['score_tier']})"
+                f" -> {a['score']} (tier {a['score_tier']})")
+        worst = max(worst, abs(a["score"] - r["score"]))
+    say(f"rank score: {len(scored)} rows re-scored from the stored stamps, the sift's "
+        f"scores to {worst!r} (bound {SIFT_SCORE_ATOL})")
+
+    # the dedisperse kernel at the sift's big-grid launch: the distinct DMs
+    # of the big grid's top candidates, with the sift's own delays
+    with CandidateDB(os.path.join(camp, "candidates.sqlite")) as db:
+        rows = [c for c in db.all_candidates("periodicity") if c["job_id"] == "big"]
+    rows = sorted(rows, key=lambda c: -float(c["snr"] or 0.0))[: cfg.max_fold_per_obs]
+    fil = read_filterbank(big)
+    hdr = fil.header
+    dms = sorted({float(c["dm"]) for c in rows})
+    per_unit = np.abs(delay_table(hdr.fch1, hdr.foff, hdr.nchans, hdr.tsamp))
+    delays = np.rint((np.asarray(dms, dtype=np.float32)[:, None] * per_unit[None, :])
+                     .astype(np.float32)).astype(np.int32)
+    out_n = fil.nsamps - int(delays.max())
+    x = fil_to_device(fil, dev)
+    _, c = dedisperse_check(x, hdr.nbits, delays, np.ones(hdr.nchans, dtype=np.float32), out_n)
+    require(str((x.shape[0], hdr.nchans, len(dms), out_n)) in shapes,
+            "the checked shape is one the sift launched")
+    del x, fil
+    say(f"dedisperse (sift, big grid): {c['shape']}: {c['ms']:.4f} ms kernel, "
+        f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms ({c['bound'][1]}), "
+        f"max |err| {c['max_abs_err']}")
+    return dict(c, path="sift, big grid")
+
+
+def _same_sift(gpu: list, cpu: list, what: str) -> None:
+    """The card's sifted catalogue against the CPU's: labels, tiers, known
+    sources, harmonics, n_obs, members, job ids and score tiers exactly,
+    folded S/N and period to SIFT_SNR_RTOL, scores to SIFT_SCORE_ATOL."""
+    require(len(gpu) == len(cpu), f"{what}: the same catalogue length")
+    for g, c in zip(gpu, cpu):
+        exact = ("kind", "label", "tier", "dm", "snr", "known_source", "harmonic", "n_obs",
+                 "members", "job_ids", "score_tier", "model_fp")
+        require({k: g[k] for k in exact} == {k: c[k] for k in exact},
+                f"{what}: catalogue row agrees exactly: cuda {g} vs cpu {c}")
+        for k in ("folded_snr", "period", "opt_period"):
+            require((g[k] is None) == (c[k] is None) and (
+                c[k] is None or abs(g[k] - c[k]) <= SIFT_SNR_RTOL * abs(c[k]) + 1e-6),
+                f"{what}: {k} {g[k]} vs {c[k]}")
+        require((g["score"] is None) == (c["score"] is None) and (
+            c["score"] is None or abs(g["score"] - c["score"]) <= SIFT_SCORE_ATOL),
+            f"{what}: score {g['score']} vs {c['score']}")
+
+
+def sift_agreement_phase(tmp: str) -> dict:
+    """Phase 24: the sift on the card against the CPU at a small size, on
+    tests/test_sift.py:seed_campaign's recipe (and its six-beam RFI
+    variant, vetoed with the fold off) and on a pulsar campaign; the
+    survey folder bitwise the per-observation folder on the card; and
+    `rank train` on the card against the CPU from one seed, each model
+    passing the ROC gate (`rank eval`)."""
+    import shutil
+
+    from peasoup_tpu_torch.campaign.db import CandidateDB
+    from peasoup_tpu_torch.cli.rank import main as rank_main
+    from peasoup_tpu_torch.core.candidates import Candidate
+    from peasoup_tpu_torch.pipeline.folder import MultiFolder
+    from peasoup_tpu_torch.sift.fold import SurveyFolder
+    from peasoup_tpu_torch.sift.service import SiftConfig, SiftRun
+
+    out = {}
+    for label, make, kw in (
+        ("seed", lambda d: sift_seed_campaign(d), dict(fold_batch=8, sp_min_pulses=4)),
+        ("seed, RFI, no fold", lambda d: sift_seed_campaign(d, with_rfi=True),
+         dict(fold=False, sp_min_pulses=4)),
+        ("seed, RFI", lambda d: sift_seed_campaign(d, with_rfi=True),
+         dict(fold_batch=8, sp_min_pulses=4)),
+        ("pulsar", sift_pulsar_campaign, dict(fold_batch=4)),
+    ):
+        root = os.path.join(tmp, "sift_small_" + label.replace(", ", "_").replace(" ", "_"))
+        camp = make(root)
+        shutil.copytree(camp, camp + "_cpu")
+        res = {}
+        for device, d in (("cuda", camp), ("cpu", camp + "_cpu")):
+            summary = SiftRun(SiftConfig(workdir=d, **kw), device=device).run()
+            with CandidateDB(os.path.join(d, "candidates.sqlite")) as db:
+                res[device] = (sift_catalogue(d), [
+                    {k: m[k] for k in m if k not in ("id", "run_id")}
+                    for m in db.sift_known_matches()
+                ], [{k: s[k] for k in s if k not in ("id", "run_id")}
+                    for s in db.sift_sp_sources()], summary)
+        (gcat, gknown, gsp, gsum), (ccat, cknown, csp, csum) = res["cuda"], res["cpu"]
+        _same_sift(gcat, ccat, label)
+        require(gknown == cknown and gsp == csp, f"{label}: the same known matches and "
+                "repeat sources")
+        for k in ("n_folded", "n_catalogue", "n_known", "n_rfi", "n_sp_sources"):
+            require(gsum[k] == csum[k], f"{label}: {k} {gsum[k]} vs {csum[k]}")
+        say(f"sift {label}: {gsum['n_catalogue']} catalogue rows ({gsum['n_known']} known, "
+            f"{gsum['n_rfi']} rfi), {gsum['n_sp_sources']} repeat sources, "
+            f"{gsum['n_folded']} folded: the card's are the CPU's")
+        out[label] = gsum
+    require(out["seed"]["n_known"] == 1 and out["seed"]["n_sp_sources"] == 1
+            and out["seed, RFI, no fold"]["n_rfi"] == 1,
+            "the known pulsar, the repeating source and the RFI comb are found")
+
+    # the survey folder bitwise the per-observation folder on the card
+    camp = os.path.join(tmp, "sift_small_pulsar", "pcamp")
+    run = SiftRun(SiftConfig(workdir=camp), device="cuda")
+    with CandidateDB(os.path.join(camp, "candidates.sqlite")) as db:
+        inputs = run.build_fold_inputs(db.observations(), db.all_candidates("periodicity"))
+    for fi in inputs:  # MultiFolder takes 1/freq: compare on that period
+        for c in fi.cands:
+            c.period = 1.0 / (1.0 / c.period)
+    n = 0
+    for batch in (4, 64):
+        got = {o["key"]: o for o in SurveyFolder(batch=batch).fold_outcomes(inputs)}
+        for fi in inputs:
+            cands = [Candidate(dm_idx=c.dm_row, acc=c.acc, snr=9.0, freq=1.0 / c.period)
+                     for c in fi.cands]
+            for w in MultiFolder(fi.trials, fi.tsamp).fold_outcomes(cands, len(cands)):
+                g = got[fi.cands[w["cand_idx"]].key]
+                require(g["opt_sn"] == w["opt_sn"] and g["opt_period"] == w["opt_period"]
+                        and np.array_equal(g["opt_fold"], w["opt_fold"]),
+                        f"the survey folder (batch {batch}) is MultiFolder bit for bit")
+                n += 1
+    say(f"survey folder against MultiFolder on the card: {n} outcomes bit for bit")
+
+    # rank train on the card and on the CPU from one seed; the ROC gate on each
+    docs = {}
+    for device in ("cuda", "cpu"):
+        path = os.path.join(tmp, f"rank_model_{device}.json")
+        rc, _ = run_cli(rank_main, ["train", "-o", path, "--seed", "42", "--device", device])
+        require(rc == 0, f"rank train on {device}")
+        rc, _ = run_cli(rank_main, ["eval", "--model", path, "--device", device])
+        require(rc == 0, f"the {device} model passes the ROC gate")
+        with open(path) as f:
+            docs[device] = json.load(f)
+    dw = max(float(np.abs(np.asarray(docs["cuda"][k]) - np.asarray(docs["cpu"][k])).max())
+             for k in ("w1", "b1", "w2", "b2"))
+    require(dw <= RANK_WEIGHT_ATOL, f"trained weights agree within {RANK_WEIGHT_ATOL}: {dw}")
+    say(f"rank train: card and CPU weights agree to {dw!r} (bound {RANK_WEIGHT_ATOL})")
+    return out
+
+
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
     busy share of the run's wall time."""
@@ -2369,6 +2755,17 @@ def main() -> int:
             fn()
             torch.cuda.empty_cache()
             say(f"phase {label}: {time.perf_counter() - t0:.1f} s wall")
+
+        # the survey sift over this run's own outputs, then card against cpu
+        t0 = time.perf_counter()
+        checks["dedisperse"].setdefault("other_shapes", []).append(
+            other_shape(sift_campaign_phase(tmp, dev)))
+        torch.cuda.empty_cache()
+        say(f"phase sift campaign: {time.perf_counter() - t0:.1f} s wall")
+        t0 = time.perf_counter()
+        sift_agreement_phase(tmp)
+        torch.cuda.empty_cache()
+        say(f"phase sift and rank, card against cpu: {time.perf_counter() - t0:.1f} s wall")
 
     # each kernel with the launches of the run whose launch shape it was
     # checked and timed at

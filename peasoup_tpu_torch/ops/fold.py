@@ -7,8 +7,12 @@ frac(jj*tsamp/period)*nbins in f64, and a count array initialised to 1
 
 As in the JAX package, the phase->bin map is computed exactly in host
 f64 (:func:`fold_bins_np`) and the fold itself is a segment sum on the
-device, batched over candidates. On the card the sums use atomics, so
-their order, and the last bits of a profile, vary from run to run.
+device, batched over candidates. On the CPU ``index_add_`` adds each
+segment's samples in order. On the card the sums go through
+``index_put_(accumulate=True)``, which sorts the indices and reduces each
+segment in a fixed order, not through atomics: a row's fold is the same
+from run to run and in any batch, so the survey folder and the
+per-observation folder give one candidate the same bits there too.
 """
 
 from __future__ import annotations
@@ -50,7 +54,11 @@ def fold_time_series(
     seg = seg.reshape(-1)
     vals = x.to(torch.float32).reshape(-1)
     sums = torch.zeros(k * nseg, dtype=torch.float32, device=x.device)
-    sums.index_add_(0, seg, vals)
+    if x.device.type == "cpu":
+        sums.index_add_(0, seg, vals)
+    else:
+        sums.index_put_((seg,), vals, accumulate=True)
     counts = torch.zeros(k * nseg, dtype=torch.float32, device=x.device)
+    # whole numbers below 2^24: exact in any order
     counts.index_add_(0, seg, torch.ones_like(vals))
     return (sums / (counts + 1.0)).reshape(k, nints, nbins)

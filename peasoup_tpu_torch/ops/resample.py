@@ -126,11 +126,18 @@ def resample_accel_quadratic(x: torch.Tensor, afs: torch.Tensor) -> torch.Tensor
     """The folder's variant, one row per factor: (N,) series and (K,)
     factors -> (K, N), out[k, i] = x[clip(i + rint(afs[k]*((i-N/2)^2 -
     (N/2)^2)))] (kernels.cu:308-332), in the JAX package's f32 steps."""
+    return resample_accel_quadratic_rows(x.expand(afs.shape[0], -1), afs)
+
+
+def resample_accel_quadratic_rows(x: torch.Tensor, afs: torch.Tensor) -> torch.Tensor:
+    """:func:`resample_accel_quadratic` with a series of its own for each
+    factor (the survey folder's rows come from different observations and
+    DM trials): (B, N) series and (B,) factors -> (B, N)."""
     n = x.shape[-1]
     half = torch.tensor(float(n), dtype=torch.float32, device=x.device) / 2.0
     idx = torch.arange(n, dtype=torch.float32, device=x.device)
     off = idx - half
     quad = off * off - half * half
-    shift = torch.round(afs[:, None] * quad).to(torch.int64)  # (K, N)
+    shift = torch.round(afs[:, None] * quad).to(torch.int64)  # (B, N)
     src = torch.clamp(torch.arange(n, device=x.device) + shift, 0, n - 1)
-    return x[src]
+    return torch.gather(x, 1, src)

@@ -1,0 +1,3 @@
+"""The retry policy the candidate database runs its transactions under
+(:mod:`.policy`); the rest of the JAX package's resilience layer is ROADMAP
+item A.10."""

@@ -48,7 +48,11 @@ def test_importing_every_module_loads_no_jax():
                  "pipeline.single_pulse", "cli.spsearch", "fdas.templates", "ops.fdas",
                  "pipeline.fdas", "cli.fdas", "io.dada", "io.stream_source",
                  "ops.streaming", "stream.driver", "stream.queue", "stream.triggers",
-                 "cli.stream"):
+                 "cli.stream", "resilience.policy", "tools.parsers", "campaign.db",
+                 "sift.crossmatch", "sift.dedup", "sift.repeats", "ops.survey_fold",
+                 "sift.fold", "sift.service", "sift.report", "obs.schema",
+                 "ops.candidate_features", "rank.model", "rank.score", "rank.train",
+                 "cli.sift", "cli.rank"):
         assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -87,7 +91,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("cli", ["ffa", "coincidencer", "accmap", "fdas", "stream"])
+@pytest.mark.parametrize("cli", ["ffa", "coincidencer", "accmap", "fdas", "stream",
+                                 "sift", "rank"])
 def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
     # the FFA, coincidencer, accmap, FDAS and streaming entry points run on
     # the card unless asked for the CPU: without one they raise before
@@ -106,9 +111,61 @@ def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
     main = importlib.import_module(f"peasoup_tpu_torch.cli.{cli}").main
     missing = str(tmp_path / "missing.fil")
     argv = {"ffa": ["-i", missing], "coincidencer": [missing], "accmap": [missing],
-            "fdas": ["-i", missing], "stream": ["--replay", missing]}[cli]
+            "fdas": ["-i", missing], "stream": ["--replay", missing],
+            "sift": ["run", "-w", str(tmp_path)], "rank": ["score", "-w", str(tmp_path)]}[cli]
     with pytest.raises(RuntimeError, match="is_available"):
         main(argv)
+
+
+def _code_strings(path: Path) -> list[str]:
+    """The string constants of a source file, docstrings left out."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_no_data_path_into_the_jax_package():
+    # the import check alone would let a data file (the known-pulsar
+    # catalogue, the rank model, a schema) be read from the JAX package's
+    # folder: no string of the port's code names a path there, and loading
+    # every data file the port ships opens nothing under it
+    for path in sorted(PORT.rglob("*.py")):
+        for text in _code_strings(path):
+            parts = {p for p in text.replace("\\", "/").split("/")}
+            assert "peasoup_tpu" not in parts, (path, text)
+    code = (
+        "import sys\n"
+        "opened = []\n"
+        "sys.addaudithook(lambda e, a: opened.append(str(a[0])) if e == 'open' else None)\n"
+        "from peasoup_tpu_torch.sift.crossmatch import load_catalogue\n"
+        "from peasoup_tpu_torch.rank.model import RankModel\n"
+        "from peasoup_tpu_torch.sift import report\n"
+        "from peasoup_tpu_torch.obs.schema import SchemaError\n"
+        "load_catalogue(); RankModel.from_file()\n"
+        "try:\n"
+        "    report.validate_report({})\n"
+        "except SchemaError:\n"
+        "    pass\n"
+        "print('\\n'.join(opened))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT)}, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    opened = [Path(p).resolve() for p in out.stdout.split() if p.endswith(".json")]
+    assert {p.name for p in opened} >= {"known_pulsars.json", "model.json",
+                                        "model.schema.json", "report.schema.json"}
+    for p in opened:
+        assert PORT.resolve() in p.parents, p
 
 
 def test_chip_smoke_fails_without_a_card():
