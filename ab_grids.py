@@ -1,4 +1,4 @@
-"""Time the port's two survey-sized searches in several checkouts on one card.
+"""Time the port's three survey-sized searches in several checkouts on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -6,12 +6,13 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Each DIR is the root of a checkout of the repository (this one is ".").
 The script synthesizes chip_smoke.py's big grid (64 channels x 2^21+8192
-2-bit samples at 64 us, a P = 31.4 ms pulsar at DM 10) and single-pulse
-grid (the same geometry with three dispersed pulses) once, builds every
+2-bit samples at 64 us, a P = 31.4 ms pulsar at DM 10), binary grid (the
+same geometry, a P = 5.03 ms pulsar at +100 m/s^2) and single-pulse grid
+(the same geometry with three dispersed pulses) once, builds every
 checkout's kernels (one process per checkout, all at once), and then runs
-`peasoup` on the big grid and `spsearch` on the single-pulse grid with
-chip_smoke.py's flags in a fresh process from each checkout, in the order
-given and then reversed (A B B A; ``--rounds`` times), so that a drift of
+`peasoup` on the big and binary grids and `spsearch` on the single-pulse
+grid with chip_smoke.py's flags in a fresh process from each checkout, in
+the order given and then reversed (A B B A; ``--rounds`` times), so that a drift of
 the card's clocks falls on every checkout alike. In the same order it
 times, in a process per checkout, the per-trial statistics of the two
 searches on the card at the grids' shapes: ``spectrum_stats`` over the
@@ -46,6 +47,7 @@ import chip_smoke
 
 GRIDS = (
     ("big grid", "peasoup", chip_smoke.GRID_FLAGS, chip_smoke.big_grid_fil),
+    ("binary grid", "peasoup", chip_smoke.BINARY_FLAGS, chip_smoke.binary_grid_fil),
     ("single-pulse grid", "spsearch", chip_smoke.SP_FLAGS, chip_smoke.sp_grid_fil),
 )
 WARM = (
@@ -214,7 +216,7 @@ def main() -> int:
             runs[tree]["stream"].append(stream)
             print(json.dumps({"tree": tree, "stream": stream}), flush=True)
             for label, cli, flags, _ in GRIDS:
-                outdir = os.path.join(tmp, f"out{i}_{cli}")
+                outdir = os.path.join(tmp, f"out{i}_{label.replace(' ', '_')}")
                 timers = run_cli(tree, cli, fils[label], outdir, flags)
                 runs[tree][label].append(timers)
                 print(json.dumps({"tree": tree, "grid": label, "timers": timers}),

@@ -144,6 +144,30 @@ Phases, each fatal on failure:
      the per-observation folder on the card at batch 4 and 64; `rank
      train` on the card and the CPU from one seed (weights within 1e-5),
      each model through `rank eval`'s ROC gate.
+ 25. The in-process split on the card: PeasoupSearch with
+     devices=[cuda:0, cuda:0] on the big grid and on the binary grid
+     (--npdmp 10), SinglePulseSearch likewise on the single-pulse grid
+     (the grids' files made again): dedisperse launches once a shard (39
+     of the 77 trials a shard; 90 of the 179), every kernel of the path
+     runs, and the candidates are phases 3, 4 and 6's, bitwise or at the
+     recall standard (printed); the three pulses at phase 6's standard.
+ 26. Two processes on the card: `peasoup` on the binary grid (--npdmp 10),
+     `spsearch` on the single-pulse grid and `peasoup-fdas` on the FDAS
+     grid, each launched twice as `chip_smoke.py --worker cli ...` with
+     JAX_COORDINATOR_ADDRESS=127.0.0.1:<free port>, JAX_NUM_PROCESSES=2
+     and JAX_PROCESS_ID=0/1, and --hbm_bytes at half the card's free
+     memory (FDAS: --dm_block 4). Each process dedisperses its DM slice in
+     one launch (its shape printed: 39 and 38 trials; 90 and 89); only
+     rank 0 writes; the candidates are phase 4's and 6's (bitwise or at
+     the recall standard, printed) and phase 19's top candidate; each
+     pulse clusters once, across the slice boundary where it spans it.
+ 27. Phase 23's survey fold in two processes sharing the card
+     (`chip_smoke.py --worker fold ...`, run_survey_fold): each process's
+     merged outcomes are bitwise the single process's.
+  Every worker process must exit 0 within WORKER_TIMEOUT_S. The dedisperse
+  kernel is also held bit for bit at the shapes phases 25-26 add, on the
+  big grid (39, 38 and one padding row, 38 trials) and the single-pulse
+  grid (90, 89 and one padding row, 89 trials) (``other_shapes``).
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -209,6 +233,7 @@ from peasoup_tpu_torch.pipeline.single_pulse import (  # noqa: E402
 from peasoup_tpu_torch.plan.accel_plan import AccelerationPlan  # noqa: E402
 from peasoup_tpu_torch.plan.dm_plan import DMPlan, delay_table  # noqa: E402
 from peasoup_tpu_torch.fdas.templates import SPEED_OF_LIGHT  # noqa: E402
+from peasoup_tpu_torch.parallel.multihost import dm_slice_for_process  # noqa: E402
 
 # the H100 SXM's published peaks (NVIDIA data sheet, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1195,8 +1220,19 @@ def sp_grid_phase(path: str, outdir: str, profile: bool = False) -> dict:
                     ("candidates.singlepulse", "overview.xml"), SP_KERNELS, profile)
     cands = run["root"].findall("single_pulse_search/candidates/candidate")
     require(len(cands) >= 3, "at least three single-pulse candidates")
-    fields = ("dm", "dm_idx", "snr", "sample", "width", "width_idx", "members")
-    top = [{k: float(e.find(k).text) for k in fields} for e in cands[:3]]
+    check_sp_pulses([{k: float(e.find(k).text) for k in SP_FIELDS} for e in cands[:3]],
+                    pulses)
+    return dict(run, pulses=pulses)
+
+
+SP_FIELDS = ("dm", "dm_idx", "snr", "sample", "width", "width_idx", "members")
+
+
+def check_sp_pulses(top: list[dict], pulses: list[dict]) -> None:
+    """Phase 6's standard: the top three candidates are the injected
+    pulses, each at its DM trial, within 2 + w/8 samples of its start,
+    within one width step and with S/N within 15% of the matched filter."""
+    fields = SP_FIELDS
     for c in top:
         say("  sp candidate " + ", ".join(f"{k} {c[k]:g}" for k in fields))
     unmatched = list(pulses)
@@ -1214,7 +1250,6 @@ def sp_grid_phase(path: str, outdir: str, profile: bool = False) -> dict:
                 f"pulse {p['label']} width within one step")
         require(abs(c["snr"] / p["snr"] - 1.0) <= 0.15,
                 f"pulse {p['label']} S/N within 15% of the matched filter")
-    return dict(run, pulses=pulses)
 
 
 def max_abs_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -2543,6 +2578,406 @@ def sift_agreement_phase(tmp: str) -> dict:
     return out
 
 
+# --- the split runs: DM trials over shards of one card and over processes
+# (phases 25-27) --------------------------------------------------------------
+
+# the shards of phase 25: two on the one card, the smallest mesh that splits
+NSHARDS = 2
+# each worker process of phases 26-27 may take this long, start included
+WORKER_TIMEOUT_S = 300.0
+# phase 26's FDAS processes: DM tiles of this height (the CLI's --dm_block),
+# so two processes' tiles fit the card together (phase 19 alone: 9)
+FDAS_SPLIT_DM_BLOCK = 4
+
+
+def write_periodicity(result, outdir: str) -> dict:
+    """A library run's candidates through the CLI's writers
+    (candidates.peasoup and overview.xml's candidates), for a comparison
+    with a CLI run's files."""
+    from peasoup_tpu_torch.io.output import CandidateFileWriter, OutputFileWriter
+
+    writer = CandidateFileWriter(outdir)
+    writer.write_binary(result.candidates, "candidates.peasoup")
+    stats = OutputFileWriter()
+    stats.add_candidates(result.candidates, writer.byte_mapping)
+    stats.to_file(os.path.join(outdir, "overview.xml"))
+    return dict(outdir=outdir, root=ET.parse(os.path.join(outdir, "overview.xml")).getroot())
+
+
+def compare_periodicity(got: dict, base_outdir: str, what: str) -> bool:
+    """``got``'s candidates against a CLI run's (its output directory):
+    True where they are the same field for field (overview.xml's fields
+    and candidates.peasoup's bytes); else they must hold the recall
+    standard (the same candidates rank by rank, period, DM, accel and nh
+    as written, S/N and folded S/N within 1e-3 relative). Prints which."""
+    base_root = ET.parse(os.path.join(base_outdir, "overview.xml")).getroot()
+    want, have = xml_candidates(base_root), xml_candidates(got["root"])
+    files = [open(os.path.join(d, "candidates.peasoup"), "rb").read()
+             for d in (base_outdir, got["outdir"])]
+    bitwise = want == have and files[0] == files[1]
+    if not bitwise:
+        require(len(have) == len(want) > 0, f"{what}: {len(have)} candidates, {len(want)} "
+                "in the single run")
+        for rank, (a, b) in enumerate(zip(want, have)):
+            require(all(a[k] == b[k] for k in ("period", "dm", "acc", "nh")),
+                    f"{what}: rank {rank} is the single run's candidate")
+            for k in ("snr", "folded_snr"):
+                ref = float(a[k])
+                require(abs(float(b[k]) - ref) <= 1e-3 * max(abs(ref), 1e-30),
+                        f"{what}: rank {rank} {k} {b[k]} within 1e-3 of {a[k]}")
+    say(f"{what}: {len(have)} candidates, "
+        + ("bitwise the single run's (overview.xml fields and candidates.peasoup bytes)"
+           if bitwise else "NOT bitwise the single run's; the recall standard holds"))
+    return bitwise
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def launch_processes(argvs: list[list[str]]) -> list[dict]:
+    """One ``chip_smoke.py --worker`` process per argv, joined into one
+    process group through the JAX package's variables (a free port on
+    localhost); each must exit 0 within WORKER_TIMEOUT_S. Returns each
+    process's "worker:" record."""
+    port = free_port()
+    procs = []
+    for rank, argv in enumerate(argvs):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES=str(len(argvs)), JAX_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", *argv], env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+        ))
+    deadline = time.monotonic() + WORKER_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        require(False, f"{len(argvs)} worker processes within {WORKER_TIMEOUT_S} s")
+    records = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            for line in out.splitlines()[-30:]:
+                say(f"  process {rank} | {line}")
+        require(p.returncode == 0, f"worker process {rank} exit code 0 (got {p.returncode})")
+        lines = [ln for ln in out.splitlines() if ln.startswith("worker: ")]
+        require(len(lines) == 1, f"worker process {rank} printed its record")
+        records.append(json.loads(lines[0][len("worker: "):]))
+    return records
+
+
+def worker(argv: list[str]) -> int:
+    """One process of phases 26-27 (``chip_smoke.py --worker ...``, started
+    by :func:`launch_processes`): ``cli NAME ARGS...`` runs the port's CLI
+    ``peasoup_tpu_torch.cli.NAME`` in this process; ``fold CAMPAIGN OUT``
+    the survey fold of phase 23's campaign through run_survey_fold,
+    pickling the merged outcomes to OUT. Prints one line, "worker: " and
+    the JSON of its rank, exit code, kernel launches and launch shapes."""
+    import importlib
+    import pickle
+
+    from peasoup_tpu_torch.parallel import multihost
+
+    kernels.reset_launches()
+    if argv[0] == "cli":
+        rc = importlib.import_module(f"peasoup_tpu_torch.cli.{argv[1]}").main(argv[2:])
+    elif argv[0] == "fold":
+        outcomes = multihost.run_survey_fold(*survey_fold_inputs(argv[1]))
+        with open(argv[2], "wb") as f:
+            pickle.dump(fold_rows(outcomes), f)
+        rc = 0
+    else:
+        raise SystemExit(f"unknown worker {argv[0]}")
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    say("worker: " + json.dumps(dict(
+        rank=multihost.process_index(), nproc=multihost.process_count(), rc=rc,
+        launches=dict(kernels.launches),
+        shapes={k: [[list(s), n] for s, n in v.items()]
+                for k, v in kernels.launch_shapes.items() if v},
+    )))
+    return rc
+
+
+def survey_fold_inputs(camp: str):
+    """Phase 23's survey fold: its fold inputs (every observation of the
+    campaign re-dedispersed on the card at its candidates' DMs, as
+    SiftRun.run builds them) and its folder (the default SiftConfig's)."""
+    from peasoup_tpu_torch.campaign.db import CandidateDB
+    from peasoup_tpu_torch.sift.fold import SurveyFolder
+    from peasoup_tpu_torch.sift.service import SiftConfig, SiftRun
+
+    cfg = SiftConfig(workdir=camp)
+    with CandidateDB(os.path.join(camp, "candidates.sqlite")) as db:
+        obs_rows, cands = db.observations(), db.all_candidates("periodicity")
+    inputs = SiftRun(cfg, device="cuda").build_fold_inputs(obs_rows, cands)
+    return inputs, SurveyFolder(nbins=cfg.fold_nbins, nints=cfg.fold_nints,
+                                batch=cfg.fold_batch)
+
+
+def fold_rows(outcomes: list[dict]) -> list[tuple]:
+    """Fold outcomes as sortable host rows: key, optimised S/N and period,
+    and the optimised fold's bytes."""
+    return sorted((o["key"], o["opt_sn"], o["opt_period"],
+                   np.asarray(o["opt_fold"]).tobytes()) for o in outcomes)
+
+
+def split_phase(tmp: str, dev: torch.device, paths: dict, runs: dict) -> dict:
+    """Phase 25: the in-process split on the card. PeasoupSearch with
+    devices=[cuda:0] * 2 on the big grid and the binary grid (--npdmp 10:
+    the folder reads each shard's trials), and SinglePulseSearch likewise
+    on the single-pulse grid: dedisperse launches once a shard, at the
+    shard's trials (39 of the 77, the second shard with one padding row),
+    every kernel of the path runs, and the candidates are the single
+    runs' (phases 3, 4 and 6): bitwise, or at the recall standard, which
+    is printed; the single-pulse search finds the three pulses at phase 6's
+    standard."""
+    from peasoup_tpu_torch.io.output import write_singlepulse
+
+    devices = [dev] * NSHARDS
+    out = {}
+    for label, cfg, path, base in (
+        ("big grid", GRID_CONFIG, paths["big"], os.path.join(tmp, "big_grid")),
+        ("binary grid", BINARY_CONFIG, paths["binary"], os.path.join(tmp, "binary_grid")),
+    ):
+        fil = read_filterbank(path)
+        search = PeasoupSearch(cfg, devices=devices)
+        kernels.reset_launches()
+        native.calls.clear()
+        t0 = time.perf_counter()
+        res = search.run(fil)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        shapes = {str(s): n for s, n in kernels.launch_shapes["dedisperse"].items()}
+        say(f"{label}, {NSHARDS} shards on one card: {wall:.3f} s wall; kernel launches "
+            f"{json.dumps(launches)}; dedisperse launch shapes {json.dumps(shapes)}; "
+            f"stage timers (s) {json.dumps(res.timers, sort_keys=True)}")
+        for name in PEASOUP_KERNELS:
+            require(launches[name] > 0, f"{label}, shards: kernel {name} launched")
+        ndm = len(res.dm_list)
+        per = -(-ndm // NSHARDS)
+        require(launches["dedisperse"] == NSHARDS and all(
+            s[2] == per for s in kernels.launch_shapes["dedisperse"]),
+            f"{label}, shards: dedisperse launched once a shard at {per} trials")
+        got = write_periodicity(res, os.path.join(tmp, f"shards_{label.replace(' ', '_')}"))
+        out[label] = dict(bitwise=compare_periodicity(got, base, f"{label}, {NSHARDS} shards"),
+                          launches=launches, shapes=shapes, wall=wall)
+        del fil, search, res
+        torch.cuda.empty_cache()
+
+    label = "single-pulse grid"
+    fil = read_filterbank(paths["sp"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = SinglePulseSearch(SP_CONFIG, devices=devices).run(fil)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    shapes = {str(s): n for s, n in kernels.launch_shapes["dedisperse"].items()}
+    say(f"{label}, {NSHARDS} shards on one card: {wall:.3f} s wall; kernel launches "
+        f"{json.dumps(launches)}; dedisperse launch shapes {json.dumps(shapes)}")
+    for name in SP_KERNELS:
+        require(launches[name] > 0, f"{label}, shards: kernel {name} launched")
+    require(launches["dedisperse"] == NSHARDS,
+            f"{label}, shards: dedisperse launched once a shard")
+    sp_file = os.path.join(tmp, "shards_single_pulse.txt")
+    write_singlepulse(sp_file, res.candidates)
+    with open(sp_file, "rb") as f, open(os.path.join(
+            tmp, "single_pulse_grid", "candidates.singlepulse"), "rb") as g:
+        bitwise = f.read() == g.read()
+    base = [{k: float(e.find(k).text) for k in SP_FIELDS} for e in runs[label]["root"]
+            .findall("single_pulse_search/candidates/candidate")]
+    have = [{k: float(getattr(c, k)) for k in SP_FIELDS} for c in res.candidates]
+    if not bitwise:
+        require(len(have) == len(base) and all(
+            all(a[k] == b[k] for k in SP_FIELDS if k != "snr")
+            and abs(b["snr"] - a["snr"]) <= 1e-3 * a["snr"] for a, b in zip(base, have)),
+            f"{label}, shards: the single run's candidates at the recall standard")
+    say(f"{label}, {NSHARDS} shards: {len(have)} candidates, " + (
+        "bitwise the single run's (candidates.singlepulse bytes)" if bitwise
+        else "NOT bitwise the single run's; the recall standard holds"))
+    check_sp_pulses(have[:3], runs[label]["pulses"])
+    out[label] = dict(bitwise=bitwise, launches=launches, shapes=shapes, wall=wall)
+    return out
+
+
+def process_phase(tmp: str, paths: dict, runs: dict) -> dict:
+    """Phase 26: two processes share the card. `peasoup` on the binary grid
+    (--npdmp 10), `spsearch` on the single-pulse grid and `peasoup-fdas` on
+    the FDAS grid, each launched twice with JAX_COORDINATOR_ADDRESS,
+    JAX_NUM_PROCESSES=2 and JAX_PROCESS_ID=0/1 and --hbm_bytes at half the
+    card's free memory (FDAS, which has no such flag, with DM tiles of
+    FDAS_SPLIT_DM_BLOCK). Each process dedisperses its DM slice in one
+    launch (39 and 38 of the 77 trials; 90 and 89 of the 179); only rank 0
+    writes; the candidates are phases 4's and 6's (bitwise, or at the
+    recall standard, printed) and phase 19's top candidate; the pulse at
+    the slice boundary clusters once."""
+    torch.cuda.empty_cache()
+    hbm = torch.cuda.mem_get_info()[0] // 2
+    out = {}
+    for label, cli, path, flags, base, files in (
+        ("binary grid", "peasoup", paths["binary"], BINARY_FLAGS,
+         os.path.join(tmp, "binary_grid"), ("candidates.peasoup", "overview.xml")),
+        ("single-pulse grid", "spsearch", paths["sp"], SP_FLAGS,
+         os.path.join(tmp, "single_pulse_grid"), ("candidates.singlepulse", "overview.xml")),
+        ("fdas grid", "fdas", paths["fdas"], FDAS_FLAGS, None,
+         ("candidates.peasoup", "candidates.fdas", "overview.xml")),
+    ):
+        outdir = os.path.join(tmp, f"procs_{cli}")
+        extra = (["--dm_block", str(FDAS_SPLIT_DM_BLOCK)] if cli == "fdas"
+                 else ["--hbm_bytes", str(hbm)])
+        t0 = time.perf_counter()
+        recs = launch_processes([
+            ["cli", cli, "-i", path, "-o", f"{outdir}.rank{r}", *flags, *extra]
+            for r in range(2)])
+        wall = time.perf_counter() - t0
+        for r, rec in enumerate(recs):
+            say(f"{label}, process {rec['rank']} of {rec['nproc']}: dedisperse launch shapes "
+                f"(T, C, DM trials, out samples; launches) "
+                f"{json.dumps(rec['shapes'].get('dedisperse'))}; "
+                f"kernel launches {json.dumps(rec['launches'])}")
+            require(rec["rank"] == r and rec["nproc"] == 2 and rec["rc"] == 0,
+                    f"{label}: process {r} of 2 ran")
+        ndm = len(ET.parse(os.path.join(f"{outdir}.rank0", "overview.xml")).getroot()
+                  .findall("dedispersion_trials/trial"))
+        for r, rec in enumerate(recs):
+            lo, hi = dm_slice_for_process(ndm, 2, r)
+            trials = [shape[2] for shape, _ in rec["shapes"]["dedisperse"]]
+            require(rec["launches"]["dedisperse"] == 1 and trials == [hi - lo],
+                    f"{label}: process {r} dedispersed its {hi - lo} trials in one launch")
+        for name in files:
+            require(os.path.getsize(os.path.join(f"{outdir}.rank0", name)) > 0,
+                    f"{label}: rank 0 wrote {name}")
+        require(not os.path.exists(f"{outdir}.rank1"), f"{label}: rank 1 wrote nothing")
+        rec = dict(wall=wall, shapes=[r["shapes"]["dedisperse"] for r in recs])
+        root = ET.parse(os.path.join(f"{outdir}.rank0", "overview.xml")).getroot()
+        if cli == "peasoup":
+            rec["bitwise"] = compare_periodicity(
+                dict(outdir=f"{outdir}.rank0", root=root), base, f"{label}, 2 processes")
+        elif cli == "spsearch":
+            with open(os.path.join(f"{outdir}.rank0", files[0]), "rb") as f, \
+                    open(os.path.join(base, files[0]), "rb") as g:
+                rec["bitwise"] = f.read() == g.read()
+            fields = (*SP_FIELDS, "dm_idx_lo", "dm_idx_hi")
+            have = [{k: float(e.find(k).text) for k in fields}
+                    for e in root.findall("single_pulse_search/candidates/candidate")]
+            want = [{k: float(e.find(k).text) for k in fields} for e in runs[label]["root"]
+                    .findall("single_pulse_search/candidates/candidate")]
+            if not rec["bitwise"]:
+                require(len(have) == len(want) and all(
+                    all(a[k] == b[k] for k in fields if k != "snr")
+                    and abs(b["snr"] - a["snr"]) <= 1e-3 * a["snr"]
+                    for a, b in zip(want, have)),
+                    f"{label}, 2 processes: the single run's candidates at the recall "
+                    "standard")
+            say(f"{label}, 2 processes: {len(have)} candidates, " + (
+                "bitwise the single run's (candidates.singlepulse bytes)" if rec["bitwise"]
+                else "NOT bitwise the single run's; the recall standard holds"))
+            check_sp_pulses([{k: c[k] for k in SP_FIELDS} for c in have[:3]],
+                            runs[label]["pulses"])
+            cut = dm_slice_for_process(ndm, 2, 1)[0]
+            for p in runs[label]["pulses"]:
+                near = [c for c in have if abs(c["sample"] - p["start"]) <= 2 + p["width"] / 8]
+                require(len(near) == 1, f"pulse {p['label']} clusters once")
+                c = near[0]
+                say(f"{label}, 2 processes: pulse {p['label']} one candidate over DM trials "
+                    f"{c['dm_idx_lo']:g}..{c['dm_idx_hi']:g}"
+                    + (f", across the slice boundary at trial {cut}"
+                       if c["dm_idx_lo"] < cut <= c["dm_idx_hi"] else ""))
+        else:
+            cands = root.findall("candidates/candidate")
+            require(len(cands) > 0, f"{label}, 2 processes: candidates")
+            top = {k: float(cands[0].find(k).text) for k in runs["fdas"]["top"]}
+            want = runs["fdas"]["top"]
+            same = top == want
+            require(all(top[k] == want[k] for k in ("period", "dm", "acc", "nh", "z", "w"))
+                    and abs(top["snr"] - want["snr"]) <= 1e-3 * want["snr"],
+                    f"{label}, 2 processes: phase 19's top candidate {want} (got {top})")
+            say(f"{label}, 2 processes: the top candidate is phase 19's, "
+                + ("bitwise" if same else "at the recall standard (NOT bitwise)"))
+            rec["bitwise_top"] = same
+        say(f"{label}, 2 processes: {wall:.3f} s wall for both, start included")
+        out[label] = rec
+    return out
+
+
+def survey_fold_phase(tmp: str) -> dict:
+    """Phase 27: phase 23's survey fold in two processes sharing the card
+    (run_survey_fold deals the observations round-robin): every process's
+    merged outcomes are the single process's, bitwise."""
+    import pickle
+
+    from peasoup_tpu_torch.parallel.multihost import run_survey_fold
+
+    camp = os.path.join(tmp, "campaign")
+    inputs, folder = survey_fold_inputs(camp)
+    want = fold_rows(run_survey_fold(inputs, folder))
+    del inputs
+    torch.cuda.empty_cache()
+    outs = [os.path.join(tmp, f"fold.rank{r}.pkl") for r in range(2)]
+    t0 = time.perf_counter()
+    recs = launch_processes([["fold", camp, outs[r]] for r in range(2)])
+    wall = time.perf_counter() - t0
+    got = []
+    for r, rec in enumerate(recs):
+        with open(outs[r], "rb") as f:
+            got.append(pickle.load(f))
+        say(f"survey fold, process {r} of 2: kernel launches {json.dumps(rec['launches'])}")
+    bitwise = got[0] == got[1] == want
+    say(f"survey fold, 2 processes: {len(want)} outcomes over "
+        f"{len({k for k, *_ in want})} candidates; "
+        + ("every process's merged outcomes are bitwise the single process's"
+           if bitwise else "NOT bitwise the single process's")
+        + f"; {wall:.3f} s wall for both, start included")
+    require(bitwise, "the two processes' merged fold outcomes are the single process's")
+    return dict(bitwise=bitwise, wall=wall, outcomes=len(want))
+
+
+def shard_shape_checks(dev: torch.device, paths: dict) -> list[dict]:
+    """The dedisperse kernel at the launch shapes phases 25-26 add, bit for
+    bit against its plain version, on the big grid's file and on the
+    single-pulse grid's, each with its own search's plan: the first shard
+    of 2 (also process 0 of 2), the second shard (its trials and one
+    padding row, a copy of the last) and process 1 of 2."""
+    out = []
+    for grid, search, path in (
+        ("big grid", PeasoupSearch(GRID_CONFIG, device=dev), paths["big"]),
+        ("single-pulse grid", SinglePulseSearch(SP_CONFIG, device=dev), paths["sp"]),
+    ):
+        fil = read_filterbank(path)
+        plan = search.build_dm_plan(fil)
+        delays, kill = plan.delay_samples(), plan.killmask
+        ndm = len(delays)
+        per = -(-ndm // NSHARDS)
+        padded = np.concatenate([delays, np.repeat(delays[-1:], per * NSHARDS - ndm, axis=0)])
+        x = fil_to_device(fil, dev)
+        for label, rows in (
+            (f"shard 0 of {NSHARDS} and process 0 of 2", delays[:per]),
+            (f"shard 1 of {NSHARDS} (one padding row)", padded[per:]),
+            ("process 1 of 2", delays[dm_slice_for_process(ndm, 2, 1)[0]:]),
+        ):
+            _, c = dedisperse_check(x, fil.nbits, rows, kill, plan.out_nsamps)
+            c["path"] = f"{grid}, {label}"
+            say(f"dedisperse ({c['path']}): {c['shape']}: {c['ms']:.4f} ms kernel, "
+                f"{c['plain_ms']:.4f} ms plain, bound {c['bound'][0]:.4f} ms "
+                f"({c['bound'][1]}), max |err| {c['max_abs_err']}")
+            out.append(other_shape(c))
+        del x, fil
+        torch.cuda.empty_cache()
+    return out
+
+
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
     busy share of the run's wall time."""
@@ -2562,6 +2997,8 @@ def print_profile(prof, wall: float) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace each grid's CLI run with torch.profiler")
@@ -2588,6 +3025,7 @@ def main() -> int:
             "the runtime reported boxcar's registers")
 
     runs, checks = {}, {}
+    t_smoke = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for label, synth, cfg, flags, period in (
             ("big grid", big_grid_fil, GRID_CONFIG, GRID_FLAGS, PERIOD),
@@ -2745,7 +3183,7 @@ def main() -> int:
             ("coincidencer", lambda: coincidence_phase(tmp)),
             ("accmap", lambda: accmap_phase(tmp)),
             ("subband search, card against cpu", lambda: subband_agreement_phase(tmp)),
-            ("fdas", lambda: fdas_phase(tmp)),
+            ("fdas", lambda: runs.setdefault("fdas", fdas_phase(tmp))),
             ("fdas, card against cpu", lambda: fdas_agreement_phase(tmp)),
             ("stream, card against cpu", lambda: stream_agreement_phase(tmp)),
             (f"single-pulse search at decimate {ODD_DEC}, card against cpu",
@@ -2766,6 +3204,29 @@ def main() -> int:
         sift_agreement_phase(tmp)
         torch.cuda.empty_cache()
         say(f"phase sift and rank, card against cpu: {time.perf_counter() - t0:.1f} s wall")
+
+        # the split runs: the DM trials over two shards of the card, then
+        # over two processes sharing it; the grids' files made again
+        paths = dict(big=os.path.join(tmp, "big.fil"), binary=os.path.join(tmp, "grid.fil"),
+                     sp=os.path.join(tmp, "sp.fil"), fdas=os.path.join(tmp, "fdas.fil"))
+        t0 = time.perf_counter()
+        binary_grid_fil(paths["binary"])
+        sp_grid_fil(paths["sp"])
+        fdas_grid_fil(paths["fdas"])
+        say(f"synthesized the binary, single-pulse and FDAS grids' filterbanks again in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for label, fn in (
+            (f"25, {NSHARDS} shards on one card", lambda: split_phase(tmp, dev, paths, runs)),
+            ("26, two processes on one card", lambda: process_phase(tmp, paths, runs)),
+            ("27, the survey fold in two processes", lambda: survey_fold_phase(tmp)),
+        ):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.empty_cache()
+            say(f"phase {label}: {time.perf_counter() - t0:.1f} s wall ({smi})")
+        checks["dedisperse"].setdefault("other_shapes", []).extend(
+            shard_shape_checks(dev, paths))
+        say(f"chip_smoke: {time.perf_counter() - t_smoke:.1f} s wall after the build ({smi})")
 
     # each kernel with the launches of the run whose launch shape it was
     # checked and timed at

@@ -15,10 +15,13 @@ output directory:
   overview.xml         header, the <fdas_search> section, DM trials,
                        device, candidates with fdot/fddot/z/w, timers
 ``--checkpoint FILE`` saves each DM block's peaks and resumes from them.
-Refused with NotImplementedError: the JAX CLI's observability flags
-(``--metrics-json`` and the rest, ROADMAP A.10) and its multi-process
-split of the DM list, which it takes from JAX_COORDINATOR_ADDRESS /
-JAX_NUM_PROCESSES (A.9).
+Every run goes through the multi-process driver
+(parallel/multihost.py:run_fdas_search), as the JAX CLI's does: launched
+N times with JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and
+JAX_PROCESS_ID (or under torchrun), each process searches its slice of
+the DM list and rank 0 writes the files. Refused with
+NotImplementedError: the JAX CLI's observability flags
+(``--metrics-json`` and the rest, ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -92,17 +95,13 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_observability(args, parser)
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or int(
-        os.environ.get("JAX_NUM_PROCESSES") or 1
-    ) > 1:
-        raise NotImplementedError(
-            "not ported yet: the multi-process split of the DM list is ROADMAP item A.9"
-        )
     outdir = args.outdir or default_outdir()
 
+    from ..device import resolve_device
     from ..io.output import CandidateFileWriter, OutputFileWriter, write_fdas_candidates
     from ..io.sigproc import read_filterbank
-    from ..pipeline.fdas import FdasConfig, FdasSearch
+    from ..parallel import multihost
+    from ..pipeline.fdas import FdasConfig
 
     cfg = FdasConfig(
         outdir=outdir, killfilename=args.killfile, zapfilename=args.zapfile,
@@ -116,7 +115,7 @@ def main(argv: list[str] | None = None) -> int:
         template_block=args.template_block, dm_block=args.dm_block,
         checkpoint_file=args.checkpoint,
     )
-    search = FdasSearch(cfg, device=args.device)
+    device = resolve_device(args.device)  # no card: raise before reading
 
     t0 = time.perf_counter()
     if args.progress_bar:
@@ -124,8 +123,10 @@ def main(argv: list[str] | None = None) -> int:
     fil = read_filterbank(args.inputfile)
     reading = time.perf_counter() - t0
 
-    result = search.run(fil)
+    result = multihost.run_fdas_search(fil, cfg, device=device)
     result.timers["reading"] = reading
+    if multihost.process_index() != 0:
+        return 0  # every process holds the same result; rank 0 writes
 
     t0 = time.perf_counter()
     writer = CandidateFileWriter(outdir)
@@ -138,7 +139,7 @@ def main(argv: list[str] | None = None) -> int:
     stats.add_header(fil.header)
     stats.add_fdas_section(cfg, result.zs, result.ws)
     stats.add_dm_list(result.dm_list)
-    stats.add_device_info(search.device)
+    stats.add_device_info(multihost.process_device(device, multihost.process_count(), 0))
     stats.add_candidates_fdas(result.candidates, writer.byte_mapping)
     stats.add_timing_info(result.timers)
     stats.to_file(os.path.join(outdir, "overview.xml"))

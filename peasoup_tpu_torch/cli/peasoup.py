@@ -14,6 +14,14 @@ banded-matmul engine, and ``--checkpoint FILE`` saves the per-DM results
 as they are searched and resumes from them. ``--tune`` is refused: the
 port has no tuning cache yet.
 
+Every run goes through the multi-process driver
+(parallel/multihost.py:run_search), as the JAX CLI's does: alone, one
+process searches the whole DM list on every local card (up to
+``--num_threads``); launched N times with JAX_COORDINATOR_ADDRESS,
+JAX_NUM_PROCESSES and JAX_PROCESS_ID (or under torchrun), each process
+searches its slice of the list on its own card, and rank 0 writes the
+files. ``--hbm_bytes`` splits a card that processes share.
+
 The acceleration chain takes the JAX package's routes: the dftspec
 kernel for the spectrum where its geometry gate holds (FFT sizes up to
 2^18 with small resample spans, such as the tutorial's 2^17) and cuFFT +
@@ -110,9 +118,11 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     outdir = args.outdir or default_outdir()
 
+    from ..device import resolve_device
     from ..io.output import CandidateFileWriter, OutputFileWriter
     from ..io.sigproc import read_filterbank
-    from ..pipeline.search import PeasoupSearch, SearchConfig
+    from ..parallel import multihost
+    from ..pipeline.search import SearchConfig
 
     cfg = SearchConfig(
         outdir=outdir,
@@ -149,7 +159,7 @@ def main(argv: list[str] | None = None) -> int:
         tune=args.tune,
         tuning_cache=args.tuning_cache,
     )
-    search = PeasoupSearch(cfg, device=args.device)
+    device = resolve_device(args.device)  # no card: raise before reading
 
     t0 = time.perf_counter()
     if args.progress_bar:
@@ -157,8 +167,10 @@ def main(argv: list[str] | None = None) -> int:
     fil = read_filterbank(args.inputfile)
     reading = time.perf_counter() - t0
 
-    result = search.run(fil)
+    result = multihost.run_search(fil, cfg, device=device)
     result.timers["reading"] = reading
+    if multihost.process_index() != 0:
+        return 0  # every process holds the same result; rank 0 writes
 
     t0 = time.perf_counter()
     writer = CandidateFileWriter(outdir)
@@ -171,7 +183,7 @@ def main(argv: list[str] | None = None) -> int:
     stats.add_search_parameters(cfg, args.inputfile)
     stats.add_dm_list(result.dm_list)
     stats.add_acc_list(result.acc_list_dm0)
-    stats.add_device_info(search.device)
+    stats.add_device_info(multihost.process_device(device, multihost.process_count(), 0))
     stats.add_candidates(result.candidates, writer.byte_mapping)
     stats.add_timing_info(result.timers)
     stats.to_file(os.path.join(outdir, "overview.xml"))

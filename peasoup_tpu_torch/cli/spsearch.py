@@ -15,6 +15,13 @@ The JAX CLI's telemetry.json is not written: the port has no run
 telemetry yet. ``--checkpoint FILE`` saves each DM block's events as it is
 searched and resumes from them; ``--tune`` is refused: the port has no
 tuning cache yet.
+
+Every run goes through the multi-process driver
+(parallel/multihost.py:run_single_pulse_search), as the JAX CLI's does:
+launched N times with JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and
+JAX_PROCESS_ID (or under torchrun), each process searches its slice of
+the DM list, the events are exchanged and clustered alike everywhere,
+and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -84,9 +91,11 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     outdir = args.outdir or default_outdir()
 
+    from ..device import resolve_device
     from ..io.output import OutputFileWriter, write_singlepulse
     from ..io.sigproc import read_filterbank
-    from ..pipeline.single_pulse import SinglePulseConfig, SinglePulseSearch
+    from ..parallel import multihost
+    from ..pipeline.single_pulse import SinglePulseConfig
 
     cfg = SinglePulseConfig(
         outdir=outdir,
@@ -111,8 +120,7 @@ def main(argv: list[str] | None = None) -> int:
         tune=args.tune,
         tuning_cache=args.tuning_cache,
     )
-    search = SinglePulseSearch(cfg, device=args.device)
-    os.makedirs(outdir, exist_ok=True)
+    device = resolve_device(args.device)  # no card: raise before reading
 
     t0 = time.perf_counter()
     if args.progress_bar:
@@ -120,8 +128,11 @@ def main(argv: list[str] | None = None) -> int:
     fil = read_filterbank(args.inputfile)
     reading = time.perf_counter() - t0
 
-    result = search.run(fil)
+    result = multihost.run_single_pulse_search(fil, cfg, device=device)
     result.timers["reading"] = reading
+    if multihost.process_index() != 0:
+        return 0  # every process holds the same result; rank 0 writes
+    os.makedirs(outdir, exist_ok=True)
 
     t0 = time.perf_counter()
     write_singlepulse(os.path.join(outdir, "candidates.singlepulse"), result.candidates)
@@ -131,7 +142,7 @@ def main(argv: list[str] | None = None) -> int:
     stats.add_misc_info()
     stats.add_header(fil.header)
     stats.add_dm_list(result.dm_list)
-    stats.add_device_info(search.device)
+    stats.add_device_info(multihost.process_device(device, multihost.process_count(), 0))
     stats.add_single_pulse_section(cfg, args.inputfile, result.widths, result.candidates)
     stats.add_timing_info(result.timers)
     stats.to_file(os.path.join(outdir, "overview.xml"))

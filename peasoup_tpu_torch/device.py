@@ -7,6 +7,8 @@ are what it raises on.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 
 
@@ -51,3 +53,10 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
 def stream_ptr(device: torch.device) -> int:
     """The handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_context(device: torch.device):
+    """``device`` as the current CUDA device for the duration (a kernel is
+    launched on the current device, and its stream must belong to it), or
+    nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()

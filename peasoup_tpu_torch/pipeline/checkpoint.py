@@ -8,10 +8,13 @@ it stopped. A key over every parameter that changes the results, the
 observation's header included, invalidates a store written for another
 search.
 
-A search writes one store file, the base path. :meth:`load` unions it
-with every per-slice sibling (the base path + ``.dmLO-HI``, as the JAX
-package's processes write a slice of the DM list each), so a store
-written under one split of the DM list resumes under any other.
+A search of the whole DM list writes one store file, the base path; a
+process that searches a slice ``(lo, hi)`` of it writes the sibling
+``<base>.dmLO-HI`` (no two processes write one file), as the JAX package's
+processes do. :meth:`load` unions the base file and every sibling, so a
+store written under one split of the DM list resumes under any other.
+Entries are stored under their global DM-trial index and handed to a
+sliced search with local keys (global - lo).
 
 A damaged store (a process killed mid-write, a torn copy) never fails
 the run: it is warned about, renamed to ``*.corrupt`` and treated as
@@ -38,11 +41,21 @@ _NAMES = ("idxs", "snrs", "counts")
 
 
 class SearchCheckpoint:
-    """Atomic .npz store of {global dm_idx: (idxs, snrs, counts)}."""
+    """Atomic .npz store of {global dm_idx: (idxs, snrs, counts)}.
+    ``slice_bounds=(lo, hi)``, the process's global DM slice, routes writes
+    to its sibling file and filters loads to [lo, hi); keys in and out are
+    then local (global - lo)."""
 
-    def __init__(self, base_path: str, config_key: str) -> None:
+    def __init__(
+        self, base_path: str, config_key: str,
+        slice_bounds: tuple[int, int] | None = None,
+    ) -> None:
         self.base_path = base_path
         self.config_key = config_key
+        self.lo, self.hi = slice_bounds if slice_bounds else (0, None)
+        self.write_path = (
+            f"{base_path}.dm{self.lo}-{self.hi}" if slice_bounds else base_path
+        )
 
     @staticmethod
     def make_key(cfg, fil, size: int, global_ndm: int) -> str:
@@ -79,19 +92,22 @@ class SearchCheckpoint:
         return paths
 
     def _load_store(self, path: str) -> dict[int, tuple]:
-        """One store file's entries; raises on damage."""
+        """One store file's entries in this slice, local keys; raises on
+        damage."""
         out: dict[int, tuple] = {}
         with np.load(path, allow_pickle=False) as z:
             if str(z["config_key"]) != self.config_key:
                 return out
             for d in z["dm_idxs"]:
                 g = int(d)
-                out[g] = tuple(z[f"{n}_{g}"] for n in _NAMES)
+                if g < self.lo or (self.hi is not None and g >= self.hi):
+                    continue
+                out[g - self.lo] = tuple(z[f"{n}_{g}"] for n in _NAMES)
         return out
 
     def load(self) -> dict[int, tuple]:
-        """The union of every store file; {} where none exists or the key
-        changed. A damaged file is
+        """The union of every store file, filtered to this slice with local
+        keys; {} where none exists or the key changed. A damaged file is
         warned about, renamed to ``*.corrupt`` and skipped."""
         if not self.base_path:
             return {}
@@ -117,19 +133,19 @@ class SearchCheckpoint:
         return out
 
     def save(self, results: dict[int, tuple]) -> None:
-        """Write every entry and rename it into place atomically, after an
-        fsync, so the store survives a crash of the host as well as of the
-        process."""
+        """Write every entry (local keys) under its global index and rename
+        the file into place atomically, after an fsync, so the store
+        survives a crash of the host as well as of the process."""
         if not self.base_path:
             return
         arrays: dict[str, np.ndarray] = {
             "config_key": np.asarray(self.config_key),
-            "dm_idxs": np.asarray(sorted(results), dtype=np.int64),
+            "dm_idxs": np.asarray(sorted(k + self.lo for k in results), dtype=np.int64),
         }
-        for g, entry in results.items():
+        for d, entry in results.items():
             for n, a in zip(_NAMES, entry):
-                arrays[f"{n}_{g}"] = a
-        dirname = os.path.dirname(os.path.abspath(self.base_path)) or "."
+                arrays[f"{n}_{d + self.lo}"] = a
+        dirname = os.path.dirname(os.path.abspath(self.write_path)) or "."
         os.makedirs(dirname, exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".ckpt.tmp")
         try:
@@ -137,7 +153,7 @@ class SearchCheckpoint:
                 np.savez(f, **arrays)
                 f.flush()
                 os.fsync(f.fileno())
-            os.replace(tmp, self.base_path)
+            os.replace(tmp, self.write_path)
         except BaseException:
             if os.path.exists(tmp):
                 os.unlink(tmp)

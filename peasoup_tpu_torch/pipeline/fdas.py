@@ -11,15 +11,18 @@ host, where each template trial's detections are harmonic-distilled, each
 DM trial's acceleration-distilled, and the run DM- and harmonic-distilled
 and scored (the port's distillers, in its native library by default).
 
-With ``checkpoint_file`` each DM block's peaks are saved once searched and
-a later run searches only the trials missing. An out-of-memory error on
+With ``run(dm_slice=(lo, hi), finalize=False)`` a process of a
+multi-process run searches its slice of the global DM list only
+(parallel/multihost.py:run_fdas_search merges the slices). With
+``checkpoint_file`` each DM block's peaks are saved once searched (a
+slice's to its own sibling file) and a later run searches only the
+trials missing. An out-of-memory error on
 the card steps down the JAX package's ladder: halve the template batch
 while it can, then the DM block; past that it raises. Each step is
 logged.
 
 Not ported: the JAX package's telemetry and its DegradationLadder record
-(ROADMAP A.10); the multi-process split of the DM list (A.9) is the CLI's
-and is refused there.
+(ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -223,14 +226,14 @@ class FdasSearch:
         log.info("FDAS plan: %d DM trials x %d templates (width %d, segment %d), "
                  "fft size %d", dm_plan.ndm, bank.ntemplates, bank.width, segment, size)
 
+        # a slice's store is its own sibling file, local keys (checkpoint.py)
         ckpt = SearchCheckpoint(
-            cfg.checkpoint_file, _fdas_config_key(cfg, fil, size, global_ndm)
+            cfg.checkpoint_file, _fdas_config_key(cfg, fil, size, global_ndm),
+            slice_bounds=dm_slice,
         )
         per_dm: dict[int, tuple] = {}
         if cfg.checkpoint_file:
-            restored = ckpt.load()
-            per_dm = {g - dm_lo: v for g, v in restored.items()
-                      if dm_lo <= g < dm_lo + dm_plan.ndm}
+            per_dm = ckpt.load()
             if per_dm:
                 log.info("resuming: %d/%d DM trials restored from %s",
                          len(per_dm), dm_plan.ndm, cfg.checkpoint_file)
@@ -265,7 +268,7 @@ class FdasSearch:
         )
 
         t0 = time.perf_counter()
-        self._run_blocks(trials, dm_plan.ndm, dm_lo, bank, zapmask, windows, per_dm,
+        self._run_blocks(trials, dm_plan.ndm, bank, zapmask, windows, per_dm,
                          ckpt, geometry)
         del trials
         self._sync()
@@ -323,7 +326,7 @@ class FdasSearch:
             fdot=fdot, fddot=fddot, z=z, w=w,
         )
 
-    def _run_blocks(self, trials, ndm, dm_lo, bank, zapmask, windows, per_dm, ckpt,
+    def _run_blocks(self, trials, ndm, bank, zapmask, windows, per_dm, ckpt,
                     geometry) -> None:
         """Every DM trial missing from ``per_dm`` in (dm_block x
         template_block) tiles, under the JAX package's two-rung memory
@@ -371,7 +374,7 @@ class FdasSearch:
                     for k, d in enumerate(rows):
                         per_dm[d] = (idxs[k], snrs[k], ccounts[k])
                     self.n_searched += len(rows)
-                    ckpt.save({g + dm_lo: v for g, v in per_dm.items()})
+                    ckpt.save(per_dm)
                 log.info("searched %d of %d DM trials (%d restored) in tiles of %d DM "
                          "x %d templates", self.n_searched, ndm, ndm - self.n_searched,
                          db, tb)

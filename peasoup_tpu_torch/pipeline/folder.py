@@ -56,14 +56,19 @@ class MultiFolder:
 
     def __init__(
         self,
-        trials,  # (ndm, nsamps) u8 dedispersed trials: a tensor, or numpy
-        # in host RAM (rows upload to ``device`` as they are folded)
+        trials,  # (ndm, nsamps) u8 dedispersed trials: a tensor, numpy
+        # in host RAM, or ShardedRows over several devices (rows move to
+        # ``device`` as they are folded)
         tsamp: float,
         pos5_freq: float = 0.05,
         pos25_freq: float = 0.5,
         device: torch.device | None = None,
+        dm_offset: int = 0,  # global dm_idx of trials[0]: a process of a
+        # multi-process run holds its own DM slice only, and folds the
+        # candidates of that slice (the others' owners fold theirs)
     ):
         self.trials = trials
+        self.dm_offset = dm_offset
         self.device = device if device is not None else trials.device
         # the reference folds with the f32 tsamp member (timeseries.hpp:54;
         # the fold's phase-bin assignment is sensitive to it at the 1e-8
@@ -91,21 +96,23 @@ class MultiFolder:
         return sorted(cands, key=lambda c: -max(c.snr, c.folded_snr))
 
     def fold_outcomes(self, cands: List[Candidate], n: int) -> list[dict]:
-        """Fold + optimise the foldable top-``n`` candidates, returning one
-        outcome dict per candidate (keyed back by ``cand_idx``)."""
+        """Fold + optimise the foldable top-``n`` candidates whose DM trial
+        lies in this folder's trials, returning one outcome dict per
+        candidate (keyed back by ``cand_idx``); a multi-process run
+        exchanges these."""
         dm_map: dict[int, list[int]] = {}
         for ii in range(min(n, len(cands))):
-            if self.min_period < 1.0 / cands[ii].freq < self.max_period:
-                dm_map.setdefault(cands[ii].dm_idx, []).append(ii)
+            local_dm = cands[ii].dm_idx - self.dm_offset
+            if (self.min_period < 1.0 / cands[ii].freq < self.max_period
+                    and 0 <= local_dm < len(self.trials)):
+                dm_map.setdefault(local_dm, []).append(ii)
         if not dm_map:
             return []
         dev = self.device
         used = NINTS * (self.nsamps // NINTS)
         folds, periods, cand_idx = [], [], []
         for dm_idx, cand_ids in dm_map.items():
-            tim = self.trials[dm_idx]
-            if isinstance(tim, np.ndarray):
-                tim = torch.from_numpy(tim).to(dev)
+            tim = torch.as_tensor(self.trials[dm_idx]).to(dev)
             xd = _deredden_tim(
                 tim, size=self.nsamps, pos5=self.pos5, pos25=self.pos25,
             )

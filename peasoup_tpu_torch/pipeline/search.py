@@ -1,5 +1,6 @@
 """The host side of the search: the reference's `peasoup` main + Worker loop
-(reference: src/pipeline_multi.cu:262-419, 83-254) on one CUDA device.
+(reference: src/pipeline_multi.cu:262-419, 83-254) on one or more CUDA
+devices.
 
 The DM trials are dedispersed on the device and stay there (or in host
 RAM, below). Blocks of DM trials are preprocessed together, and their
@@ -34,8 +35,18 @@ while it can, then free the card's trials, dedisperse again into host
 RAM through the dedisperse kernel (segment by segment) and size the
 blocks afresh; past that it raises.
 
-Not ported yet, and refused with NotImplementedError: the tuning cache
-and more than one device.
+The DM trials are sharded over the devices :func:`_pick_devices` picks
+(every local card up to ``max_num_threads``, as the reference runs one
+worker per GPU; ``shard_devices`` or an explicit ``devices=`` list
+otherwise): each shard dedisperses a contiguous 1/n of them with the
+dedisperse kernel on its device (parallel/sharded_dedisperse.py) and
+searches its own blocks there (parallel/sharded_search.py). With
+``run(dm_slice=(lo, hi), finalize=False)`` a process of a multi-process
+run searches its slice of the global DM list only
+(parallel/multihost.py:run_search merges the slices and passes
+:meth:`PeasoupSearch.finalize` its fold exchange).
+
+Not ported yet, and refused with NotImplementedError: the tuning cache.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import torch
 
 from .. import native
 from ..core.candidates import Candidate
-from ..device import resolve_device
+from ..device import device_context, resolve_device
 from ..io.masks import read_killfile, read_zapfile
 from ..io.sigproc import Filterbank
 from ..ops.dedisperse import (
@@ -62,11 +73,13 @@ from ..ops.dedisperse import (
 from ..ops.dftspec import dftspec_supported
 from ..ops.resample import accel_factor, choose_block, select_span
 from ..ops.zap import birdie_mask
+from ..parallel.mesh import local_devices, make_mesh
+from ..parallel.sharded_dedisperse import ShardedRows, dedisperse_sharded, shard_bounds
 from ..plan.accel_plan import AccelerationPlan
 from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
-from .accel_search import padded_bins, preprocess_block, search_rows
+from .accel_search import padded_bins, preprocess_block
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .folder import MultiFolder
@@ -83,10 +96,11 @@ class SearchConfig:
     have yet must keep their defaults (PeasoupSearch refuses others).
     ``subband_matmul`` runs the subband stages as banded contractions
     (the JAX package has no flag for it either); ``dedisp_block`` sizes
-    the segments of trials dedispersed into host RAM. The JAX package's
-    TPU knobs (use_pallas, use_pallas_peaks, tuning_cache,
-    max_num_threads) have no effect here, and accel_bucket only pads the
-    deduped results."""
+    the segments of trials dedispersed into host RAM. ``max_num_threads``
+    caps the cards the DM trials are sharded over and ``shard_devices``
+    forces a shard count (:func:`_pick_devices`). The JAX package's TPU
+    knobs (use_pallas, use_pallas_peaks, tuning_cache) have no effect
+    here, and accel_bucket only pads the deduped results."""
 
     outdir: str = "."
     killfilename: str = ""
@@ -158,8 +172,22 @@ class PartialSearchResult:
     size: int
     n_accel_trials: int
     t_total_start: float
-    trials: torch.Tensor | None = None  # (ndm, out_nsamps) u8, kept on
-    # the search's device for folding when npdmp > 0
+    trials: object = None  # (ndm, out_nsamps) u8 (a tensor, numpy in host
+    # RAM or ShardedRows), kept for folding when npdmp > 0
+    dm_offset: int = 0  # global dm_idx of trials[0] (a process's DM slice)
+
+
+def _offset_dm_idx(cands: list, lo: int) -> None:
+    """Shift local dm_idx to global, through the assoc trees."""
+    seen: set[int] = set()
+    stack = list(cands)
+    while stack:
+        c = stack.pop()
+        if id(c) in seen:
+            continue
+        seen.add(id(c))
+        c.dm_idx += lo
+        stack.extend(c.assoc)
 
 
 def _level_windows(
@@ -530,20 +558,54 @@ def _is_oom(exc: BaseException) -> bool:
     )
 
 
-def _release(device: torch.device) -> None:
-    """Return the allocator's cached blocks and cuFFT's plans to the card
+def _release(*devices: torch.device) -> None:
+    """Return the allocator's cached blocks and cuFFT's plans to the cards
     before a retry of the memory ladder."""
-    if device.type == "cuda":
-        torch.backends.cuda.cufft_plan_cache[device.index or 0].clear()
-        torch.cuda.empty_cache()
+    for device in set(devices):
+        if device.type == "cuda":
+            torch.backends.cuda.cufft_plan_cache[device.index or 0].clear()
+            with device_context(device):
+                torch.cuda.empty_cache()
 
 
-def _unsupported(cfg: SearchConfig) -> str | None:
+def _unsupported(cfg) -> str | None:
     if cfg.tune:
         return "the tuning cache is ROADMAP item A.10"
-    if cfg.shard_devices > 1:
-        return "searching on more than one device is ROADMAP item A.9"
     return None
+
+
+def _pick_devices(device, cfg, devices=None) -> list[torch.device]:
+    """The devices to shard the DM trials over (the JAX package's
+    _pick_devices): an explicit ``devices`` list as given (it may repeat a
+    device); ``cfg.shard_devices`` > 0 forces that many shards, local cards
+    (capped at their count) from the first or, for an indexed card such as
+    a process's ``cuda:LOCAL_RANK``, from that card on, wrapping round; on
+    the CPU, shards of the one CPU device; otherwise an unindexed CUDA
+    device means every local card up to ``cfg.max_num_threads`` (the
+    reference's one worker per GPU up to -t, pipeline_multi.cu:276-277),
+    and any other device itself."""
+    if devices:
+        return [resolve_device(d) for d in devices]
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return [device] * max(1, cfg.shard_devices)
+    cards = local_devices("cuda")
+    if cfg.shard_devices > 0:
+        first = (device.index or 0) % len(cards)
+        return (cards[first:] + cards[:first])[: min(cfg.shard_devices, len(cards))]
+    if device.index is None:
+        return cards[: max(1, min(len(cards), cfg.max_num_threads))]
+    return [device]
+
+
+def _trial_rows(trials, lo: int, hi: int, size: int, device: torch.device):
+    """Rows [lo, hi) of the trials, their first ``size`` samples, on
+    ``device``: from a tensor, host RAM or the shards that hold them."""
+    if isinstance(trials, ShardedRows):
+        return trials.rows(lo, hi, device)[:, :size]
+    if isinstance(trials, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(trials[lo:hi, :size])).to(device)
+    return trials[lo:hi, :size].to(device)
 
 
 class PeasoupSearch:
@@ -557,12 +619,17 @@ class PeasoupSearch:
     # limit: a third of the device memory, 4 GB where none is known)
     TRIALS_DEVICE_LIMIT = 4_000_000_000
 
-    def __init__(self, config: SearchConfig, device: str | torch.device = "cuda"):
+    def __init__(self, config: SearchConfig, device: str | torch.device = "cuda",
+                 devices=None):
         why = _unsupported(config)
         if why:
             raise NotImplementedError(f"not ported yet: {why}")
         self.config = config
-        self.device = resolve_device(device)
+        self.devices = _pick_devices(device, config, devices)
+        self.device = self.devices[0]  # where the fold and the host copies go
+        self.mesh = make_mesh({"dm": len(self.devices)}, devices=self.devices)
+        # shards that share the busiest device share its memory budget
+        self._share = max(self.devices.count(d) for d in self.devices)
         if native.enabled():
             native.load()  # the distil library builds here or the search raises
         # cluster slots learned from overflowing chunks, so later chunks
@@ -631,19 +698,32 @@ class PeasoupSearch:
         )
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _memory_budget(self) -> int:
+        """Bytes one shard's blocks may take on its device."""
         if self.config.hbm_bytes:
-            return self.config.hbm_bytes // 2
+            return self.config.hbm_bytes // 2 // self._share
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
-            return int(free * 0.6)
-        return 2_000_000_000
+            return int(free * 0.6) // self._share
+        return 2_000_000_000 // self._share
 
-    def run(self, fil: Filterbank, plan: SearchPlan | None = None) -> SearchResult:
-        """Full search of ``fil``; ``plan`` defaults to :meth:`build_plan`."""
+    def run(
+        self,
+        fil: Filterbank,
+        plan: SearchPlan | None = None,
+        dm_slice: tuple[int, int] | None = None,
+        finalize: bool = True,
+    ) -> SearchResult | PartialSearchResult:
+        """Full search of ``fil``; ``plan`` defaults to :meth:`build_plan`.
+        With ``dm_slice=(lo, hi)`` only that contiguous block of the global
+        DM-trial list is dedispersed and searched (candidates carry global
+        dm_idx); with ``finalize=False`` the run stops after the per-DM
+        distils and returns the PartialSearchResult a multi-process merge
+        takes (parallel/multihost.py:run_search)."""
         cfg = self.config
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
@@ -653,16 +733,38 @@ class PeasoupSearch:
             plan = self.build_plan(fil)
         if plan.nharms != cfg.nharmonics:
             raise ValueError("plan windows do not match config.nharmonics")
+        global_ndm, dm_lo = plan.ndm, 0
+        if dm_slice is not None:
+            dm_lo = dm_slice[0]
+            plan = plan.subset(*dm_slice)
         timers["plan"] = time.perf_counter() - t0
         size = plan.size
+        acc_list_dm0 = self._accel_plan(fil, size).generate_accel_list(0.0)
+        if plan.ndm == 0:
+            # an empty slice (more processes than DM trials) contributes no
+            # candidates and never touches the device
+            part = PartialSearchResult(
+                cands=[], dm_list=plan.dm_list, acc_list_dm0=acc_list_dm0,
+                timers={**timers, **dict.fromkeys(
+                    ("dedispersion", "search_device", "search_host", "searching"),
+                    0.0)},
+                nsamps=fil.nsamps, size=size, n_accel_trials=0,
+                t_total_start=t_total,
+                trials=np.zeros((0, plan.out_nsamps), dtype=np.uint8),
+                dm_offset=dm_lo,
+            )
+            return self.finalize(fil, part) if finalize else part
 
         # the checkpoint store, loaded once before dedispersion: when every
-        # trial is restored and nothing is folded, the trials are never read
+        # trial is restored and nothing is folded, the trials are never read.
+        # A slice's store is its own sibling file, local keys (checkpoint.py)
         ckpt = None
         per_dm: dict[int, tuple] = {}
         if cfg.checkpoint_file:
             ckpt = SearchCheckpoint(
-                cfg.checkpoint_file, SearchCheckpoint.make_key(cfg, fil, size, plan.ndm)
+                cfg.checkpoint_file,
+                SearchCheckpoint.make_key(cfg, fil, size, global_ndm),
+                slice_bounds=dm_slice,
             )
             per_dm = ckpt.load()
             if per_dm:
@@ -675,7 +777,9 @@ class PeasoupSearch:
 
         t0 = time.perf_counter()
         scale = output_scale(fil.nbits, int(plan.killmask.sum()))
-        spill = plan.ndm * plan.out_nsamps > self.TRIALS_DEVICE_LIMIT
+        # sharded trials spread over the shards' devices
+        n_cards = len(set(self.devices)) if cfg.subbands == 0 else 1
+        spill = plan.ndm * plan.out_nsamps > self.TRIALS_DEVICE_LIMIT * n_cards
         if skip_dedisp:
             log.info("resume fast path: every DM trial restored and npdmp=0; "
                      "dedispersion skipped")
@@ -731,29 +835,36 @@ class PeasoupSearch:
         distil = _distill_segmented if native.enabled() else _distill_per_trial
         log.info("distil: %s", distil.__name__.lstrip("_"))
         cands = distil(plan, accel_lists, results, harm_finder, acc_still)
+        if dm_lo:
+            _offset_dm_idx(cands, dm_lo)
         timers["search_host"] = time.perf_counter() - t_host
         timers["searching"] = time.perf_counter() - t0
 
         part = PartialSearchResult(
             cands=cands,
             dm_list=plan.dm_list,
-            acc_list_dm0=self._accel_plan(fil, size).generate_accel_list(0.0),
+            acc_list_dm0=acc_list_dm0,
             timers=timers,
             nsamps=fil.nsamps,
             size=size,
             n_accel_trials=sum(len(a) for a in accel_lists),
             t_total_start=t_total,
             trials=trials,
+            dm_offset=dm_lo,
         )
-        return self.finalize(fil, part)
+        return self.finalize(fil, part) if finalize else part
 
     def _dedisperse(self, fil: Filterbank, plan: SearchPlan, scale: float, spill: bool):
         """All DM trials, by the engine the configuration names (the JAX
-        package's dispatch, its pipeline/search.py:689-736): on the device,
-        or in host RAM (numpy) where ``spill``."""
+        package's dispatch, its pipeline/search.py:689-736): sharded over
+        the devices where there are several (the direct sum only), on the
+        device, or in host RAM (numpy) where ``spill``."""
         cfg = self.config
         x = fil_to_device(fil, self.device)
         args = (x, plan.delays, plan.killmask, plan.out_nsamps)
+        if len(self.devices) > 1 and cfg.subbands == 0 and not spill:
+            log.info("dedispersion: dedisperse kernel on %d shards", len(self.devices))
+            return dedisperse_sharded(*args, self.mesh, scale=scale)
         if cfg.subbands > 0:
             log.info("dedispersion: subband (nsub %d, max_smear %s, %s stages)%s",
                      cfg.subbands, cfg.subband_smear,
@@ -787,7 +898,7 @@ class PeasoupSearch:
         shrink, fell_host, retry = 1, False, False
         while True:
             if retry:
-                _release(self.device)
+                _release(*self.devices)
             try:
                 self._search_trials(trials, plan, dispatch_lists, expand, fil.tsamp,
                                     geometry, routes, per_dm, ckpt, shrink)
@@ -815,15 +926,15 @@ class PeasoupSearch:
                     exc,
                 )
             trials = None
-            _release(self.device)
+            _release(*self.devices)
             trials = dedisperse_host(
                 fil_to_device(fil, self.device), plan.delays, plan.killmask,
                 plan.out_nsamps, scale=scale, block=cfg.dedisp_block,
             )
 
     def _blocks(self, plan, size: int, shrink: int = 1) -> tuple[int, int]:
-        """(DM trials a preprocessed block, rows a batch), each divided by
-        ``shrink`` (at least 1)."""
+        """(DM trials a preprocessed block, rows a batch) of one shard, each
+        divided by ``shrink`` (at least 1)."""
         budget = self._memory_budget()
         d_blk = self.config.dm_block or max(
             1, min(plan.ndm, budget // 2 // (self.DM_BYTES_PER_SAMPLE * size))
@@ -839,97 +950,128 @@ class PeasoupSearch:
         stream there, (bins, snrs, counts (nlev, A)) over its full accel
         list (a deduped dispatch's results replicated onto its class): the
         valid cluster slots of every (level, accel) cell in C order, as the
-        JAX package packs and checkpoints them. DM blocks keep their places
+        JAX package packs and checkpoints them. Each shard owns a
+        contiguous 1/n of the DM trials (:func:`shard_bounds`, the sharded
+        dedispersion's split) and searches them in blocks on its own
+        device; the shards' k-th blocks run together, a row batch of each
+        at a time (parallel/sharded_search.py). DM blocks keep their places
         whatever was restored; a block with restored trials is preprocessed
         whole and only its missing trials' rows are searched. ``trials``
-        on the host upload a block at a time. ``ckpt`` saves after each
-        block."""
-        cfg = self.config
-        dev = self.device
+        elsewhere than a block's device (host RAM, another shard) move
+        there a block at a time. ``ckpt`` saves after each round of
+        blocks."""
+        # parallel/sharded_search imports this package's chain
+        from ..parallel.sharded_search import make_sharded_search_fn
+
         size = geometry["size"]
         d_blk, row_blk = self._blocks(plan, size, shrink)
-        zapmask = torch.from_numpy(plan.zapmask).to(dev)
-        threshold = float(np.float32(cfg.min_snr))
+        zaps = {d: torch.from_numpy(plan.zapmask).to(d) for d in set(self.devices)}
+        search = make_sharded_search_fn(
+            self.mesh, float(np.float32(self.config.min_snr)), **routes
+        )
+        bounds = shard_bounds(plan.ndm, len(self.devices))
         self.n_searched = 0
-        for lo in range(0, plan.ndm, d_blk):
-            hi = min(lo + d_blk, plan.ndm)
-            todo = [d for d in range(lo, hi) if d not in per_dm]
-            if not todo:
+        for k in range(0, max(hi - lo for lo, hi in bounds), d_blk):
+            blocks = []
+            for (lo, hi), dev in zip(bounds, self.devices):
+                lo, hi = lo + k, min(lo + k + d_blk, hi)
+                todo = [d for d in range(lo, hi) if d not in per_dm]
+                if not todo:
+                    blocks.append(None)
+                    continue
+                with device_context(dev):
+                    tims = _trial_rows(trials, lo, hi, size, dev)
+                    xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
+                    del tims
+                blocks.append(dict(
+                    lo=lo, todo=todo, dev=dev, xd=xd, mean=mean, std=std,
+                    rows=[(d - lo, a) for d in todo for a in range(len(dispatch_lists[d]))],
+                    afs={d: accel_factor(dispatch_lists[d], tsamp).astype(np.float32)
+                         for d in todo},
+                    results=[],
+                ))
+            if not any(blocks):
                 continue
-            tims = trials[lo:hi, :size]
-            if isinstance(tims, np.ndarray):
-                tims = torch.from_numpy(np.ascontiguousarray(tims)).to(dev)
-            xd, mean, std = preprocess_block(tims, zapmask, **geometry)
-            del tims
-            rows = [(d - lo, a) for d in todo for a in range(len(dispatch_lists[d]))]
-            afs_all = {
-                d: accel_factor(dispatch_lists[d], tsamp).astype(np.float32)
-                for d in todo
-            }
-            results = []
-            for r0 in range(0, len(rows), row_blk):
-                batch = rows[r0 : r0 + row_blk]
-                row_dm = torch.tensor(
-                    [d for d, _ in batch], dtype=torch.int32, device=dev
-                )
-                afs = torch.from_numpy(
-                    np.asarray([afs_all[lo + d][a] for d, a in batch], np.float32)
-                ).to(dev)
-                results.append(
-                    self._search_batch(
-                        xd, row_dm, afs, mean[row_dm], std[row_dm],
-                        plan.windows, threshold, routes,
-                    )
-                )
-            del xd, mean, std
-            # batches dispatched before an overflow escalation have fewer
-            # slots; only the first cc slots of a cell are ever read
-            mx = max(r[0].shape[-1] for r in results)
-            idxs, snrs = (
-                np.concatenate([
-                    np.pad(r[k], ((0, 0), (0, 0), (0, mx - r[k].shape[-1])))
-                    for r in results
-                ])
-                for k in (0, 1)
-            )
-            cc = np.concatenate([r[2] for r in results])
-            r0 = 0
-            for d in todo:
-                r1 = r0 + len(dispatch_lists[d])
-                # (level, accel) cells in C order, as the JAX package's
-                # device pack streams them
-                cells = cc[r0:r1].T
-                keep = np.arange(mx) < cells[..., None]
-                vi = idxs[r0:r1].transpose(1, 0, 2)[keep]
-                vs = snrs[r0:r1].transpose(1, 0, 2)[keep]
-                if expand[d] is not None:
-                    # deduped dispatch: replicate the representative's
-                    # results onto every accel trial of its class
-                    vi, vs, cells = _expand_accel_results(
-                        vi, vs, cells, expand[d],
-                        _accel_pad(len(plan.accel_lists[d]), cfg.accel_bucket),
-                    )
-                per_dm[d] = (vi, vs, cells)
-                r0 = r1
-            self.n_searched += len(todo)
+            nrows = max(len(b["rows"]) for b in blocks if b)
+            for r0 in range(0, nrows, row_blk):
+                jobs = [self._job(b, r0, row_blk) if b else None for b in blocks]
+                idxs, snrs, cc = self._search_batch(search, jobs, plan.windows)
+                at = 0
+                for b, job in zip(blocks, jobs):
+                    if job is not None:
+                        n = len(job[1])
+                        b["results"].append((idxs[at:at + n], snrs[at:at + n], cc[at:at + n]))
+                        at += n
+            for b in blocks:
+                if b:
+                    self._collect(b, plan, dispatch_lists, expand, per_dm)
+                    self.n_searched += len(b["todo"])
+            del blocks
             if ckpt is not None:
                 ckpt.save(per_dm)
         log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
                  plan.ndm, plan.ndm - self.n_searched)
 
-    def _search_batch(self, xd, row_dm, afs, mean, std, windows, threshold, routes):
-        """One row batch of the DM block ``xd``, re-dispatched at the next
+    @staticmethod
+    def _job(block: dict, r0: int, row_blk: int):
+        """The search_rows arguments of rows [r0, r0 + row_blk) of one
+        shard's block, on its device, or None past its last row."""
+        batch = block["rows"][r0 : r0 + row_blk]
+        if not batch:
+            return None
+        dev, lo = block["dev"], block["lo"]
+        row_dm = torch.tensor([d for d, _ in batch], dtype=torch.int32, device=dev)
+        afs = torch.from_numpy(
+            np.asarray([block["afs"][lo + d][a] for d, a in batch], np.float32)
+        ).to(dev)
+        return block["xd"], row_dm, afs, block["mean"][row_dm], block["std"][row_dm]
+
+    def _collect(self, block: dict, plan, dispatch_lists, expand, per_dm) -> None:
+        """Each searched DM trial of one shard's block into ``per_dm``, as
+        its ragged cluster stream over its full accel list."""
+        results = block["results"]
+        # batches dispatched before an overflow escalation have fewer
+        # slots; only the first cc slots of a cell are ever read
+        mx = max(r[0].shape[-1] for r in results)
+        idxs, snrs = (
+            np.concatenate([
+                np.pad(r[k], ((0, 0), (0, 0), (0, mx - r[k].shape[-1])))
+                for r in results
+            ])
+            for k in (0, 1)
+        )
+        cc = np.concatenate([r[2] for r in results])
+        r0 = 0
+        for d in block["todo"]:
+            r1 = r0 + len(dispatch_lists[d])
+            # (level, accel) cells in C order, as the JAX package's
+            # device pack streams them
+            cells = cc[r0:r1].T
+            keep = np.arange(mx) < cells[..., None]
+            vi = idxs[r0:r1].transpose(1, 0, 2)[keep]
+            vs = snrs[r0:r1].transpose(1, 0, 2)[keep]
+            if expand[d] is not None:
+                # deduped dispatch: replicate the representative's
+                # results onto every accel trial of its class
+                vi, vs, cells = _expand_accel_results(
+                    vi, vs, cells, expand[d],
+                    _accel_pad(len(plan.accel_lists[d]), self.config.accel_bucket),
+                )
+            per_dm[d] = (vi, vs, cells)
+            r0 = r1
+
+    def _search_batch(self, search, jobs, windows):
+        """One row batch of every shard (``jobs``, one per shard or None),
+        through the sharded search ``search``, re-dispatched at the next
         power of two while a cluster count overflows the slots (the
         reference sizes for 100000 up front, peakfinder.hpp:61). Returns
-        numpy (idxs, snrs, cluster counts) of the batch's rows."""
+        numpy (idxs, snrs, cluster counts) of the batch's rows, shard by
+        shard."""
         cfg = self.config
         max_peaks = max(cfg.max_peaks, self._learned_max_peaks)
         while True:
-            peaks = search_rows(
-                xd, row_dm, afs, mean, std, windows, threshold=threshold,
-                nharms=cfg.nharmonics, max_peaks=max_peaks, **routes,
-            )
-            cc = peaks.ccounts.cpu().numpy()
+            peaks = search(jobs, windows, nharms=cfg.nharmonics, max_peaks=max_peaks)
+            cc = peaks.ccounts
             worst = int(cc.max()) if cc.size else 0
             if worst <= max_peaks:
                 break
@@ -939,12 +1081,16 @@ class PeasoupSearch:
                 "cluster overflow: escalating max_peaks %d -> %d (observed %d)",
                 old, max_peaks, worst,
             )
-        return peaks.idxs.cpu().numpy(), peaks.snrs.cpu().numpy(), cc
+        return peaks.idxs, peaks.snrs, cc
 
-    def finalize(self, fil: Filterbank, part: PartialSearchResult) -> SearchResult:
-        """Global distilling and scoring over the per-DM-trial candidates,
-        then folding of the top ``npdmp`` (the JAX package's
-        PeasoupSearch.finalize)."""
+    def finalize(self, fil: Filterbank, part: PartialSearchResult,
+                 fold_exchange=None) -> SearchResult:
+        """Global distilling and scoring over the (possibly merged)
+        per-DM-trial candidates, then folding of the top ``npdmp`` (the JAX
+        package's PeasoupSearch.finalize). ``fold_exchange`` is the
+        multi-process hook: callable(this process's fold outcomes) -> every
+        process's outcomes (parallel/multihost.py:run_search wires the
+        exchange; None for one process)."""
         cfg = self.config
         timers = part.timers
         t0 = time.perf_counter()
@@ -967,8 +1113,12 @@ class PeasoupSearch:
             folder = MultiFolder(
                 part.trials, fil.tsamp, device=self.device,
                 pos5_freq=cfg.boundary_5_freq, pos25_freq=cfg.boundary_25_freq,
+                dm_offset=part.dm_offset,
             )
-            cands = folder.fold_n(cands, cfg.npdmp)
+            outcomes = folder.fold_outcomes(cands, cfg.npdmp)
+            if fold_exchange is not None:
+                outcomes = fold_exchange(outcomes)
+            cands = folder.apply_outcomes(cands, outcomes)
             self._sync()
         timers["folding"] = time.perf_counter() - t0
         timers["total"] = time.perf_counter() - part.t_total_start

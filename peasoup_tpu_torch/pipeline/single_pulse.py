@@ -1,9 +1,12 @@
-"""The host side of the single-pulse search on one CUDA device: the JAX
-package's transient search (peasoup_tpu/pipeline/single_pulse.py) over
-the dedispersed DM-time plane.
+"""The host side of the single-pulse search on one or more CUDA devices:
+the JAX package's transient search (peasoup_tpu/pipeline/single_pulse.py)
+over the dedispersed DM-time plane.
 
 The DM trials are dedispersed in one kernel launch (csrc/dedisperse.cu)
-and stay on the device (or in host RAM, below). Blocks of them, sized from the device's free
+and stay on the device (or in host RAM, below). With several devices
+(pipeline/search.py:_pick_devices) each shard dedisperses a contiguous
+1/n of them on its device (parallel/sharded_dedisperse.py) and searches
+its own blocks there, the shards' k-th blocks together. Blocks of them, sized from the device's free
 memory, are normalised, swept by the boxcar bank with its dec-fold
 (csrc/spchain.cu) and compacted to per-trial events
 (ops/singlepulse.single_pulse_search_block). The events come back to the
@@ -21,8 +24,13 @@ halves the DM block and retries, keeping the trials already searched (the
 JAX package's ``dm_block_shrink`` rung); at one trial a block it raises
 (the JAX package's last rung, the CPU backend, is not ported).
 
-Not ported yet, and refused with NotImplementedError: the tuning cache,
-and more than one device or host.
+With ``run(dm_slice=(lo, hi), finalize=False)`` a process of a
+multi-process run searches its slice of the global DM list and returns
+its raw events (global dm_idx) for the merge
+(parallel/multihost.py:run_single_pulse_search). A shard that fails fails
+the run: nothing falls back to fewer devices.
+
+Not ported yet, and refused with NotImplementedError: the tuning cache.
 """
 
 from __future__ import annotations
@@ -35,14 +43,16 @@ import numpy as np
 import torch
 
 from ..core.candidates import SinglePulseCandidate, SinglePulseCandidateCollection
-from ..device import resolve_device
+from ..device import device_context
 from ..io.masks import read_killfile
 from ..io.sigproc import Filterbank
 from ..ops.dedisperse import dedisperse, dedisperse_host, fil_to_device, output_scale
 from ..ops.singlepulse import default_widths, plan_pad, single_pulse_search_block
+from ..parallel.mesh import make_mesh
+from ..parallel.sharded_dedisperse import dedisperse_sharded, shard_bounds
 from ..plan.dm_plan import DMPlan
 from .checkpoint import SearchCheckpoint
-from .search import _is_oom, _release
+from .search import _is_oom, _pick_devices, _release, _trial_rows, _unsupported
 
 log = logging.getLogger("peasoup_tpu_torch.single_pulse")
 
@@ -53,9 +63,10 @@ class SinglePulseConfig:
     (Heimdall/GSP practice; the reference has no single-pulse search),
     less its TPU knobs dedisp_block and use_pallas. Fields of features
     the port does not have yet must keep their defaults
-    (SinglePulseSearch refuses others); max_num_threads and
-    tuning_cache, which the CLI takes for the JAX CLI's flags, have no
-    effect here."""
+    (SinglePulseSearch refuses others). ``max_num_threads`` caps the
+    cards the DM trials are sharded over and ``shard_devices`` forces a
+    shard count (pipeline/search.py:_pick_devices); tuning_cache, which
+    the CLI takes for the JAX CLI's flag, has no effect here."""
 
     outdir: str = "."
     killfilename: str = ""
@@ -224,14 +235,6 @@ def make_checkpoint_key(
     return repr(fields)
 
 
-def _unsupported(cfg: SinglePulseConfig) -> str | None:
-    if cfg.tune:
-        return "the tuning cache is ROADMAP item A.10"
-    if cfg.shard_devices > 1:
-        return "searching on more than one device is ROADMAP item A.9"
-    return None
-
-
 class SinglePulseSearch:
     # bytes of device memory one DM trial of a block holds per padded
     # sample: ~4 f32 planes (normalised series, prefix sums, and their
@@ -245,12 +248,17 @@ class SinglePulseSearch:
     # memory, 4 GB where none is known, as the JAX package sets it)
     TRIALS_DEVICE_LIMIT = 4_000_000_000
 
-    def __init__(self, config: SinglePulseConfig, device: str | torch.device = "cuda"):
+    def __init__(self, config: SinglePulseConfig, device: str | torch.device = "cuda",
+                 devices=None):
         why = _unsupported(config)
         if why:
             raise NotImplementedError(f"not ported yet: {why}")
         self.config = config
-        self.device = resolve_device(device)
+        self.devices = _pick_devices(device, config, devices)
+        self.device = self.devices[0]
+        self.mesh = make_mesh({"dm": len(self.devices)}, devices=self.devices)
+        # shards that share the busiest device share its memory
+        self._share = max(self.devices.count(d) for d in self.devices)
         limit = config.hbm_bytes
         if not limit and self.device.type == "cuda":
             limit = torch.cuda.mem_get_info(self.device)[1]
@@ -282,8 +290,9 @@ class SinglePulseSearch:
         return default_widths(self.config.n_widths, max_width=cap)
 
     def dm_block(self, tpad: int) -> int:
-        """DM trials per device block: cfg.dm_block, else a quarter of the
-        memory budget over BYTES_PER_SAMPLE * tpad, at most MAX_DM_BLOCK."""
+        """DM trials per device block of one shard: cfg.dm_block, else a
+        quarter of the memory budget (shared by the shards on one device)
+        over BYTES_PER_SAMPLE * tpad, at most MAX_DM_BLOCK."""
         cfg = self.config
         if cfg.dm_block > 0:
             return cfg.dm_block
@@ -294,31 +303,57 @@ class SinglePulseSearch:
         else:
             total = self.DEFAULT_MEMORY
         per_trial = self.BYTES_PER_SAMPLE * tpad
-        return int(max(1, min(self.MAX_DM_BLOCK, (total // 4) // max(1, per_trial))))
+        return int(max(1, min(self.MAX_DM_BLOCK,
+                              (total // 4 // self._share) // max(1, per_trial))))
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
-    def run(self, fil: Filterbank) -> SinglePulseResult:
+    def run(
+        self,
+        fil: Filterbank,
+        dm_slice: tuple[int, int] | None = None,
+        finalize: bool = True,
+    ) -> SinglePulseResult | PartialSinglePulseResult:
         """Full search of ``fil``: plan, dedisperse, search the DM trials
-        block by block, then cluster (:meth:`finalize`)."""
+        block by block, then cluster (:meth:`finalize`). With
+        ``dm_slice=(lo, hi)`` only that contiguous block of the global
+        DM-trial list is searched (events carry global dm_idx); with
+        ``finalize=False`` the run stops before clustering."""
         cfg = self.config
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
 
         t0 = time.perf_counter()
-        plan = self.build_dm_plan(fil)
-        widths = self.widths_for(plan.out_nsamps)
+        global_plan = self.build_dm_plan(fil)
+        widths = self.widths_for(global_plan.out_nsamps)
+        plan, dm_lo = global_plan, 0
+        if dm_slice is not None:
+            dm_lo = dm_slice[0]
+            plan = global_plan.subset(*dm_slice)
         timers["plan"] = time.perf_counter() - t0
+        if plan.ndm == 0:
+            # an empty slice (more processes than DM trials) contributes no
+            # events and never touches the device
+            part = PartialSinglePulseResult(
+                events=np.zeros(0, dtype=_EVENT_DTYPE), dm_list=global_plan.dm_list,
+                widths=widths, timers={**timers, "dedispersion": 0.0, "searching": 0.0},
+                nsamps=fil.nsamps, n_overflowed=0, t_total_start=t_total,
+            )
+            return self.finalize(fil, part) if finalize else part
 
         # the checkpoint store, loaded before dedispersion: a run whose every
-        # trial is restored skips it
+        # trial is restored skips it. A slice's store is its own sibling
+        # file, local keys (checkpoint.py)
         ckpt = None
         per_dm: dict[int, tuple] = {}
         if cfg.checkpoint_file:
             ckpt = SearchCheckpoint(
-                cfg.checkpoint_file, make_checkpoint_key(cfg, fil, plan.ndm, widths)
+                cfg.checkpoint_file,
+                make_checkpoint_key(cfg, fil, global_plan.ndm, widths),
+                slice_bounds=dm_slice,
             )
             per_dm = ckpt.load()
             if per_dm:
@@ -327,20 +362,23 @@ class SinglePulseSearch:
         skip_dedisp = plan.ndm > 0 and all(d in per_dm for d in range(plan.ndm))
 
         t0 = time.perf_counter()
-        spill = plan.ndm * plan.out_nsamps > self.TRIALS_DEVICE_LIMIT
+        # sharded trials spread over the shards' devices
+        spill = (plan.ndm * plan.out_nsamps
+                 > self.TRIALS_DEVICE_LIMIT * len(set(self.devices)))
         if skip_dedisp:
             log.info("resume fast path: all %d trials restored; dedispersion "
                      "skipped", plan.ndm)
             trials = np.zeros((0, plan.out_nsamps), dtype=np.uint8)
         else:
-            dd = dedisperse_host if spill else dedisperse
-            trials = dd(
-                fil_to_device(fil, self.device),
-                plan.delay_samples(),
-                plan.killmask,
-                plan.out_nsamps,
-                scale=output_scale(fil.nbits, int(plan.killmask.sum())),
-            )
+            args = (fil_to_device(fil, self.device), plan.delay_samples(),
+                    plan.killmask, plan.out_nsamps)
+            scale = output_scale(fil.nbits, int(plan.killmask.sum()))
+            if spill:
+                trials = dedisperse_host(*args, scale=scale)
+            elif len(self.devices) > 1:
+                trials = dedisperse_sharded(*args, self.mesh, scale=scale)
+            else:
+                trials = dedisperse(*args, scale=scale)
         self._sync()
         timers["dedispersion"] = time.perf_counter() - t0
 
@@ -350,7 +388,7 @@ class SinglePulseSearch:
         shrink, retry = 1, False
         while True:
             if retry:
-                _release(self.device)
+                _release(*self.devices)
             blk = max(1, dm_block // shrink)
             try:
                 self._search_blocks(trials, plan.ndm, blk, widths, per_dm, ckpt)
@@ -374,7 +412,7 @@ class SinglePulseSearch:
             n_overflowed += c > len(snrs)
             # the first max_events events of each trial, in ascending time
             recs.extend(
-                (dm_idx, int(pos_w[0, i]), int(pos_w[1, i]), float(snrs[i]))
+                (dm_idx + dm_lo, int(pos_w[0, i]), int(pos_w[1, i]), float(snrs[i]))
                 for i in range(min(c, len(snrs)))
             )
         events = np.asarray(recs, dtype=_EVENT_DTYPE)
@@ -385,43 +423,47 @@ class SinglePulseSearch:
                 n_overflowed, cfg.max_events, cfg.max_events,
             )
         part = PartialSinglePulseResult(
-            events=events, dm_list=plan.dm_list, widths=widths, timers=timers,
+            events=events, dm_list=global_plan.dm_list, widths=widths, timers=timers,
             nsamps=fil.nsamps, n_overflowed=n_overflowed, t_total_start=t_total,
         )
-        return self.finalize(fil, part)
+        return self.finalize(fil, part) if finalize else part
 
     def _search_blocks(self, trials, ndm: int, blk: int, widths, per_dm, ckpt) -> None:
         """Search the DM trials in blocks of ``blk`` and put each trial's
         (positions and widths (2, K) i32, snrs (K,) f32, count) in
         ``per_dm``; a block whose every trial is there already is skipped,
-        one with a trial missing is searched whole. ``trials`` on the host
-        upload a block at a time. ``ckpt`` saves after each block."""
+        one with a trial missing is searched whole. Each shard searches
+        its own contiguous 1/n of the trials on its device, the shards'
+        k-th blocks dispatched together before any is read back. Trials
+        elsewhere (host RAM, another shard) move to a block's device a
+        block at a time. ``ckpt`` saves after each round of blocks."""
         cfg = self.config
         threshold = float(cfg.min_snr)
+        bounds = shard_bounds(ndm, len(self.devices))
         self.n_searched = 0
-        for lo in range(0, ndm, blk):
-            hi = min(lo + blk, ndm)
-            if all(d in per_dm for d in range(lo, hi)):
-                continue
-            block = trials[lo:hi]
-            if isinstance(block, np.ndarray):
-                block = torch.from_numpy(block).to(self.device)
-            samples, widx, snrs, counts = (
-                a.cpu().numpy()
-                for a in single_pulse_search_block(
-                    block, widths, threshold, cfg.max_events, cfg.decimate
-                )
-            )
-            for j in range(hi - lo):
-                per_dm[lo + j] = (
-                    np.stack([samples[j], widx[j]]).astype(np.int32),
-                    snrs[j].astype(np.float32),
-                    np.int32(counts[j]),
-                )
-            self.n_searched += hi - lo
-            if ckpt is not None:
+        for k in range(0, max(hi - lo for lo, hi in bounds), blk):
+            outs = []
+            for (lo, hi), dev in zip(bounds, self.devices):
+                lo, hi = lo + k, min(lo + k + blk, hi)
+                if lo >= hi or all(d in per_dm for d in range(lo, hi)):
+                    continue
+                with device_context(dev):
+                    block = _trial_rows(trials, lo, hi, trials.shape[1], dev)
+                    outs.append((lo, single_pulse_search_block(
+                        block, widths, threshold, cfg.max_events, cfg.decimate
+                    )))
+            for lo, res in outs:
+                samples, widx, snrs, counts = (a.cpu().numpy() for a in res)
+                for j in range(len(counts)):
+                    per_dm[lo + j] = (
+                        np.stack([samples[j], widx[j]]).astype(np.int32),
+                        snrs[j].astype(np.float32),
+                        np.int32(counts[j]),
+                    )
+                self.n_searched += len(counts)
+                log.debug("DM trials %d..%d searched", lo, lo + len(counts) - 1)
+            if outs and ckpt is not None:
                 ckpt.save(per_dm)
-            log.debug("DM trials %d..%d searched", lo, hi - 1)
         log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
                  ndm, ndm - self.n_searched)
 

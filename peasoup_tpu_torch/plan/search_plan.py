@@ -9,7 +9,7 @@ can be run on one plan.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -33,6 +33,15 @@ class SearchPlan:
     @property
     def nharms(self) -> int:
         return len(self.windows) - 1
+
+    def subset(self, lo: int, hi: int) -> "SearchPlan":
+        """The DM trials [lo, hi) of this plan; every other field is the
+        whole plan's (out_nsamps among them, so every slice's trials have
+        one length, as DMPlan.subset keeps it)."""
+        return replace(
+            self, dm_list=self.dm_list[lo:hi], delays=self.delays[lo:hi],
+            accel_lists=self.accel_lists[lo:hi],
+        )
 
 
 def from_arrays(

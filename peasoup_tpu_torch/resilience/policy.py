@@ -16,41 +16,15 @@ the fault-injection seams) is ROADMAP item A.10; a retry is logged on the
 from __future__ import annotations
 
 import dataclasses
-import errno as _errno
 import logging
 import os
 import random
-import sqlite3
 import time
 from typing import Any, Callable
 
+from .errors import is_transient
+
 log = logging.getLogger("peasoup_tpu_torch.resilience")
-
-
-# errnos of a retryable filesystem or network hiccup (the JAX package's
-# resilience/errors.py:_TRANSIENT_ERRNOS)
-_TRANSIENT_ERRNOS = frozenset(
-    x for x in (
-        _errno.EIO, _errno.EAGAIN, _errno.EINTR, _errno.EBUSY, _errno.ETIMEDOUT,
-        getattr(_errno, "ESTALE", None), getattr(_errno, "ECONNRESET", None),
-    )
-    if x is not None
-)
-
-
-def is_transient(exc: BaseException) -> bool:
-    """Sqlite contention (``locked``/``busy``), timeouts and OSErrors with
-    a transient errno (the JAX package's resilience/errors.py taxonomy). A
-    missing file or a denied permission is a protocol state, not a
-    hiccup."""
-    if isinstance(exc, sqlite3.OperationalError):
-        msg = str(exc).lower()
-        return "locked" in msg or "busy" in msg
-    if isinstance(exc, (FileNotFoundError, PermissionError)):
-        return False
-    if isinstance(exc, TimeoutError):
-        return True
-    return isinstance(exc, OSError) and exc.errno in _TRANSIENT_ERRNOS
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.coincidence import coincidence_mask
 from .crossmatch import harmonic_identify
 
@@ -171,15 +172,17 @@ def multibeam_veto(
     beam_thresh: int = 4,
     period_tol: float = 2e-3,
     dm_cell: float = 2.0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> set:
     """Candidate ids vetoed as multi-beam RFI.
 
     ``cands`` rows need ``id``, ``period``, ``dm``, ``snr`` and
     ``beam`` (observation provenance; rows with no beam recorded are
     never vetoed). Builds the (beam, cell) best-S/N matrix and keeps
-    cells where :func:`coincidence_mask`, run on ``device``, says fewer
-    than ``beam_thresh`` beams fired."""
+    cells where :func:`coincidence_mask`, run on ``device`` (the card
+    unless the caller asks for the CPU), says fewer than ``beam_thresh``
+    beams fired."""
+    device = resolve_device(device)
 
     beams = sorted(
         {int(c["beam"]) for c in cands if c.get("beam")}

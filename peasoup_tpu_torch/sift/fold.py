@@ -22,9 +22,10 @@ package's sift/fold.py):
   batches give the same bits. (The JAX package also records a
   DegradationLadder step; that record is ROADMAP item A.10.)
 
-The JAX package's multi-process split of the observations
-(``parallel/multihost.py:run_survey_fold``) is ROADMAP item A.9: here one
-process folds them all.
+In a run of several processes,
+:func:`peasoup_tpu_torch.parallel.multihost.run_survey_fold` deals the
+observations round-robin to the processes, each folds its share with this
+folder, and the outcomes are exchanged.
 """
 
 from __future__ import annotations

@@ -15,8 +15,10 @@ Re-running replaces the previous sifted product wholesale (latest run
 wins). Each pass's wall time lands in :attr:`SiftRun.timers` under the
 JAX package's timer names (``sift_folding``, ``sift_crossmatch``,
 ``sift_dedup``, ``sift_scoring``, ``sift_repeats``); the run telemetry
-and status section the JAX package records are ROADMAP item A.10, and
-its multi-process fold split A.9.
+and status section the JAX package records are ROADMAP item A.10. Both
+folds (the survey fold and the DM-curve refold) go through
+parallel/multihost.py:run_survey_fold, which splits the observations over
+the processes of a multi-process run.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..device import resolve_device
 from ..io.sigproc import read_filterbank
 from ..ops.candidate_features import DM_CURVE_FRACTIONS
 from ..ops.dedisperse import dedisperse, fil_to_device, output_scale
+from ..parallel.multihost import run_survey_fold
 from ..plan.dm_plan import delay_table
 from ..rank.model import RankModel, score_tier
 from ..rank.score import score_fold_products
@@ -228,7 +231,7 @@ class SiftRun:
             batch=cfg.fold_batch,
         )
         curves: dict[int, np.ndarray] = {}
-        outcomes = folder.fold_outcomes(fold_inputs)
+        outcomes = run_survey_fold(fold_inputs, folder)
         self.fold_buckets["dm_curve"] = folder.buckets
         for o in outcomes:
             ridx, fi = divmod(int(o["key"]), ndm)
@@ -347,7 +350,7 @@ class SiftRun:
                     nbins=cfg.fold_nbins, nints=cfg.fold_nints,
                     batch=cfg.fold_batch,
                 )
-                outcomes = folder.fold_outcomes(fold_inputs)
+                outcomes = run_survey_fold(fold_inputs, folder)
                 self.fold_buckets["survey"] = folder.buckets
                 outcomes_by_key = {o["key"]: o for o in outcomes}
                 n_folded = len(outcomes)

@@ -21,6 +21,7 @@ import torch
 
 import chip_smoke
 from peasoup_tpu_torch.io.sigproc import read_filterbank
+from peasoup_tpu_torch.parallel import sharded_search as sharded_mod
 from peasoup_tpu_torch.pipeline import search as search_mod
 from peasoup_tpu_torch.pipeline import single_pulse as sp_mod
 from peasoup_tpu_torch.pipeline.checkpoint import SearchCheckpoint
@@ -228,7 +229,7 @@ def test_oom_shrink_rung(synthetic, monkeypatch, caplog):
     # the first search dispatch meets an OOM: every block runs at half size,
     # as a clean run at that size does
     want = _cands(_search(synthetic, dm_block=15, hbm_bytes=1 << 27)[1])
-    seen = _fail_on(monkeypatch, search_mod, "search_rows", {1}, OOM)
+    seen = _fail_on(monkeypatch, sharded_mod, "search_rows", {1}, OOM)
     with caplog.at_level(logging.WARNING, logger="peasoup_tpu_torch.search"):
         _, res = _search(synthetic, dm_block=30, hbm_bytes=1 << 28)
     assert "device OOM at dm_block=30 (row batch 64)" in caplog.text
@@ -253,14 +254,14 @@ def test_oom_subband_rung(synthetic, clean, monkeypatch, caplog):
 
     monkeypatch.setattr(search_mod, "dedisperse_host", host)
     monkeypatch.setattr(search_mod, "dedisperse_subband", None)  # never reached
-    real_rows = search_mod.search_rows
+    real_rows = sharded_mod.search_rows
 
     def rows(*a, **k):
         if not fell:
             raise OOM
         return real_rows(*a, **k)
 
-    monkeypatch.setattr(search_mod, "search_rows", rows)
+    monkeypatch.setattr(sharded_mod, "search_rows", rows)
     with caplog.at_level(logging.WARNING, logger="peasoup_tpu_torch.search"):
         _, res = _search(synthetic, dm_block=5)
     assert fell == [1]
@@ -269,7 +270,7 @@ def test_oom_subband_rung(synthetic, clean, monkeypatch, caplog):
 
 
 def test_oom_past_the_last_rung_raises(synthetic, monkeypatch):
-    _fail_on(monkeypatch, search_mod, "search_rows", True, OOM)
+    _fail_on(monkeypatch, sharded_mod, "search_rows", True, OOM)
     with pytest.raises(torch.OutOfMemoryError):
         _search(synthetic, dm_block=5, hbm_bytes=1 << 24)
 
@@ -278,7 +279,7 @@ def test_oom_past_the_last_rung_raises(synthetic, monkeypatch):
 def test_other_errors_propagate(synthetic, sp_small, monkeypatch, which):
     err = RuntimeError("CUDA error: an illegal memory access was encountered")
     if which == "search":
-        seen = _fail_on(monkeypatch, search_mod, "search_rows", {1}, err)
+        seen = _fail_on(monkeypatch, sharded_mod, "search_rows", {1}, err)
         run = lambda: _search(synthetic, dm_block=5)  # noqa: E731
     else:
         seen = _fail_on(monkeypatch, sp_mod, "single_pulse_search_block", {1}, err)

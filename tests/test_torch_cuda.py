@@ -45,6 +45,27 @@ def _on(dev, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
 
+@pytest.mark.parametrize("nshards", [2, 3, 8])
+def test_dedisperse_sharded(dev, nshards):
+    # one launch a shard of the card, each on its slice of the delays
+    # (the last shard's padded with the last row): bitwise one launch
+    from peasoup_tpu_torch.parallel.mesh import make_mesh
+    from peasoup_tpu_torch.parallel.sharded_dedisperse import dedisperse_sharded
+
+    rng = np.random.default_rng(nshards)
+    c, d, t = 64, 77, 20011
+    x = rng.integers(0, 4, size=(t, c), dtype=np.uint8)
+    delays = np.sort(rng.integers(0, 330, size=(d, c)), axis=0).astype(np.int32)
+    kill = np.ones(c, dtype=np.int32)
+    out_n = t - int(delays.max())
+    (xd,) = _on(dev, x)
+    want = dedisperse.dedisperse(xd, delays, kill, out_n)
+    mesh = make_mesh({"dm": nshards}, devices=[dev] * nshards)
+    got = dedisperse_sharded(xd, delays, kill, out_n, mesh)
+    assert len(got.parts) == nshards and got.per == -(-d // nshards)
+    assert torch.equal(got.rows(0, d, dev), want)
+
+
 @pytest.mark.parametrize(
     "c,d,t,spread,scale,full",
     [

@@ -405,7 +405,6 @@ def test_cli_files_match_jax(fils, tmp_path):
 @pytest.mark.parametrize("argv,env,item", [
     (["--metrics-json", "m.json"], {}, "A.10"),
     (["--status-json", "s.json"], {}, "A.10"),
-    ([], {"JAX_COORDINATOR_ADDRESS": "localhost:1234"}, "A.9"),
 ])
 def test_cli_refuses_unported_flags(monkeypatch, tmp_path, argv, env, item):
     from peasoup_tpu_torch.cli.fdas import main
@@ -414,3 +413,28 @@ def test_cli_refuses_unported_flags(monkeypatch, tmp_path, argv, env, item):
         monkeypatch.setenv(k, v)
     with pytest.raises(NotImplementedError, match=item):
         main(["-i", str(tmp_path / "x.fil"), "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("env", [
+    {"JAX_COORDINATOR_ADDRESS": "localhost:1234"},
+    {"JAX_COORDINATOR_ADDRESS": "localhost:1234", "JAX_NUM_PROCESSES": "1",
+     "JAX_PROCESS_ID": "0"},
+])
+def test_cli_multiprocess_variables_now_run(fils, monkeypatch, tmp_path, env):
+    # ROADMAP A.9, ported: the JAX package's multi-process variables, which
+    # the CLI refused before, now select the multi-process driver; naming
+    # one process (or a coordinator alone, as the JAX runtime reads it)
+    # runs the single-process search, whose candidates the CLI writes
+    from peasoup_tpu_torch.cli.fdas import main
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    out = tmp_path / "out"
+    assert main(["-i", fils["midz"], "-o", str(out), "--device", "cpu", *FLAGS]) == 0
+    got = ET.parse(out / "overview.xml").getroot().findall("candidates/candidate")
+    ref = FdasSearch(FdasConfig(**BASE), device="cpu").run(read_filterbank(fils["midz"]))
+    assert len(got) == len(ref.candidates) > 0
+    for e, c in zip(got, ref.candidates):
+        assert float(e.find("dm").text) == pytest.approx(c.dm, rel=1e-6)
+        assert float(e.find("period").text) == pytest.approx(1.0 / c.freq, rel=1e-6)
+        assert float(e.find("snr").text) == pytest.approx(c.snr, rel=1e-6)

@@ -52,7 +52,10 @@ def test_importing_every_module_loads_no_jax():
                  "sift.crossmatch", "sift.dedup", "sift.repeats", "ops.survey_fold",
                  "sift.fold", "sift.service", "sift.report", "obs.schema",
                  "ops.candidate_features", "rank.model", "rank.score", "rank.train",
-                 "cli.sift", "cli.rank"):
+                 "cli.sift", "cli.rank", "parallel.mesh", "parallel.multihost",
+                 "parallel.sharded_dedisperse", "parallel.sharded_search",
+                 "parallel.coincidence", "parallel.distributed_fft",
+                 "resilience.errors"):
         assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -115,6 +118,27 @@ def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
             "sift": ["run", "-w", str(tmp_path)], "rank": ["score", "-w", str(tmp_path)]}[cli]
     with pytest.raises(RuntimeError, match="is_available"):
         main(argv)
+
+
+@pytest.mark.parametrize("entry", ["multibeam_veto", "run_search", "run_single_pulse_search",
+                                   "run_fdas_search"])
+def test_library_entry_points_default_to_the_card(monkeypatch, entry):
+    # the sift's multibeam veto and the multi-process drivers run on the
+    # card unless asked for the CPU: without one they raise before any work
+    from peasoup_tpu_torch.parallel import multihost
+    from peasoup_tpu_torch.pipeline.fdas import FdasConfig
+    from peasoup_tpu_torch.sift.dedup import multibeam_veto
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {
+        "multibeam_veto": lambda: multibeam_veto([]),
+        "run_search": lambda: multihost.run_search(None, SearchConfig()),
+        "run_single_pulse_search": lambda: multihost.run_single_pulse_search(
+            None, SinglePulseConfig()),
+        "run_fdas_search": lambda: multihost.run_fdas_search(None, FdasConfig()),
+    }[entry]
+    with pytest.raises(RuntimeError, match="is_available"):
+        call()
 
 
 def _code_strings(path: Path) -> list[str]:

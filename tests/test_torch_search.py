@@ -180,12 +180,30 @@ def test_cli_writes_both_files(synthetic, tmp_path, port_result):
     "overrides,item",
     [
         (dict(tune=True), "A.10"),
-        (dict(shard_devices=2), "A.9"),
     ],
 )
 def test_unported_options_are_refused(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         PeasoupSearch(SearchConfig(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("nshards", [2, 3, 8])
+def test_shard_devices_now_run(synthetic, port_result, nshards):
+    # ROADMAP A.9, ported: shard_devices, refused before, shards the DM
+    # trials over that many shards of the CPU. Each shard dedisperses and
+    # searches its own 1/n of the trials, so the blocks are shorter and
+    # the CPU FFT of a shorter batch may round differently: the
+    # identities are the unsharded run's, S/N within 1e-5 relative (as
+    # test_small_blocks_give_the_same_candidates holds it)
+    path, _, _ = synthetic
+    search = PeasoupSearch(SearchConfig(**KW, shard_devices=nshards), device="cpu")
+    assert len(search.devices) == nshards
+    res = search.run(read_filterbank(path))
+    assert [_identity(c) for c in res.candidates] == [
+        _identity(c) for c in port_result.candidates
+    ]
+    for a, b in zip(port_result.candidates, res.candidates):
+        assert abs(b.snr - a.snr) <= 1e-5 * a.snr
 
 
 @pytest.mark.parametrize(
@@ -472,18 +490,18 @@ def test_tutorial_routes_give_identical_candidates(
     # on the CPU both spectrum routes are torch.fft + the plain epilogue and
     # both peaks routes the take-order sums + the plain walk, so every route
     # gives the default run's candidates exactly
-    from peasoup_tpu_torch.pipeline import search as port_search
+    from peasoup_tpu_torch.parallel import sharded_search
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     seen = set()
-    real = port_search.search_rows
+    real = sharded_search.search_rows
 
     def spy(*args, fused_dft, mega_harm, **kw):
         seen.add((fused_dft, mega_harm))
         return real(*args, fused_dft=fused_dft, mega_harm=mega_harm, **kw)
 
-    monkeypatch.setattr(port_search, "search_rows", spy)
+    monkeypatch.setattr(sharded_search, "search_rows", spy)
     res = PeasoupSearch(SearchConfig(**TUT_KW), device="cpu").run(
         read_filterbank(tutorial_fil)
     )

@@ -154,8 +154,9 @@ def test_multibeam_veto_exact():
         (_periodicity_rows(80, seed=8), {"beam_thresh": 4, "snr_thresh": 9.0}),
     ]
     for cands, kw in cases:
-        assert tdd.multibeam_veto(cands, **kw) == jdd.multibeam_veto(cands, **kw)
-    assert tdd.multibeam_veto(rfi + psr) == {0, 1, 2, 3, 4}
+        assert tdd.multibeam_veto(cands, **kw, device="cpu") == jdd.multibeam_veto(
+            cands, **kw)
+    assert tdd.multibeam_veto(rfi + psr, device="cpu") == {0, 1, 2, 3, 4}
 
 
 def test_repeats_exact():

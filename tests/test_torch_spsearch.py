@@ -146,12 +146,24 @@ def test_cli_output_parses_and_matches_jax(small, tmp_path):
     "overrides,item",
     [
         (dict(tune=True), "A.10"),
-        (dict(shard_devices=2), "A.9"),
     ],
 )
 def test_unported_options_are_refused(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
         SinglePulseSearch(SinglePulseConfig(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("nshards", [2, 3, 8])
+def test_shard_devices_now_run(small, results, nshards):
+    # ROADMAP A.9, ported: shard_devices, refused before, shards the DM
+    # trials over that many shards of the CPU; each trial's events do not
+    # depend on its block, so the candidates are the unsharded run's
+    _, got = results
+    search = SinglePulseSearch(SinglePulseConfig(**KW, shard_devices=nshards),
+                               device="cpu")
+    assert len(search.devices) == nshards
+    res = search.run(read_filterbank(small[0]))
+    assert [vars(c) for c in res.candidates] == [vars(c) for c in got.candidates]
 
 
 def test_checkpoint_option_now_runs(small, results, tmp_path):
