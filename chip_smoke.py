@@ -168,6 +168,27 @@ Phases, each fatal on failure:
   kernel is also held bit for bit at the shapes phases 25-26 add, on the
   big grid (39, 38 and one padding row, 38 trials) and the single-pulse
   grid (90, 89 and one padding row, 89 trials) (``other_shapes``).
+ 28. The tuning and measurement layer (peasoup_tpu_torch/perf). (a) `peasoup
+     --tune` on the big grid with a fresh --tuning-cache: the tuner measures
+     (dedisperse at (t_in, 64) -> (b, 65,536) for b in 8..64 and in the
+     engine race, resample at (b, 32,768) for b in 8, 16, 32, the
+     normaliser at b in 16, 32, 64; its launches and their shapes printed,
+     with its trials, knobs and fingerprint), the plan is tuned and exact,
+     and the candidates are phase 3's, bytes for bytes; (b) the same run
+     warm: no measurement, the plan from the cache, the same bytes; (c)
+     `spsearch --tune` on the single-pulse grid, cold then warm: the three
+     pulses at phase 6's standard and phase 6's candidates, bytes for
+     bytes; (d) SearchConfig(tune=True, subband_snr_loss=0.3) on the big
+     grid through the API, cold: the tuner times the subband counts and
+     races the engines (the winner printed) and the top candidate is the
+     pulsar; then the same search from a cache that holds the planner's
+     analytic plan: subband, 16 subbands, DM-scaled budgets, its trials
+     bitwise a direct dedisperse_subband(..., budgets=dm_smear_budgets(...))
+     and its top candidate the pulsar; (e) `python -m
+     peasoup_tpu_torch.tools.perf warmup` in a fresh process builds no
+     kernel, `bench` writes perf.json (each kernel's median printed beside
+     phase 7's time at the main path's shape) and `check` passes against
+     the port's baseline (peasoup_tpu_torch/perf/perf_baseline.json).
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -175,6 +196,7 @@ last `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -192,6 +214,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from peasoup_tpu_torch import kernels, native  # noqa: E402
+from peasoup_tpu_torch.campaign.buckets import bucket_for_header  # noqa: E402
 from peasoup_tpu_torch.io.sigproc import (  # noqa: E402
     Filterbank, SigprocHeader, read_filterbank, write_filterbank,
 )
@@ -234,10 +257,11 @@ from peasoup_tpu_torch.plan.accel_plan import AccelerationPlan  # noqa: E402
 from peasoup_tpu_torch.plan.dm_plan import DMPlan, delay_table  # noqa: E402
 from peasoup_tpu_torch.fdas.templates import SPEED_OF_LIGHT  # noqa: E402
 from peasoup_tpu_torch.parallel.multihost import dm_slice_for_process  # noqa: E402
+from peasoup_tpu_torch.perf.roofline import device_peaks  # noqa: E402
 
-# the H100 SXM's published peaks (NVIDIA data sheet, at its 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+# the H100 SXM's published peaks (NVIDIA data sheet, at its 700 W limit),
+# the roofline's one row
+F32_FLOPS, HBM_BYTES_PER_S = device_peaks("H100")
 
 # the big grid: bench.py's pinned survey-scale grid ("Big grid, round 5")
 NCHANS, NSAMPS, TSAMP, FCH1 = 64, (1 << 21) + 8192, 64e-6, 1500.0
@@ -2978,6 +3002,256 @@ def shard_shape_checks(dev: torch.device, paths: dict) -> list[dict]:
     return out
 
 
+# --- the tuning and measurement layer (phase 28) -----------------------------
+
+# the planner's subband plan of the big grid's bucket: a 0.3 S/N loss
+# admits 16 subbands under DM-scaled smear budgets (tests/test_torch_dedisp_plan.py)
+TUNE_SUBBAND_LOSS = 0.3
+TUNE_SUBBANDS = 16
+# the tuner's probe on the big grid: 2^22 samples over 64 channels, and
+# rows of 2^15 samples for the resample kernel (perf/tuning.py)
+TUNE_PROBE_SAMPLES, TUNE_RESAMPLE_SAMPLES = 65_536, 32_768
+
+
+class _Records(logging.Handler):
+    """The messages one logger emits while attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages: list[str] = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def tuned_entry(cache: str, pipeline: str, smi: str) -> dict:
+    """The cache's one entry for ``pipeline`` on this card, printed: the
+    fingerprint, knobs, tuning time and each trial (knob -> median)."""
+    from peasoup_tpu_torch.perf import tuning
+
+    fp = tuning.device_fingerprint(torch.device("cuda", 0))
+    doc = tuning.load_cache(cache)
+    tuning.validate_cache(doc)
+    entries = {k: v for k, v in doc["devices"].get(fp, {}).items()
+               if k.startswith(pipeline + "|")}
+    require(len(entries) == 1, f"one {pipeline} entry under {fp} in the tuning cache")
+    key, e = next(iter(entries.items()))
+    say(f"tuning cache ({smi}): {fp} {key}: engine {e['engine']}, dedisp_block "
+        f"{e['dedisp_block']}, dm_block {e['dm_block']}, accel_bucket {e['accel_bucket']}, "
+        f"tuning_s {e['tuning_s']!r}, source {e['source']}")
+    for t in e["trials"]:
+        say(f"  trial {json.dumps(t['params'])} -> median {t['median_s']!r} s ({smi})")
+    return e
+
+
+def tuner_launches(run: dict) -> dict:
+    """The launches a CLI run made at the tuner's probe shapes, by kernel and
+    shape: dedisperse to (b, 65,536) from 64 channels, resample of (b,
+    32,768) rows from one series. No grid of this script launches either
+    at those shapes."""
+    probe = {"dedisperse": lambda s: s[1] == NCHANS and s[3] == TUNE_PROBE_SAMPLES,
+             "resample": lambda s: s[1] == 1 and s[2] == TUNE_RESAMPLE_SAMPLES}
+    return {name: {str(s): n for s, n in sorted(run["shapes"][name].items()) if probe[name](s)}
+            for name in probe}
+
+
+def tuned_cli_run(main, argv, outdir, outputs, path_kernels):
+    """cli_phase with the tuner's log captured: (record, measurements, log)."""
+    from peasoup_tpu_torch.perf import tuning
+
+    rec = _Records()
+    lg = logging.getLogger("peasoup_tpu_torch.tuning")
+    lg.addHandler(rec)
+    level = lg.level
+    lg.setLevel(logging.INFO)
+    n0 = tuning.measurement_count()
+    try:
+        run = cli_phase(main, argv, outdir, outputs, path_kernels)
+    finally:
+        lg.removeHandler(rec)
+        lg.setLevel(level)
+    return run, tuning.measurement_count() - n0, rec.messages
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def tuning_phase(tmp: str, dev: torch.device, paths: dict, runs: dict, checks: dict,
+                 smi: str) -> dict:
+    """Phase 28 (a)-(e), the docstring's."""
+    from peasoup_tpu_torch.cli.peasoup import main as ps_main
+    from peasoup_tpu_torch.cli.spsearch import main as sp_main
+    from peasoup_tpu_torch.ops.dedisperse import dedisperse_subband
+    from peasoup_tpu_torch.perf import tuning
+    from peasoup_tpu_torch.plan.dedisp_plan import dm_smear_budgets
+
+    out = {}
+    # (a), (b): peasoup --tune on the big grid, cold then warm
+    cache = os.path.join(tmp, "tuning_cache.json")
+    base_dir = os.path.join(tmp, "big_grid")
+    for state in ("cold", "warm"):
+        outdir = os.path.join(tmp, f"big_tuned_{state}")
+        run, measured, log = tuned_cli_run(
+            ps_main, ["-i", paths["big"], "-o", outdir, *GRID_FLAGS, "--tune",
+                      "--tuning-cache", cache],
+            outdir, ("candidates.peasoup", "overview.xml"), PEASOUP_KERNELS)
+        entry = tuned_entry(cache, "search", smi)
+        launches = tuner_launches(run)
+        say(f"big grid --tune, {state}: {measured} measurements, {run['wall']:.3f} s CLI wall, "
+            f"stage timers {json.dumps(run['timers'], sort_keys=True)} ({smi})")
+        say(f"big grid --tune, {state}: launches at the tuner's probe shapes "
+            f"(t_in, nchans, trials, samples) / (rows, series, samples): "
+            f"{json.dumps(launches)}")
+        require(entry["engine"] == "exact", "the big grid's tuned plan is exact")
+        if state == "cold":
+            require(measured > 0 and entry["source"] == "tuned",
+                    "a cold --tune measures on the card and stores a tuned plan")
+            require(any(log_line.startswith("tuned plan for search|") for log_line in log),
+                    "the cold run tuned its plan")
+            require(len(launches["dedisperse"]) >= 4 and len(launches["resample"]) == 3,
+                    "the tuner launched dedisperse at each height and resample at "
+                    "each accel bucket")
+            out["plan"] = entry
+        else:
+            fil = read_filterbank(paths["big"])
+            t0 = time.perf_counter()
+            warm = tuning.resolve_plan_for_filterbank(
+                fil, "search", dataclasses.replace(GRID_CONFIG, tune=True), cache,
+                device=dev)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            del fil
+            say(f"big grid --tune, warm: the plan resolved from the cache alone in "
+                f"{load_ms:.3f} ms ({smi})")
+            require(warm.source == "cache", "the warm plan comes from the cache")
+            out["warm load ms"] = load_ms
+            require(measured == 0, "a warm --tune makes no measurement")
+            require(any(log_line.startswith("tuning cache hit for search|")
+                        for log_line in log), "the warm run read its plan from the cache")
+            require(sum(sum(v.values()) for v in launches.values()) == 0,
+                    "a warm --tune launches nothing at the tuner's probe shapes")
+        bitwise = (same_bytes(os.path.join(outdir, "candidates.peasoup"),
+                              os.path.join(base_dir, "candidates.peasoup"))
+                   and xml_candidates(run["root"]) == xml_candidates(runs["big grid"]["root"]))
+        say(f"big grid --tune, {state}: candidates " + (
+            "bytes for bytes phase 3's" if bitwise else "NOT phase 3's bytes"))
+        require(bitwise, f"big grid --tune, {state}: phase 3's candidates bytes for bytes")
+        out[f"big {state}"] = dict(measured=measured, launches=launches, wall=run["wall"],
+                                   timers=run["timers"])
+
+    # (c): spsearch --tune on the single-pulse grid, cold then warm
+    sp_base = os.path.join(tmp, "single_pulse_grid", "candidates.singlepulse")
+    for state in ("cold", "warm"):
+        outdir = os.path.join(tmp, f"sp_tuned_{state}")
+        run, measured, log = tuned_cli_run(
+            sp_main, ["-i", paths["sp"], "-o", outdir, *SP_FLAGS, "--tune",
+                      "--tuning-cache", cache],
+            outdir, ("candidates.singlepulse", "overview.xml"), SP_KERNELS)
+        entry = tuned_entry(cache, "spsearch", smi)
+        say(f"single-pulse grid --tune, {state}: {measured} measurements, "
+            f"{run['wall']:.3f} s CLI wall ({smi})")
+        require((measured > 0) == (state == "cold"),
+                f"spsearch --tune, {state}: {'some' if state == 'cold' else 'no'} measurement")
+        cands = run["root"].findall("single_pulse_search/candidates/candidate")
+        check_sp_pulses([{k: float(e.find(k).text) for k in SP_FIELDS} for e in cands[:3]],
+                        runs["single-pulse grid"]["pulses"])
+        bitwise = same_bytes(os.path.join(outdir, "candidates.singlepulse"), sp_base)
+        say(f"single-pulse grid --tune, {state}: candidates " + (
+            "bytes for bytes phase 6's" if bitwise else "NOT phase 6's bytes"))
+        require(bitwise, f"spsearch --tune, {state}: phase 6's candidates bytes for bytes")
+        out[f"sp {state}"] = dict(measured=measured, wall=run["wall"], plan=entry)
+
+    # (d): the subband route through the API
+    fil = read_filterbank(paths["big"])
+    cfg = dataclasses.replace(GRID_CONFIG, tune=True, subband_snr_loss=TUNE_SUBBAND_LOSS,
+                              tuning_cache=os.path.join(tmp, "tuning_subband.json"))
+    n0 = tuning.measurement_count()
+    search = PeasoupSearch(cfg, device=dev)
+    res = search.run(fil)
+    plan = search.dedisp_plan
+    raced = {t["params"]["engine"]: t["median_s"] for t in plan.trials
+             if "engine" in t["params"]}
+    counts = {t["params"]["subbands"]: t["median_s"] for t in plan.trials
+              if "subbands" in t["params"]}
+    say(f"big grid, tune with subband_snr_loss {TUNE_SUBBAND_LOSS}, cold: "
+        f"{tuning.measurement_count() - n0} measurements; subband counts timed "
+        f"{json.dumps(counts)}; engine race {json.dumps(raced)}; the plan: "
+        f"{json.dumps(plan.summary())} ({smi})")
+    require(set(raced) >= {"exact", "subband_matmul"} and len(counts) == 3,
+            "the tuner timed the subband counts and raced the engines")
+    require(abs(1.0 / res.candidates[0].freq - PERIOD) / PERIOD < 2e-3,
+            "the tuned subband-loss search's top candidate is the pulsar")
+    out["subband race"] = dict(engine=plan.engine, subbands=plan.subbands, raced=raced,
+                               counts=counts)
+    # the planner's analytic plan, from the cache: the subband route
+    bucket = bucket_for_header(dataclasses.replace(fil.header, nsamples=fil.nsamps))
+    analytic = os.path.join(tmp, "tuning_analytic.json")
+    tuning.resolve_plan_for_bucket(bucket, "search", dataclasses.asdict(cfg), analytic,
+                                   tune=False, device=dev)
+    search = PeasoupSearch(dataclasses.replace(cfg, tuning_cache=analytic, npdmp=1),
+                           device=dev)
+    part = search.run(fil, finalize=False)
+    plan, knobs = search.dedisp_plan, search.knobs
+    require(plan.source == "cache" and plan.engine == "subband"
+            and plan.subbands == TUNE_SUBBANDS and plan.smear_dm_scaled,
+            f"the analytic plan: subband, {TUNE_SUBBANDS} subbands, DM-scaled budgets")
+    sp = search.build_plan(fil)
+    budgets = dm_smear_budgets(sp.dm_list, tsamp=fil.tsamp, fch1=fil.fch1, foff=fil.foff,
+                               nchans=fil.nchans, pulse_width_us=cfg.dm_pulse_width,
+                               max_snr_loss=TUNE_SUBBAND_LOSS, floor=plan.subband_smear)
+    require(knobs.budgets is not None and np.array_equal(knobs.budgets, budgets),
+            "the search rebuilt the DM-scaled budgets")
+    direct = dedisperse_subband(
+        fil_to_device(fil, dev), sp.delays, sp.killmask, sp.out_nsamps, nsub=TUNE_SUBBANDS,
+        max_smear=plan.subband_smear, scale=output_scale(fil.nbits, int(sp.killmask.sum())),
+        budgets=budgets)
+    require(bitwise_equal(torch.as_tensor(part.trials).to(dev), direct),
+            "the subband search's trials are bitwise a direct dedisperse_subband call")
+    res = search.finalize(fil, part)
+    top = res.candidates[0]
+    say(f"big grid, the analytic subband plan from the cache: {json.dumps(plan.summary())}; "
+        f"budgets {float(budgets.min())!r}..{float(budgets.max())!r} samples; trials bitwise "
+        f"the direct call; top candidate period {1.0 / top.freq!r} s, dm {top.dm!r}, "
+        f"snr {top.snr!r} ({smi})")
+    require(abs(1.0 / top.freq - PERIOD) / PERIOD < 2e-3,
+            "the subband plan's top candidate is the pulsar")
+    del fil, search, part, direct, res
+    torch.cuda.empty_cache()
+
+    # (e): peasoup-perf warmup, bench and check, each a fresh process
+    perf_json = os.path.join(tmp, "perf.json")
+    warm_json = os.path.join(tmp, "warmup.json")
+    here = os.path.dirname(os.path.abspath(__file__))
+    for argv in (["warmup", "--json", warm_json], ["bench", "-o", perf_json],
+                 ["check", "--perf", perf_json]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "peasoup_tpu_torch.tools.perf", *argv],
+                              cwd=here, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[-3:]:
+            say(f"  perf {argv[0]} | {line}")
+        if proc.returncode != 0:
+            for line in (lines + proc.stderr.strip().splitlines())[-40:]:
+                say(f"  perf {argv[0]} ! {line}")
+        require(proc.returncode == 0, f"peasoup-perf {argv[0]} exit code 0")
+        say(f"peasoup-perf {argv[0]}: {time.perf_counter() - t0:.1f} s wall ({smi})")
+    with open(warm_json) as f:
+        warm = json.load(f)
+    require(warm["kernels_built"] == [] and not warm["errors"],
+            "peasoup-perf warmup in a fresh process builds no kernel")
+    with open(perf_json) as f:
+        perf = json.load(f)
+    require(perf["power_limit"] == smi, "perf.json names the card and its power limit")
+    for name in SOURCES:
+        rec = perf["programs"][f"kernels.{name}"]
+        say(f"perf bench kernels.{name}: {rec['execute_median_s'] * 1e3:.4f} ms at "
+            f"{rec['args']}; phase 7: {checks[name]['ms']:.4f} ms at {checks[name]['shape']} "
+            f"({perf['power_limit']})")
+    out["perf"] = {k: perf["programs"][f"kernels.{k}"]["execute_median_s"] for k in SOURCES}
+    return out
+
+
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
     busy share of the run's wall time."""
@@ -3219,6 +3493,8 @@ def main() -> int:
             (f"25, {NSHARDS} shards on one card", lambda: split_phase(tmp, dev, paths, runs)),
             ("26, two processes on one card", lambda: process_phase(tmp, paths, runs)),
             ("27, the survey fold in two processes", lambda: survey_fold_phase(tmp)),
+            ("28, the tuning and measurement layer",
+             lambda: runs.setdefault("tuning", tuning_phase(tmp, dev, paths, runs, checks, smi))),
         ):
             t0 = time.perf_counter()
             fn()

@@ -11,8 +11,12 @@ The search runs on the CUDA device unless ``--device cpu`` is given;
 dedisperses in two stages over N subbands (``--subband_smear`` samples of
 smear allowed, 0 for the exact sum), ``--dedisp_engine matmul`` through the
 banded-matmul engine, and ``--checkpoint FILE`` saves the per-DM results
-as they are searched and resumes from them. ``--tune`` is refused: the
-port has no tuning cache yet.
+as they are searched and resumes from them. ``--tune`` takes the
+dedispersion plan of the observation's shape bucket from the per-device
+tuning cache (``--tuning-cache FILE``, default
+~/.cache/peasoup_tpu_torch/tuning_cache.json or $PEASOUP_TUNING_CACHE),
+measured on the card the first time a bucket is seen
+(peasoup_tpu_torch/perf/tuning.py).
 
 Every run goes through the multi-process driver
 (parallel/multihost.py:run_search), as the JAX CLI's does: alone, one
@@ -98,8 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dedispersion engine: the dedisperse kernel ('' or "
                    "'exact') or the banded-matmul engine")
     p.add_argument("--tune", action=argparse.BooleanOptionalAction, default=False,
-                   help="tuned dedispersion plans (not ported yet)")
-    p.add_argument("--tuning-cache", default="")
+                   help="take the dedispersion plan and search knobs from the "
+                   "per-device tuning cache, measuring them on a cold bucket")
+    p.add_argument("--tuning-cache", default="",
+                   help="tuning_cache.json path ('' = the per-user cache)")
     p.add_argument("--checkpoint", default="",
                    help="Checkpoint file for resumable searches")
     p.add_argument("--hbm_bytes", type=int, default=0,

@@ -13,8 +13,10 @@ writes, in the output directory:
                            <single_pulse_search> section and the timers
 The JAX CLI's telemetry.json is not written: the port has no run
 telemetry yet. ``--checkpoint FILE`` saves each DM block's events as it is
-searched and resumes from them; ``--tune`` is refused: the port has no
-tuning cache yet.
+searched and resumes from them; ``--tune`` takes the segment height of
+trials dedispersed into host RAM from the per-device tuning cache
+(``--tuning-cache FILE``), measured on the card the first time a bucket is
+seen (peasoup_tpu_torch/perf/tuning.py).
 
 Every run goes through the multi-process driver
 (parallel/multihost.py:run_single_pulse_search), as the JAX CLI's does:
@@ -78,8 +80,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dm_block", type=int, default=0,
                    help="DM trials per device block (0 = auto from the memory budget)")
     p.add_argument("--tune", action=argparse.BooleanOptionalAction, default=False,
-                   help="tuned dedispersion plans (not ported yet)")
-    p.add_argument("--tuning-cache", default="")
+                   help="take the dedispersion knobs from the per-device tuning "
+                   "cache, measuring them on a cold bucket")
+    p.add_argument("--tuning-cache", default="",
+                   help="tuning_cache.json path ('' = the per-user cache)")
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("-p", "--progress_bar", action="store_true")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

@@ -14,7 +14,11 @@ packages: ``JAX_COORDINATOR_ADDRESS`` (host:port, or a URL),
 torchrun's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/``RANK``. With
 neither, a run is one process and nothing here does anything. Each
 process of a CUDA run takes card ``LOCAL_RANK % device_count`` (the rank
-where ``LOCAL_RANK`` is unset).
+where ``LOCAL_RANK`` is unset). The per-process runs go through the same
+drivers as a single process's, so with ``tune`` each process resolves its
+own dedispersion plan from the tuning cache on its own card, as the JAX
+package's processes do (processes that share a cache file write it in
+turn, and the last writer wins).
 
 The exchange is ``dist.all_gather_object`` on a gloo process group, in
 rank order: the payloads are host lists, and gloo, unlike NCCL, serves

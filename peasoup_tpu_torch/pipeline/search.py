@@ -46,11 +46,22 @@ run searches its slice of the global DM list only
 (parallel/multihost.py:run_search merges the slices and passes
 :meth:`PeasoupSearch.finalize` its fold exchange).
 
-Not ported yet, and refused with NotImplementedError: the tuning cache.
+With ``tune`` (``--tune``), no ``subbands`` and no ``dedisp_engine``, the
+dedispersion plan of the observation's shape bucket comes from the
+per-device tuning cache, measured on the card on a cold bucket
+(perf/tuning.py, the JAX package's pipeline/search.py:540-599): a subband
+plan sets the subband count, smear and stages, and the DM-scaled per-trial
+smear budgets the planner grouped under, rebuilt on this observation's own
+DM list; a matmul plan runs the banded-matmul engine; the plan's
+``dedisp_block`` sizes the host-RAM segments, its ``dm_block`` caps the
+automatic DM block (the memory ladder still halves it) where ``dm_block``
+is 0, and its ``accel_bucket`` replaces the default one. A failed
+measurement fails the run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -92,15 +103,15 @@ log = logging.getLogger("peasoup_tpu_torch.search")
 class SearchConfig:
     """Mirrors CmdLineOptions with the reference's defaults
     (include/utils/cmdline.hpp:69-209), and the JAX package's
-    SearchConfig field for field. Fields for features the port does not
-    have yet must keep their defaults (PeasoupSearch refuses others).
-    ``subband_matmul`` runs the subband stages as banded contractions
+    SearchConfig field for field. ``subband_matmul`` runs the subband stages as banded contractions
     (the JAX package has no flag for it either); ``dedisp_block`` sizes
     the segments of trials dedispersed into host RAM. ``max_num_threads``
     caps the cards the DM trials are sharded over and ``shard_devices``
-    forces a shard count (:func:`_pick_devices`). The JAX package's TPU
-    knobs (use_pallas, use_pallas_peaks, tuning_cache) have no effect
-    here, and accel_bucket only pads the deduped results."""
+    forces a shard count (:func:`_pick_devices`). ``tune`` resolves the
+    dedispersion plan from the tuning cache at ``tuning_cache`` (""
+    = perf/tuning.py:default_cache_path). The JAX package's TPU knobs
+    (use_pallas, use_pallas_peaks) have no effect here, and accel_bucket
+    only pads the deduped results."""
 
     outdir: str = "."
     killfilename: str = ""
@@ -147,6 +158,28 @@ class SearchConfig:
     use_pallas: bool = True
     use_pallas_peaks: bool = True
     shard_devices: int = 0
+
+
+@dataclass(frozen=True)
+class DedispKnobs:
+    """The dedispersion and search knobs of a run: the config's, or where
+    ``tune`` resolved a plan, the plan's (:meth:`PeasoupSearch.resolve_knobs`)."""
+
+    subbands: int
+    subband_smear: float
+    subband_matmul: bool
+    engine: str  # "" = the dedisperse kernel, "matmul" = the banded matmul
+    dedisp_block: int  # DM trials a host-RAM segment of dedisperse_host
+    budgets: np.ndarray | None  # DM-scaled per-trial smear budgets, or None
+    dm_block: int  # the tuned cap on the automatic DM block; 0 = none
+    accel_bucket: int
+
+    @classmethod
+    def of(cls, cfg) -> "DedispKnobs":
+        return cls(subbands=cfg.subbands, subband_smear=cfg.subband_smear,
+                   subband_matmul=cfg.subband_matmul, engine=cfg.dedisp_engine,
+                   dedisp_block=cfg.dedisp_block, budgets=None, dm_block=0,
+                   accel_bucket=cfg.accel_bucket)
 
 
 @dataclass
@@ -568,12 +601,6 @@ def _release(*devices: torch.device) -> None:
                 torch.cuda.empty_cache()
 
 
-def _unsupported(cfg) -> str | None:
-    if cfg.tune:
-        return "the tuning cache is ROADMAP item A.10"
-    return None
-
-
 def _pick_devices(device, cfg, devices=None) -> list[torch.device]:
     """The devices to shard the DM trials over (the JAX package's
     _pick_devices): an explicit ``devices`` list as given (it may repeat a
@@ -621,9 +648,6 @@ class PeasoupSearch:
 
     def __init__(self, config: SearchConfig, device: str | torch.device = "cuda",
                  devices=None):
-        why = _unsupported(config)
-        if why:
-            raise NotImplementedError(f"not ported yet: {why}")
         self.config = config
         self.devices = _pick_devices(device, config, devices)
         self.device = self.devices[0]  # where the fold and the host copies go
@@ -642,6 +666,10 @@ class PeasoupSearch:
             self.TRIALS_DEVICE_LIMIT = int(limit) // 3
         # DM trials the last run searched (the rest were restored)
         self.n_searched = 0
+        # the tuned dedispersion plan of the last run (None without tune)
+        # and the knobs the run took
+        self.dedisp_plan = None
+        self.knobs = DedispKnobs.of(config)
 
     def build_dm_plan(self, fil: Filterbank) -> DMPlan:
         cfg = self.config
@@ -702,6 +730,52 @@ class PeasoupSearch:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
+    def resolve_knobs(self, fil: Filterbank, plan: SearchPlan) -> DedispKnobs:
+        """The run's knobs (the JAX package's pipeline/search.py:540-599):
+        the config's; or with ``tune``, no ``subbands`` and no
+        ``dedisp_engine``, those of the plan the tuning cache holds for the
+        observation's bucket on this card, tuned there on a cold bucket
+        (perf/tuning.py). Sets :attr:`dedisp_plan`."""
+        cfg = self.config
+        knobs = DedispKnobs.of(cfg)
+        self.dedisp_plan = None
+        if not cfg.tune or cfg.subbands != 0 or cfg.dedisp_engine:
+            return knobs
+        from ..perf.tuning import resolve_plan_for_filterbank
+
+        dplan = resolve_plan_for_filterbank(
+            fil, "search", cfg, cfg.tuning_cache or None, device=self.device
+        )
+        self.dedisp_plan = dplan
+        changes = dict(dedisp_block=dplan.dedisp_block or cfg.dedisp_block)
+        if dplan.engine == "subband":
+            changes.update(subbands=dplan.subbands, subband_smear=dplan.subband_smear,
+                           subband_matmul=cfg.subband_matmul or dplan.subband_matmul)
+            if dplan.smear_dm_scaled and dplan.smear_loss_budget:
+                # the per-trial budgets the planner grouped under, rebuilt
+                # on this observation's own DM list (deterministic in the
+                # geometry, so the cache holds only the loss fraction)
+                from ..plan.dedisp_plan import dm_smear_budgets
+
+                changes["budgets"] = dm_smear_budgets(
+                    plan.dm_list, tsamp=fil.tsamp, fch1=fil.fch1, foff=fil.foff,
+                    nchans=fil.nchans, pulse_width_us=cfg.dm_pulse_width,
+                    max_snr_loss=dplan.smear_loss_budget, floor=dplan.subband_smear,
+                )
+        elif dplan.engine == "matmul":
+            changes["engine"] = "matmul"
+        # an explicit config value wins; the defaults take the card's winner
+        if cfg.dm_block == 0 and dplan.dm_block:
+            changes["dm_block"] = int(dplan.dm_block)
+        if (cfg.accel_bucket == SearchConfig.__dataclass_fields__["accel_bucket"].default
+                and dplan.accel_bucket):
+            changes["accel_bucket"] = int(dplan.accel_bucket)
+        log.info("dedispersion plan: %s (subbands=%d, dedisp_block=%d, gain %.2fx, "
+                 "predicted S/N loss %.3f, %s): %s", dplan.engine, dplan.subbands,
+                 dplan.dedisp_block, dplan.gain, dplan.predicted_loss, dplan.source,
+                 dplan.summary())
+        return dataclasses.replace(knobs, **changes)
+
     def _memory_budget(self) -> int:
         """Bytes one shard's blocks may take on its device."""
         if self.config.hbm_bytes:
@@ -754,6 +828,7 @@ class PeasoupSearch:
                 dm_offset=dm_lo,
             )
             return self.finalize(fil, part) if finalize else part
+        self.knobs = knobs = self.resolve_knobs(fil, plan)
 
         # the checkpoint store, loaded once before dedispersion: when every
         # trial is restored and nothing is folded, the trials are never read.
@@ -778,7 +853,7 @@ class PeasoupSearch:
         t0 = time.perf_counter()
         scale = output_scale(fil.nbits, int(plan.killmask.sum()))
         # sharded trials spread over the shards' devices
-        n_cards = len(set(self.devices)) if cfg.subbands == 0 else 1
+        n_cards = len(set(self.devices)) if knobs.subbands == 0 else 1
         spill = plan.ndm * plan.out_nsamps > self.TRIALS_DEVICE_LIMIT * n_cards
         if skip_dedisp:
             log.info("resume fast path: every DM trial restored and npdmp=0; "
@@ -855,31 +930,33 @@ class PeasoupSearch:
         return self.finalize(fil, part) if finalize else part
 
     def _dedisperse(self, fil: Filterbank, plan: SearchPlan, scale: float, spill: bool):
-        """All DM trials, by the engine the configuration names (the JAX
+        """All DM trials, by the engine the run's knobs name (the JAX
         package's dispatch, its pipeline/search.py:689-736): sharded over
         the devices where there are several (the direct sum only), on the
         device, or in host RAM (numpy) where ``spill``."""
-        cfg = self.config
+        knobs = self.knobs
         x = fil_to_device(fil, self.device)
         args = (x, plan.delays, plan.killmask, plan.out_nsamps)
-        if len(self.devices) > 1 and cfg.subbands == 0 and not spill:
+        if len(self.devices) > 1 and knobs.subbands == 0 and not spill:
             log.info("dedispersion: dedisperse kernel on %d shards", len(self.devices))
             return dedisperse_sharded(*args, self.mesh, scale=scale)
-        if cfg.subbands > 0:
-            log.info("dedispersion: subband (nsub %d, max_smear %s, %s stages)%s",
-                     cfg.subbands, cfg.subband_smear,
-                     "matmul" if cfg.subband_matmul else "scan",
+        if knobs.subbands > 0:
+            log.info("dedispersion: subband (nsub %d, max_smear %s%s, %s stages)%s",
+                     knobs.subbands, knobs.subband_smear,
+                     "" if knobs.budgets is None else ", DM-scaled budgets",
+                     "matmul" if knobs.subband_matmul else "scan",
                      ", trials in host RAM" if spill else "")
             return dedisperse_subband(
-                *args, nsub=cfg.subbands, max_smear=cfg.subband_smear,
-                scale=scale, to_host=spill, use_matmul=cfg.subband_matmul,
+                *args, nsub=knobs.subbands, max_smear=knobs.subband_smear,
+                scale=scale, to_host=spill, use_matmul=knobs.subband_matmul,
+                budgets=knobs.budgets,
             )
-        if cfg.dedisp_engine == "matmul" and not spill:
+        if knobs.engine == "matmul" and not spill:
             log.info("dedispersion: banded matmul")
             return dedisperse_matmul(*args, scale=scale)
         if spill:
             log.info("dedispersion: dedisperse kernel, trials in host RAM")
-            return dedisperse_host(*args, scale=scale, block=cfg.dedisp_block)
+            return dedisperse_host(*args, scale=scale, block=knobs.dedisp_block)
         log.info("dedispersion: dedisperse kernel")
         return dedisperse(*args, scale=scale)
 
@@ -916,7 +993,7 @@ class PeasoupSearch:
                         d_blk, row_blk, *self._blocks(plan, geometry["size"], shrink), exc,
                     )
                     continue
-                if (fell_host or cfg.subbands > 0 or skip_dedisp
+                if (fell_host or self.knobs.subbands > 0 or skip_dedisp
                         or isinstance(trials, np.ndarray)):
                     raise
                 fell_host, shrink = True, 1
@@ -929,16 +1006,18 @@ class PeasoupSearch:
             _release(*self.devices)
             trials = dedisperse_host(
                 fil_to_device(fil, self.device), plan.delays, plan.killmask,
-                plan.out_nsamps, scale=scale, block=cfg.dedisp_block,
+                plan.out_nsamps, scale=scale, block=self.knobs.dedisp_block,
             )
 
     def _blocks(self, plan, size: int, shrink: int = 1) -> tuple[int, int]:
         """(DM trials a preprocessed block, rows a batch) of one shard, each
-        divided by ``shrink`` (at least 1)."""
+        divided by ``shrink`` (at least 1). The automatic DM block is capped
+        by the tuned one (:attr:`knobs`)."""
         budget = self._memory_budget()
-        d_blk = self.config.dm_block or max(
-            1, min(plan.ndm, budget // 2 // (self.DM_BYTES_PER_SAMPLE * size))
-        )
+        auto = max(1, min(plan.ndm, budget // 2 // (self.DM_BYTES_PER_SAMPLE * size)))
+        if self.knobs.dm_block:
+            auto = min(auto, self.knobs.dm_block)
+        d_blk = self.config.dm_block or auto
         row_blk = max(1, budget // 2 // (self.ROW_BYTES_PER_SAMPLE * size))
         return max(1, d_blk // shrink), max(1, row_blk // shrink)
 
@@ -1055,7 +1134,7 @@ class PeasoupSearch:
                 # results onto every accel trial of its class
                 vi, vs, cells = _expand_accel_results(
                     vi, vs, cells, expand[d],
-                    _accel_pad(len(plan.accel_lists[d]), self.config.accel_bucket),
+                    _accel_pad(len(plan.accel_lists[d]), self.knobs.accel_bucket),
                 )
             per_dm[d] = (vi, vs, cells)
             r0 = r1

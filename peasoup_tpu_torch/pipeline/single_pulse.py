@@ -30,7 +30,11 @@ its raw events (global dm_idx) for the merge
 (parallel/multihost.py:run_single_pulse_search). A shard that fails fails
 the run: nothing falls back to fewer devices.
 
-Not ported yet, and refused with NotImplementedError: the tuning cache.
+With ``tune`` the plan of the observation's shape bucket comes from the
+per-device tuning cache, measured on the card on a cold bucket
+(perf/tuning.py, the JAX package's pipeline/single_pulse.py:434-447): its
+``dedisp_block`` sizes the segments of trials dedispersed into host RAM.
+As in the JAX package, the single-pulse search takes nothing else from it.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from ..parallel.mesh import make_mesh
 from ..parallel.sharded_dedisperse import dedisperse_sharded, shard_bounds
 from ..plan.dm_plan import DMPlan
 from .checkpoint import SearchCheckpoint
-from .search import _is_oom, _pick_devices, _release, _trial_rows, _unsupported
+from .search import _is_oom, _pick_devices, _release, _trial_rows
 
 log = logging.getLogger("peasoup_tpu_torch.single_pulse")
 
@@ -61,12 +65,12 @@ log = logging.getLogger("peasoup_tpu_torch.single_pulse")
 class SinglePulseConfig:
     """The JAX package's SinglePulseConfig with its defaults
     (Heimdall/GSP practice; the reference has no single-pulse search),
-    less its TPU knobs dedisp_block and use_pallas. Fields of features
-    the port does not have yet must keep their defaults
-    (SinglePulseSearch refuses others). ``max_num_threads`` caps the
-    cards the DM trials are sharded over and ``shard_devices`` forces a
-    shard count (pipeline/search.py:_pick_devices); tuning_cache, which
-    the CLI takes for the JAX CLI's flag, has no effect here."""
+    less its TPU knobs dedisp_block and use_pallas (a host-RAM segment is
+    dedisperse_host's default height, or the tuned one). ``max_num_threads``
+    caps the cards the DM trials are sharded over and ``shard_devices``
+    forces a shard count (pipeline/search.py:_pick_devices). ``tune``
+    resolves the dedispersion plan from the tuning cache at
+    ``tuning_cache`` ("" = perf/tuning.py:default_cache_path)."""
 
     outdir: str = "."
     killfilename: str = ""
@@ -250,9 +254,6 @@ class SinglePulseSearch:
 
     def __init__(self, config: SinglePulseConfig, device: str | torch.device = "cuda",
                  devices=None):
-        why = _unsupported(config)
-        if why:
-            raise NotImplementedError(f"not ported yet: {why}")
         self.config = config
         self.devices = _pick_devices(device, config, devices)
         self.device = self.devices[0]
@@ -266,6 +267,8 @@ class SinglePulseSearch:
             self.TRIALS_DEVICE_LIMIT = int(limit) // 3
         # DM trials the last run searched (the rest were restored)
         self.n_searched = 0
+        # the tuned dedispersion plan of the last run (None without tune)
+        self.dedisp_plan = None
 
     def build_dm_plan(self, fil: Filterbank) -> DMPlan:
         """The dedispersion plan: the same construction as the
@@ -361,6 +364,21 @@ class SinglePulseSearch:
                          len(per_dm), plan.ndm, cfg.checkpoint_file)
         skip_dedisp = plan.ndm > 0 and all(d in per_dm for d in range(plan.ndm))
 
+        # the tuned segment height of the host-RAM trials
+        seg = {}
+        self.dedisp_plan = None
+        if cfg.tune:
+            from ..perf.tuning import resolve_plan_for_filterbank
+
+            self.dedisp_plan = resolve_plan_for_filterbank(
+                fil, "spsearch", cfg, cfg.tuning_cache or None, device=self.device
+            )
+            log.info("dedispersion plan: dedisp_block=%d (%s): %s",
+                     self.dedisp_plan.dedisp_block, self.dedisp_plan.source,
+                     self.dedisp_plan.summary())
+            if self.dedisp_plan.dedisp_block:
+                seg = dict(block=self.dedisp_plan.dedisp_block)
+
         t0 = time.perf_counter()
         # sharded trials spread over the shards' devices
         spill = (plan.ndm * plan.out_nsamps
@@ -374,7 +392,7 @@ class SinglePulseSearch:
                     plan.killmask, plan.out_nsamps)
             scale = output_scale(fil.nbits, int(plan.killmask.sum()))
             if spill:
-                trials = dedisperse_host(*args, scale=scale)
+                trials = dedisperse_host(*args, scale=scale, **seg)
             elif len(self.devices) > 1:
                 trials = dedisperse_sharded(*args, self.mesh, scale=scale)
             else:

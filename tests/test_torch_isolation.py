@@ -55,7 +55,9 @@ def test_importing_every_module_loads_no_jax():
                  "cli.sift", "cli.rank", "parallel.mesh", "parallel.multihost",
                  "parallel.sharded_dedisperse", "parallel.sharded_search",
                  "parallel.coincidence", "parallel.distributed_fft",
-                 "resilience.errors"):
+                 "resilience.errors", "plan.dedisp_plan", "campaign.buckets",
+                 "perf.measure", "perf.tuning", "perf.roofline", "perf.warmup",
+                 "perf.microbench", "perf.ratchet", "ops.registry", "tools.perf"):
         assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -121,11 +123,14 @@ def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
 
 
 @pytest.mark.parametrize("entry", ["multibeam_veto", "run_search", "run_single_pulse_search",
-                                   "run_fdas_search"])
+                                   "run_fdas_search", "resolve_plan_for_bucket",
+                                   "warm_registry", "run_microbench"])
 def test_library_entry_points_default_to_the_card(monkeypatch, entry):
-    # the sift's multibeam veto and the multi-process drivers run on the
-    # card unless asked for the CPU: without one they raise before any work
+    # the sift's multibeam veto, the multi-process drivers and the tuning
+    # and measurement layer run on the card unless asked for the CPU:
+    # without one they raise before any work
     from peasoup_tpu_torch.parallel import multihost
+    from peasoup_tpu_torch.perf import microbench, tuning, warmup
     from peasoup_tpu_torch.pipeline.fdas import FdasConfig
     from peasoup_tpu_torch.sift.dedup import multibeam_veto
 
@@ -136,6 +141,10 @@ def test_library_entry_points_default_to_the_card(monkeypatch, entry):
         "run_single_pulse_search": lambda: multihost.run_single_pulse_search(
             None, SinglePulseConfig()),
         "run_fdas_search": lambda: multihost.run_fdas_search(None, FdasConfig()),
+        "resolve_plan_for_bucket": lambda: tuning.resolve_plan_for_bucket(
+            (16, 8, 1024, 1e-3, 1400.0, -8.0), "search", {}, "unused.json"),
+        "warm_registry": lambda: warmup.warm_registry(),
+        "run_microbench": lambda: microbench.run_microbench(),
     }[entry]
     with pytest.raises(RuntimeError, match="is_available"):
         call()
@@ -173,11 +182,15 @@ def test_no_data_path_into_the_jax_package():
         "from peasoup_tpu_torch.rank.model import RankModel\n"
         "from peasoup_tpu_torch.sift import report\n"
         "from peasoup_tpu_torch.obs.schema import SchemaError\n"
+        "from peasoup_tpu_torch.perf import microbench, ratchet, tuning\n"
+
         "load_catalogue(); RankModel.from_file()\n"
-        "try:\n"
-        "    report.validate_report({})\n"
-        "except SchemaError:\n"
-        "    pass\n"
+        "tuning.validate_cache(tuning._empty_cache()); ratchet.load_baseline(ratchet.BASELINE_PATH)\n"
+        "for check in (report.validate_report, microbench.validate_perf):\n"
+        "    try:\n"
+        "        check({})\n"
+        "    except SchemaError:\n"
+        "        pass\n"
         "print('\\n'.join(opened))\n"
     )
     out = subprocess.run(
@@ -187,7 +200,9 @@ def test_no_data_path_into_the_jax_package():
     assert out.returncode == 0, out.stderr
     opened = [Path(p).resolve() for p in out.stdout.split() if p.endswith(".json")]
     assert {p.name for p in opened} >= {"known_pulsars.json", "model.json",
-                                        "model.schema.json", "report.schema.json"}
+                                        "model.schema.json", "report.schema.json",
+                                        "tuning_cache.schema.json", "perf.schema.json",
+                                        "perf_baseline.json"}
     for p in opened:
         assert PORT.resolve() in p.parents, p
 

@@ -29,7 +29,10 @@ import peasoup_tpu.native
 from peasoup_tpu.io import read_filterbank as jax_read_filterbank
 from peasoup_tpu.pipeline import PeasoupSearch as JaxSearch
 from peasoup_tpu.pipeline import SearchConfig as JaxConfig
+from peasoup_tpu_torch.campaign.buckets import bucket_for_header
 from peasoup_tpu_torch.cli.peasoup import main as cli_main
+from peasoup_tpu_torch.perf import tuning
+from peasoup_tpu_torch.plan.dedisp_plan import DedispPlan
 from peasoup_tpu_torch.io.sigproc import read_filterbank
 from peasoup_tpu_torch.pipeline.search import PeasoupSearch, SearchConfig
 from test_pipeline import make_synthetic_fil
@@ -176,15 +179,66 @@ def test_cli_writes_both_files(synthetic, tmp_path, port_result):
     assert float(root.find("execution_times/searching").text) > 0
 
 
-@pytest.mark.parametrize(
-    "overrides,item",
-    [
-        (dict(tune=True), "A.10"),
-    ],
-)
-def test_unported_options_are_refused(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        PeasoupSearch(SearchConfig(**overrides), device="cpu")
+@pytest.mark.parametrize("case", ["cold", "warm"])
+def test_tune_now_runs(synthetic, port_result, tmp_path, case):
+    # ROADMAP A.10's first item, ported: tune, refused before, resolves the
+    # bucket's plan from the tuning cache, measured on the CPU on a cold
+    # bucket and read back with no measurement on a warm one. The tuned
+    # DM block changes the CPU FFT's batch, so the identities are the
+    # untuned run's, S/N within 1e-5 relative (as
+    # test_small_blocks_give_the_same_candidates holds it)
+    path, _, _ = synthetic
+    cfg = SearchConfig(**KW, tune=True, tuning_cache=str(tmp_path / "tuning.json"))
+    fil = read_filterbank(path)
+    if case == "warm":
+        PeasoupSearch(cfg, device="cpu").run(fil)
+    n0 = tuning.measurement_count()
+    search = PeasoupSearch(cfg, device="cpu")
+    res = search.run(fil)
+    plan = search.dedisp_plan
+    if case == "cold":
+        assert tuning.measurement_count() > n0
+        assert plan.source == "tuned" and plan.trials
+    else:
+        assert tuning.measurement_count() == n0
+        assert plan.source == "cache"
+    assert plan.engine == "exact"  # 16 channels: below the subband floor
+    assert search.knobs.dm_block == plan.dm_block > 0
+    assert [_identity(c) for c in res.candidates] == [
+        _identity(c) for c in port_result.candidates
+    ]
+    for a, b in zip(port_result.candidates, res.candidates):
+        assert abs(b.snr - a.snr) <= 1e-5 * a.snr
+
+
+def test_tune_shared_subband_plan_matches_jax(synthetic, tmp_path):
+    # both packages read one cache file pre-filled with the same subband
+    # plan (DM-scaled budgets from a 0.3 S/N loss), each under its own
+    # device fingerprint; each rebuilds the budgets on the observation's
+    # DM list and dedisperses in two stages. Recall standard: frequency,
+    # DM and nh exact, S/N within 1e-3 relative
+    from peasoup_tpu.perf import tuning as jax_tuning
+
+    path, _, _ = synthetic
+    bucket = bucket_for_header(read_filterbank(path).header)
+    plan = DedispPlan(engine="subband", subbands=4, subband_smear=1.0, n_groups=1,
+                      smear_dm_scaled=True, smear_loss_budget=0.3, source="tuned")
+    cache = str(tmp_path / "tuning.json")
+    doc = tuning._empty_cache()
+    for fp in (jax_tuning.device_fingerprint(), tuning.device_fingerprint("cpu")):
+        tuning.cache_store(doc, fp, tuning.bucket_key(bucket, "search"), plan.to_doc())
+    tuning.save_cache(cache, doc)
+    jax_res = JaxSearch(JaxConfig(**KW, tune=True, tuning_cache=cache)).run(
+        jax_read_filterbank(path))
+    search = PeasoupSearch(SearchConfig(**KW, tune=True, tuning_cache=cache), device="cpu")
+    res = search.run(read_filterbank(path))
+    assert search.dedisp_plan.source == "cache" and search.knobs.subbands == 4
+    assert search.knobs.budgets is not None and search.knobs.budgets.max() > 1.0
+    want, got = jax_res.candidates, res.candidates
+    assert len(got) == len(want) > 10
+    for rank, (a, b) in enumerate(zip(want, got)):
+        assert (b.dm, b.nh, np.float32(b.freq)) == (a.dm, a.nh, np.float32(a.freq)), rank
+        assert abs(b.snr - a.snr) <= 1e-3 * abs(a.snr), rank
 
 
 @pytest.mark.parametrize("nshards", [2, 3, 8])

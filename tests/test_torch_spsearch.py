@@ -142,15 +142,30 @@ def test_cli_output_parses_and_matches_jax(small, tmp_path):
     assert not (tmp_path / "port" / "telemetry.json").exists()
 
 
-@pytest.mark.parametrize(
-    "overrides,item",
-    [
-        (dict(tune=True), "A.10"),
-    ],
-)
-def test_unported_options_are_refused(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SinglePulseSearch(SinglePulseConfig(**overrides), device="cpu")
+@pytest.mark.parametrize("case", ["cold", "warm", "host RAM"])
+def test_tune_now_runs(small, results, tmp_path, case):
+    # ROADMAP A.10's first item, ported: tune, refused before, resolves the
+    # bucket's plan from the tuning cache (measured on a cold bucket, read
+    # back with no measurement on a warm one); its dedisp_block sizes the
+    # segments of trials in host RAM ("host RAM": a memory budget that
+    # spills them), which the events do not depend on
+    from peasoup_tpu_torch.perf import tuning
+
+    _, got = results
+    kw = dict(KW, tune=True, tuning_cache=str(tmp_path / "tuning.json"))
+    if case == "host RAM":
+        kw["hbm_bytes"] = 1 << 20
+    fil = read_filterbank(small[0])
+    if case == "warm":
+        SinglePulseSearch(SinglePulseConfig(**kw), device="cpu").run(fil)
+    n0 = tuning.measurement_count()
+    search = SinglePulseSearch(SinglePulseConfig(**kw), device="cpu")
+    res = search.run(fil)
+    plan = search.dedisp_plan
+    assert plan.source == ("cache" if case == "warm" else "tuned")
+    assert (tuning.measurement_count() == n0) == (case == "warm")
+    assert plan.dedisp_block > 0 and plan.dm_block > 0 and plan.accel_bucket == 0
+    assert [vars(c) for c in res.candidates] == [vars(c) for c in got.candidates]
 
 
 @pytest.mark.parametrize("nshards", [2, 3, 8])
