@@ -189,6 +189,23 @@ Phases, each fatal on failure:
      kernel, `bench` writes perf.json (each kernel's median printed beside
      phase 7's time at the main path's shape) and `check` passes against
      the port's baseline (peasoup_tpu_torch/perf/perf_baseline.json).
+ 29. Observability on the card (peasoup_tpu_torch/obs, resilience): (a)
+     `peasoup` on the big grid plain, observed (--metrics-json
+     --status-json --heartbeat-interval 1), traced (--capture-device-trace)
+     and plain again, each with phase 3's candidates bytes for bytes, valid
+     manifests and status.json ending "done": true; the traced run's device
+     table (torch.profiler) names dedisperse, resample, specchain, interbin
+     and harmpeaks with device time above zero; each run's `total` and the
+     observed and traced runs' excess over the plain runs are printed; (b)
+     the binary grid under the fault plan device.oom:at=1 records
+     fault_injected and the search.memory ladder's rung 0 and gives phase
+     4's candidates; (c) under fil.read:n=9 (a subprocess) the retries run
+     out, the exit is non-zero, flight.json and an aborted manifest are
+     left; (d) `peasoup-stream --metrics-jsonl` on the single-pulse grid,
+     every sample valid against the metrics schema; (e) `spsearch
+     --metrics-json --capture-device-trace` (phase 6's candidates bytes for
+     bytes; dedisperse and spchain in the device table) and `peasoup-sift
+     run --metrics-json` on phase 23's campaign.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -258,6 +275,7 @@ from peasoup_tpu_torch.plan.dm_plan import DMPlan, delay_table  # noqa: E402
 from peasoup_tpu_torch.fdas.templates import SPEED_OF_LIGHT  # noqa: E402
 from peasoup_tpu_torch.parallel.multihost import dm_slice_for_process  # noqa: E402
 from peasoup_tpu_torch.perf.roofline import device_peaks  # noqa: E402
+from peasoup_tpu_torch.tools.scope_trace import absorb_start_loss  # noqa: E402
 
 # the H100 SXM's published peaks (NVIDIA data sheet, at its 700 W limit),
 # the roofline's one row
@@ -341,6 +359,9 @@ SOURCES = {
 }
 
 
+STARTED = time.perf_counter()
+
+
 def say(msg: str) -> None:
     print(msg, flush=True)
 
@@ -372,16 +393,18 @@ def kernel_split(fn, names: tuple, reps: int = 10) -> tuple[dict, dict]:
     """Device time in ms of each CUDA kernel whose name holds one of
     ``names``, and how many launches of each it is taken over:
     torch.profiler over ``reps`` calls of fn() after a warm-up call, the
-    mean over the launches it recorded. The profiler can miss a launch
-    (one peaks_mask in five, 2-4 of 5 boxcar launches, on an H100); a
-    missed launch counts in neither the sum nor the count. Fails if it
-    recorded no launch of a kernel."""
+    mean over the launches it recorded. Kineto drops the first records of
+    a session once the process has run for minutes (phase 29 measures it),
+    so the session opens with scope_trace's one-element warm-up kernels; a
+    launch missed all the same counts in neither the sum nor the count.
+    Fails if it recorded no launch of a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        absorb_start_loss()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -2883,7 +2906,16 @@ def process_phase(tmp: str, paths: dict, runs: dict) -> dict:
         for name in files:
             require(os.path.getsize(os.path.join(f"{outdir}.rank0", name)) > 0,
                     f"{label}: rank 0 wrote {name}")
-        require(not os.path.exists(f"{outdir}.rank1"), f"{label}: rank 1 wrote nothing")
+        # beside rank 0's outputs, every process writes its manifest shard
+        # (telemetry.procN.json) and rank 1 nothing else
+        require(sorted(os.listdir(f"{outdir}.rank1")) == ["telemetry.proc1.json"],
+                f"{label}: rank 1 wrote its manifest shard and nothing else")
+        for r in range(2):
+            man = _manifest(os.path.join(f"{outdir}.rank{r}", f"telemetry.proc{r}.json"))
+            require((man["process_index"], man["process_count"]) == (r, 2),
+                    f"{label}: process {r}'s manifest shard names its rank")
+        require(_manifest(os.path.join(f"{outdir}.rank0", "telemetry.json"))
+                ["process_index"] == 0, f"{label}: rank 0 wrote the manifest")
         rec = dict(wall=wall, shapes=[r["shapes"]["dedisperse"] for r in recs])
         root = ET.parse(os.path.join(f"{outdir}.rank0", "overview.xml")).getroot()
         if cli == "peasoup":
@@ -3252,6 +3284,245 @@ def tuning_phase(tmp: str, dev: torch.device, paths: dict, runs: dict, checks: d
     return out
 
 
+# --- observability on the card (phase 29) -----------------------------------
+
+def _manifest(path: str) -> dict:
+    """A telemetry manifest, validated against the port's schema copy."""
+    from peasoup_tpu_torch.obs.schema import validate_manifest
+
+    with open(path) as f:
+        man = json.load(f)
+    validate_manifest(man)
+    return man
+
+
+def _device_kernels(man: dict) -> dict:
+    """{port kernel: (device ms, launches the trace recorded)} from a
+    manifest's device_trace (a kernel of two device functions, harmpeaks'
+    and peaks' mask and walk, counts both)."""
+    out: dict = {}
+    for r in man["device_trace"]["kernels"]:
+        if r["port_kernel"]:
+            ms, n = out.get(r["port_kernel"], (0.0, 0))
+            out[r["port_kernel"]] = (ms + r["seconds"] * 1e3, n + r["launches"])
+    return out
+
+
+def profiler_loss(warmup: bool, n: int = 60) -> tuple[int, int]:
+    """(launched, recorded): one torch.profiler session of ``n`` spin
+    kernels, each waited for and 2 ms apart, opened with scope_trace's
+    warm-up kernels or not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if warmup:
+            absorb_start_loss()
+        for _ in range(n):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+    got = sum(1 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name)
+    return n, got
+
+
+def observability_phase(tmp: str, paths: dict, runs: dict, smi: str) -> dict:
+    """Phase 29: the port's run telemetry on the card, with every check of
+    the run's result it must leave alone. (a) `peasoup` on the big grid
+    plain, with --metrics-json --status-json --heartbeat-interval 1
+    (observed), with --metrics-json --status-json --capture-device-trace
+    (traced), and plain again: each run's candidates are phase 3's bytes,
+    the manifests validate against the port's schema copy, status.json ends
+    with "done": true, and the traced run's device table names dedisperse,
+    resample, specchain, interbin and harmpeaks with device time above
+    zero; the `total` of each run and the observed and traced runs' excess
+    over the plain runs' mean are printed. (b) The binary grid under the
+    fault plan device.oom:at=1: fault_injected, then a degradation of the
+    search.memory ladder at rung 0 (dm_block_shrink), and phase 4's
+    candidates. (c) The big grid under fil.read:n=9 in a subprocess: the
+    reads' retries run out, the process exits non-zero and leaves
+    flight.json and a manifest marked aborted. (d) `peasoup-stream` on the
+    single-pulse grid with --metrics-jsonl: every line valid against the
+    metrics schema copy, one chunks_total step a chunk. (e) `spsearch` on
+    the single-pulse grid with --metrics-json --capture-device-trace
+    (phase 6's candidates, bytes for bytes; dedisperse and spchain in the
+    device table) and `peasoup-sift run` on phase 23's campaign with
+    --metrics-json (the sift section and the sift_* events)."""
+    from peasoup_tpu_torch.cli.peasoup import main as peasoup
+    from peasoup_tpu_torch.cli.sift import main as sift_main
+    from peasoup_tpu_torch.cli.spsearch import main as spsearch
+    from peasoup_tpu_torch.cli.stream import main as stream_main
+    from peasoup_tpu_torch.obs.metrics import load_series
+    from peasoup_tpu_torch.resilience import faults
+
+    out: dict = {}
+    big, base = paths["big"], os.path.join(tmp, "big_grid")
+    files = ("candidates.peasoup", "overview.xml")
+
+    # the records a profiler session loses at its start, this far into the
+    # process, without the device trace's warm-up and with it
+    for warmup in (False, True):
+        n, got = profiler_loss(warmup)
+        say(f"29a profiler probe {time.perf_counter() - STARTED:.1f} s into the script, "
+            f"{'with' if warmup else 'without'} the warm-up: {n - got} of {n} spin-kernel "
+            f"records lost ({smi})")
+
+    # (a) the big grid, plain / observed / traced / plain
+    totals: dict = {}
+    for label, extra in (
+        ("plain 1", []),
+        ("observed", ["--status-json", "{d}/status.json", "--heartbeat-interval", "1",
+                      "--metrics-json", "{d}/m.json"]),
+        ("traced", ["--status-json", "{d}/status.json", "--metrics-json", "{d}/m.json",
+                    "--capture-device-trace"]),
+        ("plain 2", []),
+    ):
+        d = os.path.join(tmp, "obs_big_" + label.replace(" ", ""))
+        run = cli_phase(peasoup, ["-i", big, "-o", d, *GRID_FLAGS,
+                                  *(a.format(d=d) for a in extra)], d, files,
+                        PEASOUP_KERNELS)
+        totals[label] = run["timers"]["total"]
+        same = same_bytes(os.path.join(d, "candidates.peasoup"),
+                          os.path.join(base, "candidates.peasoup"))
+        say(f"29a big grid, {label}: total {run['timers']['total']!r} s, "
+            f"search_device {run['timers']['search_device']!r} s, {run['wall']:.3f} s "
+            f"CLI wall; candidates {'bytes for bytes' if same else 'NOT'} phase 3's; "
+            f"launches {json.dumps(run['launches'])}")
+        require(same, f"29a big grid {label}: phase 3's candidates bytes for bytes")
+        man = _manifest(os.path.join(d, "m.json" if extra else "telemetry.json"))
+        require(man["gauges"]["candidates.written"] > 0, "the manifest counts the candidates")
+        if extra:
+            with open(os.path.join(d, "status.json")) as f:
+                st = json.load(f)
+            require(st["done"] is True and st["stage"] == "done",
+                    f"29a {label}: status.json ends with done: true")
+            say(f"29a {label}: status.json seq {st['seq']}, stage {st['stage']}, "
+                f"memory gauges {json.dumps({k: v for k, v in st['gauges'].items() if k.startswith('memory.')})}")
+        if label == "traced":
+            tr = man["device_trace"]
+            ker = _device_kernels(man)
+            say(f"29a traced: device busy {tr['device_s']!r} s over the run; phases (s) "
+                f"{json.dumps(tr['phases'])}")
+            for row in tr["table"]:
+                say(f"29a scope {row['scope']}: {row['seconds'] * 1e3:.3f} ms device, "
+                    f"{row['launches']} kernels")
+            for name, (ms, n) in sorted(ker.items()):
+                say(f"29a kernel {name}: {ms:.3f} ms device over {n} recorded launches "
+                    f"(the run counted {run['launches'][name]} wrapper launches)")
+            say(f"29a traced: wrapper launches in the trace's window "
+                f"{json.dumps(tr['launches'])}, of them lost to the trace "
+                f"{json.dumps(tr['lost_launches'])}")
+            for name in PEASOUP_KERNELS:
+                require(name in ker and ker[name][0] > 0,
+                        f"29a the device trace names {name} with device time above zero")
+            require(tr["launches"] == {k: v for k, v in run["launches"].items() if v}
+                    and not tr["lost_launches"],
+                    "29a the device trace holds every launch of the run's kernels")
+            out["trace"] = dict(kernels=ker, device_s=tr["device_s"], phases=tr["phases"])
+    plain = (totals["plain 1"] + totals["plain 2"]) / 2
+    say(f"29a big grid total (s): {json.dumps(totals)} ({smi})")
+    say(f"29a observed - plain (total, s): {totals['observed'] - plain!r} ({smi})")
+    say(f"29a traced - plain (total, s): {totals['traced'] - plain!r} ({smi})")
+    out["totals"] = totals
+
+    # (b) the binary grid with an injected out-of-memory error
+    d = os.path.join(tmp, "obs_binary_oom")
+    faults.configure("device.oom:at=1")
+    try:
+        run = cli_phase(peasoup, ["-i", paths["binary"], "-o", d, *BINARY_FLAGS], d, files,
+                        PEASOUP_KERNELS)
+    finally:
+        faults.configure(None)
+    man = _manifest(os.path.join(d, "telemetry.json"))
+    ev = [(e["kind"], e.get("ladder"), e.get("rung"), e.get("rung_index"))
+          for e in man["events"] if e["kind"] in ("fault_injected", "degradation")]
+    say(f"29b binary grid under device.oom:at=1: events {ev}; total "
+        f"{run['timers']['total']!r} s; launches {json.dumps(run['launches'])}")
+    require(ev == [("fault_injected", None, None, None),
+                   ("degradation", "search.memory", "dm_block_shrink", 0)],
+            "29b fault_injected, then the search.memory ladder's dm_block_shrink at rung 0")
+    got, want = xml_candidates(run["root"]), xml_candidates(runs["binary grid"]["root"])
+    same = same_bytes(os.path.join(d, "candidates.peasoup"),
+                      os.path.join(tmp, "binary_grid", "candidates.peasoup"))
+    say(f"29b candidates: {len(got)} against phase 4's {len(want)}, "
+        f"{'bytes for bytes' if same else 'field for field' if got == want else 'DIFFERENT'}")
+    require(got == want, "29b the faulted run gives phase 4's candidates")
+
+    # (c) reads that fail past the retry budget
+    d = os.path.join(tmp, "obs_failread")
+    proc = subprocess.run(
+        [sys.executable, "-m", "peasoup_tpu_torch.cli.peasoup", "-i", big, "-o", d,
+         *GRID_FLAGS], env=dict(os.environ, PEASOUP_FAULTS="fil.read:n=9"),
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300,
+    )
+    require(proc.returncode != 0, "29c the failing read exits non-zero")
+    with open(os.path.join(d, "flight.json")) as f:
+        flight = json.load(f)
+    man = _manifest(os.path.join(d, "telemetry.json"))
+    kinds = [e["kind"] for e in man["events"]]
+    say(f"29c fil.read:n=9: exit {proc.returncode}; flight.json reason {flight['reason']!r} "
+        f"at stage {flight['stage']!r}; manifest aborted {man.get('aborted')} "
+        f"({man.get('abort_reason')!r}); events {kinds}")
+    require(man.get("aborted") is True, "29c the partial manifest is marked aborted")
+    require(kinds.count("fault_injected") == 3 and "resilience_giveup" in kinds,
+            "29c three injected reads, then the retry policy gives up")
+
+    # (d) the stream's time series
+    d = os.path.join(tmp, "obs_stream")
+    mpath = os.path.join(d, "metrics.jsonl")
+    kernels.reset_launches()
+    rc, _ = run_cli(stream_main, ["--replay", paths["sp"], "-o", d, *STREAM_FLAGS,
+                                  "--metrics-jsonl", mpath])
+    require(rc == 0, "29d peasoup-stream exit code 0")
+    series = load_series(mpath, validate=True)
+    man = _manifest(os.path.join(d, "telemetry.json"))
+    n = man["streaming"]["chunks_done"]
+    steps = [r["value"] for r in series if r["name"] == "chunks_total"]
+    say(f"29d stream: {len(series)} metric samples, each valid against the metrics schema; "
+        f"{n} chunks, chunks_total {steps[-1] if steps else None!r}, triggers "
+        f"{man['streaming']['triggers']}, latency p95 {man['streaming']['latency_s']['p95']!r} "
+        f"s; launches {json.dumps(dict(kernels.launches))}")
+    require(steps == [float(i) for i in range(1, n + 1)], "29d one chunks_total step a chunk")
+    for name in STREAM_KERNELS:
+        require(kernels.launches[name] == n, f"29d {name} launched once a chunk")
+
+    # (e) spsearch and peasoup-sift with their manifests
+    d = os.path.join(tmp, "obs_sp")
+    run = cli_phase(spsearch, ["-i", paths["sp"], "-o", d, *SP_FLAGS, "--metrics-json",
+                               os.path.join(d, "m.json"), "--capture-device-trace"], d,
+                    ("candidates.singlepulse", "overview.xml"), SP_KERNELS)
+    man = _manifest(os.path.join(d, "m.json"))
+    ker = _device_kernels(man)
+    same = same_bytes(os.path.join(d, "candidates.singlepulse"),
+                      os.path.join(tmp, "single_pulse_grid", "candidates.singlepulse"))
+    say(f"29e spsearch: candidates {'bytes for bytes' if same else 'NOT'} phase 6's; "
+        f"device trace {json.dumps({k: [round(v[0], 3), v[1]] for k, v in ker.items()})}; "
+        f"events {[e['kind'] for e in man['events'] if e['kind'] != 'stage']}; "
+        f"lost to the trace {json.dumps(man['device_trace']['lost_launches'])}")
+    require(same, "29e spsearch: phase 6's candidates bytes for bytes")
+    for name in SP_KERNELS:
+        require(name in ker and ker[name][0] > 0,
+                f"29e the device trace names {name} with device time above zero")
+    require(not man["device_trace"]["lost_launches"],
+            "29e the device trace holds every launch of the run's kernels")
+    out["sp_trace"] = ker
+    camp = os.path.join(tmp, "campaign")
+    mpath = os.path.join(tmp, "obs_sift.json")
+    kernels.reset_launches()
+    rc, _ = run_cli(sift_main, ["run", "-w", camp, "--metrics-json", mpath])
+    require(rc == 0, "29e peasoup-sift run exit code 0")
+    man = _manifest(mpath)
+    say(f"29e sift: section {json.dumps(man['sift'])}; events "
+        f"{[e['kind'] for e in man['events'] if e['kind'] != 'stage']}; launches "
+        f"{json.dumps(dict(kernels.launches))}")
+    require(man["sift"]["stage"] == "done" and "sift_done" in [
+        e["kind"] for e in man["events"]], "29e the sift's manifest holds its section")
+    return out
+
+
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
     busy share of the run's wall time."""
@@ -3297,6 +3568,10 @@ def main() -> int:
     say(f"boxcar's resources (cudaFuncGetAttributes): {json.dumps(resources)}")
     require(all(r["registers"] > 0 for r in resources.values()),
             "the runtime reported boxcar's registers")
+    n, got = profiler_loss(False)
+    say(f"profiler probe {time.perf_counter() - STARTED:.1f} s into the script, the "
+        f"process's first session, without a warm-up: {n - got} of {n} spin-kernel "
+        f"records lost (phase 29 probes again)")
 
     runs, checks = {}, {}
     t_smoke = time.perf_counter()
@@ -3495,6 +3770,8 @@ def main() -> int:
             ("27, the survey fold in two processes", lambda: survey_fold_phase(tmp)),
             ("28, the tuning and measurement layer",
              lambda: runs.setdefault("tuning", tuning_phase(tmp, dev, paths, runs, checks, smi))),
+            ("29, observability on the card",
+             lambda: runs.setdefault("obs", observability_phase(tmp, paths, runs, smi))),
         ):
             t0 = time.perf_counter()
             fn()

@@ -8,3 +8,5 @@ each TPU kernel on the ported path is a hand-written CUDA kernel under
 card unless the caller passes ``device="cpu"``, where every kernel
 wrapper runs its plain torch version instead.
 """
+
+__version__ = "0.1.0"

@@ -33,14 +33,15 @@ transaction.
 from __future__ import annotations
 
 import json
-import logging
 import os
 import sqlite3
 import time
 
+from ..obs.log import get_logger
+from ..resilience import faults
 from ..resilience.policy import DB_RETRY
 
-log = logging.getLogger("peasoup_tpu_torch.campaign.db")
+log = get_logger("campaign.db")
 
 DB_FILENAME = "candidates.sqlite"
 
@@ -370,6 +371,7 @@ class CandidateDB:
         ingested_unix = time.time()
 
         def _ingest_txn():
+            faults.fire("db.ingest", context=job_id)
             with self._conn:  # one transaction: delete + reinsert
                 self._conn.execute(
                     "DELETE FROM candidates WHERE job_id = ?", (job_id,)
@@ -508,6 +510,7 @@ class CandidateDB:
         created_unix = time.time()
 
         def _txn():
+            faults.fire("db.ingest", context=f"sift:{run_id}")
             with self._conn:
                 for t in _SIFT_TABLES:
                     self._conn.execute(f"DELETE FROM {t}")

@@ -19,9 +19,9 @@ Every run goes through the multi-process driver
 (parallel/multihost.py:run_fdas_search), as the JAX CLI's does: launched
 N times with JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES and
 JAX_PROCESS_ID (or under torchrun), each process searches its slice of
-the DM list and rank 0 writes the files. Refused with
-NotImplementedError: the JAX CLI's observability flags
-(``--metrics-json`` and the rest, ROADMAP A.10).
+the DM list and rank 0 writes the files. The JAX CLI's observability
+flags work as there (cli/__init__.py): the run manifest goes to
+``<outdir>/telemetry.json`` unless ``--metrics-json`` names another path.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import os
 import sys
 import time
 
-from . import add_observability_args, refuse_observability
+from . import add_observability_args, init_observability, live_observability, write_shard
 
 
 def default_outdir() -> str:
@@ -92,9 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_observability(args, parser)
+    args = build_parser().parse_args(argv)
     outdir = args.outdir or default_outdir()
 
     from ..device import resolve_device
@@ -116,33 +114,48 @@ def main(argv: list[str] | None = None) -> int:
         checkpoint_file=args.checkpoint,
     )
     device = resolve_device(args.device)  # no card: raise before reading
+    tel = init_observability(args)
+    tel.set_context(command="peasoup-fdas", inputfile=args.inputfile, outdir=outdir)
+    manifest_path = args.metrics_json or os.path.join(outdir, "telemetry.json")
 
-    t0 = time.perf_counter()
-    if args.progress_bar:
-        print(f"Reading data from {args.inputfile}")
-    fil = read_filterbank(args.inputfile)
-    reading = time.perf_counter() - t0
+    with tel.activate(), live_observability(tel, args, outdir, manifest_path):
+        t0 = time.perf_counter()
+        tel.set_stage("reading")
+        if args.progress_bar:
+            print(f"Reading data from {args.inputfile}")
+        fil = read_filterbank(args.inputfile)
+        reading = time.perf_counter() - t0
 
-    result = multihost.run_fdas_search(fil, cfg, device=device)
-    result.timers["reading"] = reading
-    if multihost.process_index() != 0:
-        return 0  # every process holds the same result; rank 0 writes
+        with tel.device_capture(device):
+            result = multihost.run_fdas_search(fil, cfg, device=device)
+        result.timers["reading"] = reading
+        tel.merge_timers(result.timers)
+        write_shard(tel, manifest_path)
+        if multihost.process_index() != 0:
+            return 0  # every process holds the same result; rank 0 writes
 
-    t0 = time.perf_counter()
-    writer = CandidateFileWriter(outdir)
-    writer.write_binary(result.candidates, "candidates.peasoup")
-    write_fdas_candidates(os.path.join(outdir, "candidates.fdas"), result.candidates)
-    result.timers["writing"] = time.perf_counter() - t0
+        tel.set_stage("writing")
+        t0 = time.perf_counter()
+        writer = CandidateFileWriter(outdir)
+        writer.write_binary(result.candidates, "candidates.peasoup")
+        write_fdas_candidates(os.path.join(outdir, "candidates.fdas"), result.candidates)
+        result.timers["writing"] = time.perf_counter() - t0
+        tel.add_timer("writing", result.timers["writing"])
 
-    stats = OutputFileWriter()
-    stats.add_misc_info()
-    stats.add_header(fil.header)
-    stats.add_fdas_section(cfg, result.zs, result.ws)
-    stats.add_dm_list(result.dm_list)
-    stats.add_device_info(multihost.process_device(device, multihost.process_count(), 0))
-    stats.add_candidates_fdas(result.candidates, writer.byte_mapping)
-    stats.add_timing_info(result.timers)
-    stats.to_file(os.path.join(outdir, "overview.xml"))
+        stats = OutputFileWriter()
+        stats.add_misc_info()
+        stats.add_header(fil.header)
+        stats.add_fdas_section(cfg, result.zs, result.ws)
+        stats.add_dm_list(result.dm_list)
+        stats.add_device_info(
+            multihost.process_device(device, multihost.process_count(), 0))
+        stats.add_candidates_fdas(result.candidates, writer.byte_mapping)
+        stats.add_timing_info(result.timers)
+        stats.to_file(os.path.join(outdir, "overview.xml"))
+
+        tel.gauge("candidates.written", len(result.candidates))
+        tel.set_stage("done")
+        tel.write(manifest_path)
     if args.verbose or args.progress_bar:
         print(f"Done: {len(result.candidates)} candidates -> {outdir} "
               f"(total {result.timers['total']:.2f}s)")

@@ -1,8 +1,9 @@
 """`peasoup-ffa` CLI of the PyTorch / CUDA port: the FFA pulsar search,
 flag-compatible with the JAX package's ``peasoup-ffa`` (the reference's
 FFA spec, read_ffa_cmdline_options, include/utils/cmdline.hpp:211-292,
-whose implementing source is absent from the reference tree), except its
-observability flags, plus ``--device``.
+whose implementing source is absent from the reference tree), its
+observability flags included (cli/__init__.py; the manifest is written
+only with ``--metrics-json``, as in the JAX CLI), plus ``--device``.
 
 Usage:
   python -m peasoup_tpu_torch.cli.ffa -i data.fil --dm_end 20 \\
@@ -19,8 +20,11 @@ do nothing, as in the JAX CLI.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
+
+from . import add_observability_args, init_observability, live_observability
 
 
 def get_default_ffa_output_filename() -> str:
@@ -64,6 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--progress_bar", action="store_true")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the search runs (default: the CUDA device)")
+    add_observability_args(p)
     return p
 
 
@@ -82,16 +87,27 @@ def main(argv: list[str] | None = None) -> int:
         min_snr=args.min_snr, verbose=args.verbose, progress_bar=args.progress_bar,
     )
     search = FFASearch(cfg, device=args.device)
+    tel = init_observability(args)
+    tel.set_context(command="peasoup-ffa", inputfile=args.inputfile, outfile=out)
+    workdir = os.path.dirname(args.metrics_json or out) or "."
+    manifest_path = args.metrics_json or os.path.join(workdir, "telemetry.json")
     t0 = time.perf_counter()
-    fil = read_filterbank(args.inputfile)
-    reading = time.perf_counter() - t0
-    if args.verbose:
-        print(f"FFA search: {search.build_dm_plan(fil).ndm} DM trials, periods "
-              f"{args.p_start}-{args.p_end} s, min_dc {args.min_dc}")
-    progress = None
-    if args.verbose or args.progress_bar:
-        progress = lambda f: print(f"FFA octaves: {f * 100:5.1f}% done")  # noqa: E731
-    result = search.run(fil, progress=progress)
+    with tel.activate(), live_observability(
+        tel, args, workdir,
+        manifest_path if (args.metrics_json or args.status_json) else None,
+    ):
+        tel.set_stage("reading")
+        fil = read_filterbank(args.inputfile)
+        reading = time.perf_counter() - t0
+        if args.verbose:
+            print(f"FFA search: {search.build_dm_plan(fil).ndm} DM trials, periods "
+                  f"{args.p_start}-{args.p_end} s, min_dc {args.min_dc}")
+        progress = None
+        if args.verbose or args.progress_bar:
+            progress = lambda f: print(f"FFA octaves: {f * 100:5.1f}% done")  # noqa: E731
+        with tel.device_capture(search.device):
+            result = search.run(fil, progress=progress)
+        tel.set_stage("writing")
     if args.verbose:
         print(f"{len(result.candidates)} period-collapsed candidates")
 
@@ -114,11 +130,15 @@ def main(argv: list[str] | None = None) -> int:
     timers = dict(reading=reading, dedispersion=result.timers["dedispersion"],
                   ffa_search=result.timers["ffa_search"],
                   total=time.perf_counter() - t0)
+    tel.merge_timers(timers)
+    tel.gauge("candidates.final", len(result.candidates))
     times = root.append(Element("execution_times"))
     for key in sorted(timers):
         times.append(Element(key, float(timers[key])))
     with open(out, "w") as f:
         f.write(root.to_string(header=True))
+    if args.metrics_json:
+        tel.write(args.metrics_json)
     print(f"Done: {len(result.candidates)} FFA candidates -> {out} "
           f"(total {timers['total']:.2f}s)")
     return 0

@@ -1,6 +1,7 @@
 """`peasoup` CLI of the PyTorch / CUDA port: flag-compatible with the
 reference binary (reference: include/utils/cmdline.hpp:69-209 TCLAP
-spec) and with the JAX package's ``peasoup``, plus ``--device``.
+spec) and with the JAX package's ``peasoup``, its observability flags
+included (cli/__init__.py), plus ``--device``.
 
 Usage:
   python -m peasoup_tpu_torch.cli.peasoup -i data.fil --dm_end 250 \\
@@ -34,6 +35,12 @@ and peaks. The JAX package's environment switches select the other
 routes: ``PEASOUP_FUSED_DFT=0`` or ``PEASOUP_FUSED_FFT=0`` (cuFFT +
 interbin at every size) and ``PEASOUP_MEGA_HARM=0`` (torch harmonic sums
 + the peaks kernel).
+
+Every run writes its telemetry manifest to ``<outdir>/telemetry.json``
+(or ``--metrics-json PATH``); in a run of several processes each also
+writes ``telemetry.procN.json``. ``--status-json``, ``--heartbeat-interval``,
+``--capture-device-trace``, ``--log-level`` and ``--no-flight-recorder``
+work as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import argparse
 import os
 import sys
 import time
+
+from . import add_observability_args, init_observability, live_observability, write_shard
 
 
 def default_outdir() -> str:
@@ -117,6 +126,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the search runs (default: the CUDA device)")
+    add_observability_args(p)
     return p
 
 
@@ -166,33 +176,50 @@ def main(argv: list[str] | None = None) -> int:
         tuning_cache=args.tuning_cache,
     )
     device = resolve_device(args.device)  # no card: raise before reading
+    tel = init_observability(args)
+    tel.set_context(command="peasoup", inputfile=args.inputfile, outdir=outdir)
+    manifest_path = args.metrics_json or os.path.join(outdir, "telemetry.json")
 
-    t0 = time.perf_counter()
-    if args.progress_bar:
-        print(f"Reading data from {args.inputfile}")
-    fil = read_filterbank(args.inputfile)
-    reading = time.perf_counter() - t0
+    with tel.activate(), live_observability(tel, args, outdir, manifest_path):
+        t0 = time.perf_counter()
+        tel.set_stage("reading")
+        if args.progress_bar:
+            print(f"Reading data from {args.inputfile}")
+        fil = read_filterbank(args.inputfile)
+        reading = time.perf_counter() - t0
 
-    result = multihost.run_search(fil, cfg, device=device)
-    result.timers["reading"] = reading
-    if multihost.process_index() != 0:
-        return 0  # every process holds the same result; rank 0 writes
+        with tel.device_capture(device):
+            result = multihost.run_search(fil, cfg, device=device)
+        result.timers["reading"] = reading
+        tel.merge_timers(result.timers)
+        write_shard(tel, manifest_path)
+        if multihost.process_index() != 0:
+            return 0  # every process holds the same result; rank 0 writes
 
-    t0 = time.perf_counter()
-    writer = CandidateFileWriter(outdir)
-    writer.write_binary(result.candidates, "candidates.peasoup")
-    result.timers["writing"] = time.perf_counter() - t0
+        tel.set_stage("writing")
+        t0 = time.perf_counter()
+        writer = CandidateFileWriter(outdir)
+        writer.write_binary(result.candidates, "candidates.peasoup")
+        result.timers["writing"] = time.perf_counter() - t0
+        tel.add_timer("writing", result.timers["writing"])
 
-    stats = OutputFileWriter()
-    stats.add_misc_info()
-    stats.add_header(fil.header)
-    stats.add_search_parameters(cfg, args.inputfile)
-    stats.add_dm_list(result.dm_list)
-    stats.add_acc_list(result.acc_list_dm0)
-    stats.add_device_info(multihost.process_device(device, multihost.process_count(), 0))
-    stats.add_candidates(result.candidates, writer.byte_mapping)
-    stats.add_timing_info(result.timers)
-    stats.to_file(os.path.join(outdir, "overview.xml"))
+        stats = OutputFileWriter()
+        stats.add_misc_info()
+        stats.add_header(fil.header)
+        stats.add_search_parameters(cfg, args.inputfile)
+        stats.add_dm_list(result.dm_list)
+        stats.add_acc_list(result.acc_list_dm0)
+        stats.add_device_info(
+            multihost.process_device(device, multihost.process_count(), 0))
+        stats.add_candidates(result.candidates, writer.byte_mapping)
+        stats.add_timing_info(result.timers)
+        stats.to_file(os.path.join(outdir, "overview.xml"))
+
+        # the machine-readable twin of overview.xml, written beside it
+        # unless --metrics-json redirects it
+        tel.gauge("candidates.written", len(result.candidates))
+        tel.set_stage("done")
+        tel.write(manifest_path)
     if args.verbose or args.progress_bar:
         print(
             f"Done: {len(result.candidates)} candidates -> {outdir} "

@@ -15,7 +15,8 @@ plus ``--device``.
 ``eval`` (also ``evaluate``) exits 2 when the shipped (or ``--model``)
 artifact scores below ``--min-auc``. Every subcommand runs on the CUDA
 device unless ``--device cpu`` is given. The JAX CLI's observability
-flags are refused with NotImplementedError (ROADMAP A.10).
+flags work as there (cli/__init__.py; a manifest is written only with
+``--metrics-json``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import json
 import os
 import sys
 
-from . import add_observability_args, refuse_observability
+from . import add_observability_args, init_observability, live_observability
 
 
 def _common(sp: argparse.ArgumentParser) -> None:
@@ -33,7 +34,6 @@ def _common(sp: argparse.ArgumentParser) -> None:
                     help="torch device (default cuda; cpu runs on the CPU)")
     sp.add_argument("-v", "--verbose", action="store_true")
     add_observability_args(sp)
-    sp.set_defaults(parser=sp)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,30 +88,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _start(args):
-    """Refuse the observability flags, resolve the device (raising where
-    the card is asked for and missing) and set up logging."""
-    import logging
-
-    from ..device import resolve_device
-
-    refuse_observability(args, args.parser)
-    device = resolve_device(args.device)
-    if args.verbose:
-        logging.basicConfig(level=logging.INFO, format="%(name)s %(levelname)s %(message)s")
-    return device
-
-
 def _cmd_train(args) -> int:
+    from ..device import resolve_device
     from ..rank.model import save_model_doc
     from ..rank.train import train_model
 
-    device = _start(args)
-    doc = train_model(
-        seed=args.seed, n_examples=args.examples, steps=args.steps,
-        hidden=args.hidden, lr=args.lr, batch=args.batch, device=device,
-    )
-    save_model_doc(doc, args.output)
+    device = resolve_device(args.device)
+    tel = init_observability(args)
+    tel.set_context(command="rank-train", seed=args.seed)
+    workdir = os.path.dirname(os.path.abspath(args.output))
+    with tel.activate(), live_observability(tel, args, workdir, args.metrics_json):
+        doc = train_model(
+            seed=args.seed, n_examples=args.examples, steps=args.steps,
+            hidden=args.hidden, lr=args.lr, batch=args.batch, device=device,
+        )
+        save_model_doc(doc, args.output)
+        if args.metrics_json:
+            tel.write(args.metrics_json)
     print(f"peasoup-rank train: {args.output} "
           f"({doc['fingerprint']}, train AUC {doc['train']['auc']:.4f})")
     return 0
@@ -121,41 +114,48 @@ def _cmd_score(args) -> int:
     import numpy as np
 
     from ..campaign.db import DB_FILENAME, CandidateDB
+    from ..device import resolve_device
     from ..rank.model import RankModel, score_tier
     from ..rank.score import neutral_dm_curve, score_fold_products
 
-    device = _start(args)
+    device = resolve_device(args.device)
     db_path = args.db or os.path.join(args.workdir, DB_FILENAME)
     if not os.path.exists(db_path):
         print(f"peasoup-rank: no database at {db_path}", file=sys.stderr)
         return 2
-    model = RankModel.from_file(args.model or None)
-    with CandidateDB(db_path) as db:
-        rows = [r for r in db.sift_catalogue() if r.get("fold_json")]
-        if not rows:
-            print("peasoup-rank score: no sift rows with fold products "
-                  "(run peasoup-sift first)")
-            return 0
-        stamps = [json.loads(r["fold_json"]) for r in rows]
-        prof = np.asarray([s["prof"] for s in stamps], dtype=np.float32)
-        subints = np.asarray([s["subints"] for s in stamps], dtype=np.float32)
-        dm_curve = neutral_dm_curve(len(rows))
-        for i, s in enumerate(stamps):
-            if s.get("dm_curve") is not None:
-                dm_curve[i] = np.asarray(s["dm_curve"], dtype=np.float32)
-        _feats, scores = score_fold_products(
-            model, prof, subints, dm_curve, batch=args.batch, device=device
-        )
-        scored = [
-            {
-                "id": r["id"],
-                "score": round(float(p), 6),
-                "score_tier": score_tier(float(p)),
-                "model_fp": model.fingerprint,
-            }
-            for r, p in zip(rows, scores)
-        ]
-        db.update_sift_scores(scored)
+    tel = init_observability(args)
+    tel.set_context(command="rank-score", db=db_path)
+    with tel.activate(), live_observability(tel, args, args.workdir, args.metrics_json):
+        model = RankModel.from_file(args.model or None)
+        with CandidateDB(db_path) as db:
+            rows = [r for r in db.sift_catalogue() if r.get("fold_json")]
+            if not rows:
+                print("peasoup-rank score: no sift rows with fold products "
+                      "(run peasoup-sift first)")
+                return 0
+            stamps = [json.loads(r["fold_json"]) for r in rows]
+            prof = np.asarray([s["prof"] for s in stamps], dtype=np.float32)
+            subints = np.asarray([s["subints"] for s in stamps], dtype=np.float32)
+            dm_curve = neutral_dm_curve(len(rows))
+            for i, s in enumerate(stamps):
+                if s.get("dm_curve") is not None:
+                    dm_curve[i] = np.asarray(s["dm_curve"], dtype=np.float32)
+            _feats, scores = score_fold_products(
+                model, prof, subints, dm_curve, batch=args.batch, device=device
+            )
+            scored = [
+                {
+                    "id": r["id"],
+                    "score": round(float(p), 6),
+                    "score_tier": score_tier(float(p)),
+                    "model_fp": model.fingerprint,
+                }
+                for r, p in zip(rows, scores)
+            ]
+            db.update_sift_scores(scored)
+        tel.event("rank_scored", rows=len(scored), model_fp=model.fingerprint)
+        if args.metrics_json:
+            tel.write(args.metrics_json)
     tiers = [s["score_tier"] for s in scored]
     print(
         f"peasoup-rank score: {len(scored)} rows re-scored with "
@@ -166,12 +166,20 @@ def _cmd_score(args) -> int:
 
 
 def _cmd_eval(args) -> int:
+    from ..device import resolve_device
     from ..rank.model import RankModel
     from ..rank.train import evaluate_model
 
-    device = _start(args)
-    model = RankModel.from_file(args.model or None)
-    ev = evaluate_model(model, seed=args.seed, n_examples=args.examples, device=device)
+    device = resolve_device(args.device)
+    tel = init_observability(args)
+    tel.set_context(command="rank-eval", seed=args.seed)
+    with tel.activate(), live_observability(tel, args, ".", args.metrics_json):
+        model = RankModel.from_file(args.model or None)
+        ev = evaluate_model(model, seed=args.seed, n_examples=args.examples,
+                            device=device)
+        tel.event("rank_eval", **ev)
+        if args.metrics_json:
+            tel.write(args.metrics_json)
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(ev, f, indent=1, sort_keys=True)

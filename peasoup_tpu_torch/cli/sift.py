@@ -12,10 +12,11 @@ sifting over a campaign database, flag-compatible with the JAX package's
 ``run`` writes the ``sift_*`` tables into ``<workdir>/candidates.sqlite``
 (the latest run replaces the previous product wholesale); the database
 may have been written by either package. It runs on the CUDA device
-unless ``--device cpu`` is given. Refused with NotImplementedError
-(ROADMAP A.10): the JAX CLI's observability flags (``--status-json``,
-``--metrics-json`` and the rest) with the status heartbeat and
-telemetry.json they write, and a campaign rollup
+unless ``--device cpu`` is given. As in the JAX CLI, ``run`` writes its
+live heartbeat to ``<workdir>/sift/status.json`` (or ``--status-json``)
+and its manifest, with the ``sift`` status section, to
+``<workdir>/sift/telemetry.json`` (or ``--metrics-json``). Refused with
+NotImplementedError (ROADMAP A.10): a campaign rollup
 (``<workdir>/campaign_status.json``) for the report. The report links no
 DM-time bowtie plot (``tools/plotting``, A.10).
 """
@@ -28,7 +29,7 @@ import json
 import os
 import sys
 
-from . import add_observability_args, refuse_observability
+from . import add_observability_args, init_observability, live_observability
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,7 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
                      "kernel's plain version)")
     run.add_argument("-v", "--verbose", action="store_true")
     add_observability_args(run)
-    run.set_defaults(parser=run)
 
     rep = sub.add_parser(
         "report", help="render the survey report from the sifted database",
@@ -101,16 +101,11 @@ def _load_config_arg(text: str | None) -> dict:
 
 
 def _cmd_run(args) -> int:
-    import logging
-
     from ..campaign.db import CandidateDB
     from ..device import resolve_device
     from ..sift.service import SiftConfig, SiftRun
 
-    refuse_observability(args, args.parser)
     device = resolve_device(args.device)
-    if args.verbose:
-        logging.basicConfig(level=logging.INFO, format="%(name)s %(levelname)s %(message)s")
     overrides = _load_config_arg(args.config)
     names = {f.name for f in dataclasses.fields(SiftConfig)}
     unknown = set(overrides) - names
@@ -152,8 +147,19 @@ def _cmd_run(args) -> int:
                     )
                     return 0
 
-    run = SiftRun(cfg, device=device)
-    summary = run.run()
+    sift_dir = os.path.join(args.workdir, "sift")
+    os.makedirs(sift_dir, exist_ok=True)
+    if not args.status_json:
+        args.status_json = os.path.join(sift_dir, "status.json")
+    manifest_path = args.metrics_json or os.path.join(sift_dir, "telemetry.json")
+    tel = init_observability(args)
+    tel.set_context(command="sift", workdir=os.path.abspath(args.workdir),
+                    db=cfg.resolved_db())
+    with tel.activate(), live_observability(tel, args, sift_dir, manifest_path):
+        run = SiftRun(cfg, device=device)
+        with tel.device_capture(device):
+            summary = run.run()
+        tel.write(manifest_path)
     print(
         f"peasoup-sift run {summary['run_id']}: "
         f"{summary['n_folded']} folded, "

@@ -1,6 +1,6 @@
 """`spsearch` CLI of the PyTorch / CUDA port: the single-pulse search,
-flag-compatible with the JAX package's ``peasoup-spsearch`` (except its
-observability flags), plus ``--device``.
+flag-compatible with the JAX package's ``peasoup-spsearch``, its
+observability flags included (cli/__init__.py), plus ``--device``.
 
 Usage:
   python -m peasoup_tpu_torch.cli.spsearch -i data.fil --dm_end 250 -m 7
@@ -11,8 +11,10 @@ writes, in the output directory:
                            tools.parsers.read_singlepulse reads
   overview.xml             header, DM trials, device, the
                            <single_pulse_search> section and the timers
-The JAX CLI's telemetry.json is not written: the port has no run
-telemetry yet. ``--checkpoint FILE`` saves each DM block's events as it is
+  telemetry.json           the run manifest (or ``--metrics-json PATH``;
+                           telemetry.procN.json from each process of a
+                           multi-process run)
+``--checkpoint FILE`` saves each DM block's events as it is
 searched and resumes from them; ``--tune`` takes the segment height of
 trials dedispersed into host RAM from the per-device tuning cache
 (``--tuning-cache FILE``), measured on the card the first time a bucket is
@@ -32,6 +34,8 @@ import argparse
 import os
 import sys
 import time
+
+from . import add_observability_args, init_observability, live_observability, write_shard
 
 
 def default_outdir() -> str:
@@ -88,6 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--progress_bar", action="store_true")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the search runs (default: the CUDA device)")
+    add_observability_args(p)
     return p
 
 
@@ -125,31 +130,47 @@ def main(argv: list[str] | None = None) -> int:
         tuning_cache=args.tuning_cache,
     )
     device = resolve_device(args.device)  # no card: raise before reading
-
-    t0 = time.perf_counter()
-    if args.progress_bar:
-        print(f"Reading data from {args.inputfile}")
-    fil = read_filterbank(args.inputfile)
-    reading = time.perf_counter() - t0
-
-    result = multihost.run_single_pulse_search(fil, cfg, device=device)
-    result.timers["reading"] = reading
-    if multihost.process_index() != 0:
-        return 0  # every process holds the same result; rank 0 writes
+    tel = init_observability(args)
+    tel.set_context(command="spsearch", inputfile=args.inputfile, outdir=outdir)
+    manifest_path = args.metrics_json or os.path.join(outdir, "telemetry.json")
     os.makedirs(outdir, exist_ok=True)
 
-    t0 = time.perf_counter()
-    write_singlepulse(os.path.join(outdir, "candidates.singlepulse"), result.candidates)
-    result.timers["writing"] = time.perf_counter() - t0
+    with tel.activate(), live_observability(tel, args, outdir, manifest_path):
+        t0 = time.perf_counter()
+        tel.set_stage("reading")
+        if args.progress_bar:
+            print(f"Reading data from {args.inputfile}")
+        fil = read_filterbank(args.inputfile)
+        reading = time.perf_counter() - t0
 
-    stats = OutputFileWriter()
-    stats.add_misc_info()
-    stats.add_header(fil.header)
-    stats.add_dm_list(result.dm_list)
-    stats.add_device_info(multihost.process_device(device, multihost.process_count(), 0))
-    stats.add_single_pulse_section(cfg, args.inputfile, result.widths, result.candidates)
-    stats.add_timing_info(result.timers)
-    stats.to_file(os.path.join(outdir, "overview.xml"))
+        with tel.device_capture(device):
+            result = multihost.run_single_pulse_search(fil, cfg, device=device)
+        result.timers["reading"] = reading
+        tel.merge_timers(result.timers)
+        write_shard(tel, manifest_path)
+        if multihost.process_index() != 0:
+            return 0  # every process holds the same result; rank 0 writes
+
+        tel.set_stage("writing")
+        t0 = time.perf_counter()
+        write_singlepulse(os.path.join(outdir, "candidates.singlepulse"), result.candidates)
+        result.timers["writing"] = time.perf_counter() - t0
+        tel.add_timer("writing", result.timers["writing"])
+
+        stats = OutputFileWriter()
+        stats.add_misc_info()
+        stats.add_header(fil.header)
+        stats.add_dm_list(result.dm_list)
+        stats.add_device_info(
+            multihost.process_device(device, multihost.process_count(), 0))
+        stats.add_single_pulse_section(cfg, args.inputfile, result.widths,
+                                       result.candidates)
+        stats.add_timing_info(result.timers)
+        stats.to_file(os.path.join(outdir, "overview.xml"))
+
+        tel.gauge("candidates.written", len(result.candidates))
+        tel.set_stage("done")
+        tel.write(manifest_path)
     if args.verbose or args.progress_bar:
         print(
             f"Done: {len(result.candidates)} single-pulse candidates -> {outdir} "

@@ -15,9 +15,12 @@ The search runs on the CUDA device unless ``--device cpu`` is given. It
 writes, as it runs, in the output directory:
   triggers.jsonl          one JSON line per confirmed trigger
   candidates.singlepulse  the rolling top-N table (the batch format)
-Refused with NotImplementedError (ROADMAP A.10): ``--metrics-jsonl`` and
-the JAX CLI's observability flags (``--status-json``, ``--metrics-json``
-and the rest), with the status heartbeat and telemetry.json they write.
+  telemetry.json          the run manifest (or ``--metrics-json PATH``),
+                          with the ``streaming`` section
+``--metrics-jsonl FILE`` appends the stream's time series (chunk latency,
+queue depth, triggers) one JSON sample a line (obs/metrics.py), and
+``--status-json`` writes the live heartbeat with its ``streaming``
+section, as in the JAX CLI (cli/__init__.py).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import os
 import sys
 import time
 
-from . import add_observability_args, refuse_observability
+from . import add_observability_args, init_observability, live_observability
 
 
 def default_outdir() -> str:
@@ -97,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--max-chunks", dest="max_chunks", type=int, default=0,
                    help="stop after N chunks (0 = run to stream end)")
     g.add_argument("--metrics-jsonl", dest="metrics_jsonl", default="",
-                   help="time-series metrics file (ROADMAP A.10, not ported yet)")
+                   help="append-only time-series metrics file (chunk latency, queue "
+                   "depth, trigger counts; obs/metrics.py); default off")
     g.add_argument("--no-warmup", dest="no_warmup", action="store_true",
                    help="skip building and loading the kernels before ingest")
     g.add_argument("--idle-timeout", dest="idle_timeout_s", type=float, default=10.0,
@@ -124,10 +128,14 @@ def make_source(args, block_samples: int):
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_observability(args, parser, "--metrics-jsonl")
+    args = build_parser().parse_args(argv)
     outdir = (args.outdir or default_outdir()).rstrip("/")
+    tel = init_observability(args)
+    tel.set_context(
+        command="stream", outdir=outdir, source=args.replay or args.tail or args.dada,
+        mode="replay" if args.replay else "tail" if args.tail else "dada",
+    )
+    manifest_path = args.metrics_json or os.path.join(outdir, "telemetry.json")
 
     from ..stream import StreamConfig, StreamingSearch
 
@@ -141,10 +149,16 @@ def main(argv: list[str] | None = None) -> int:
         hold_samples=args.hold_samples, queue_blocks=args.queue_blocks,
         policy=args.policy, latency_slo_s=args.latency_slo_s,
         max_chunks=args.max_chunks, warmup=not args.no_warmup,
+        metrics_jsonl=args.metrics_jsonl,
     )
     search = StreamingSearch(cfg, device=args.device)
     os.makedirs(outdir, exist_ok=True)
-    result = search.run(make_source(args, block_samples))
+    with tel.activate(), live_observability(tel, args, outdir, manifest_path):
+        result = search.run(make_source(args, block_samples))
+        tel.merge_timers(result.timers)
+        tel.gauge("candidates.written", len(result.candidates))
+        tel.set_stage("done")
+        tel.write(manifest_path)
     if args.verbose:
         lat = result.latency
         print(

@@ -285,22 +285,37 @@ class Filterbank:
         return self.header.nbits
 
 
-def read_filterbank(path: str | os.PathLike) -> Filterbank:
-    """Read a sigproc filterbank file fully into host RAM."""
+def _read_filterbank_once(path: str | os.PathLike) -> Filterbank:
+    from ..resilience import TransientIOError, faults
+
+    faults.fire("fil.read", context=str(path))
     with open(path, "rb") as f:
         hdr = read_sigproc_header(f)
         nbytes = hdr.nsamples * hdr.nbits * hdr.nchans // 8
         f.seek(hdr.size, _io.SEEK_SET)
         raw = np.frombuffer(f.read(nbytes), dtype=np.uint8)
     if raw.size < nbytes:
-        raise ValueError(
-            f"{path}: short read ({raw.size}/{nbytes} payload bytes)"
+        # a recorder still appending, a cache burp or a torn copy: transient
+        # to the retry policy (a truly truncated file spends the budget)
+        raise TransientIOError(
+            None, f"{path}: short read ({raw.size}/{nbytes} payload bytes)"
         )
     if hdr.nbits == 8:
         return Filterbank(
             header=hdr, data=raw.reshape(hdr.nsamples, hdr.nchans)
         )
     return Filterbank(header=hdr, raw=raw.copy())
+
+
+def read_filterbank(path: str | os.PathLike) -> Filterbank:
+    """Read a sigproc filterbank file fully into host RAM. Transient
+    failures (EIO/EAGAIN, short reads, injected ``fil.read`` faults) are
+    retried under the shared bounded-backoff policy (resilience/policy.py,
+    ``IO_RETRY``); a malformed header or another fatal error raises at
+    once."""
+    from ..resilience import IO_RETRY
+
+    return IO_RETRY.call(_read_filterbank_once, path, site="fil.read", context=str(path))
 
 
 def write_filterbank(path: str | os.PathLike, fil: Filterbank) -> None:

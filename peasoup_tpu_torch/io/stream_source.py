@@ -24,48 +24,27 @@ iterator protocol:
 All sources zero-pad the final partial block to the fixed shape and mark
 it with ``nvalid < block_samples`` and ``final=True``; the driver masks the
 padding out of the search. A read that fails with a transient error
-(:func:`is_transient`) is polled again, bounded by the idle timeout. The
-JAX package's fault-injection seams (``faults.fire``) and the retry policy
-that absorbs them are ROADMAP item A.10.
+(:func:`is_transient`) is polled again, bounded by the idle timeout. Each
+source carries the JAX package's ``fil.read`` fault seam; the replay's is
+absorbed by the shared retry policy (``IO_RETRY``), the tail's and the
+DADA reader's by the polling.
 """
 
 from __future__ import annotations
 
-import errno
 import glob
-import logging
 import os
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs.log import get_logger
+from ..resilience import IO_RETRY, faults, is_transient
 from .dada import DADA_HDR_SIZE, DadaHeader
 from .sigproc import read_sigproc_header, unpack_bits
 
-log = logging.getLogger("peasoup_tpu_torch.stream_source")
-
-# the errnos of an I/O hiccup worth polling again (the JAX package's
-# resilience/errors.py)
-_TRANSIENT_ERRNOS = frozenset(
-    x for x in (
-        errno.EIO, errno.EAGAIN, errno.EINTR, errno.EBUSY, errno.ETIMEDOUT,
-        getattr(errno, "ESTALE", None), getattr(errno, "ECONNRESET", None),
-    ) if x is not None
-)
-
-
-def is_transient(exc: BaseException) -> bool:
-    """Whether an error is a transient I/O hiccup (the JAX package's
-    resilience/errors.py:is_transient, less its own exception class and
-    database contention, which the port does not have): a timeout, or an
-    OSError with a transient errno. A missing file or a refused permission
-    is a state, not a hiccup."""
-    if isinstance(exc, (FileNotFoundError, PermissionError)):
-        return False
-    if isinstance(exc, TimeoutError):  # an OSError subclass: first
-        return True
-    return isinstance(exc, OSError) and exc.errno in _TRANSIENT_ERRNOS
+log = get_logger("stream_source")
 
 
 @dataclass(frozen=True)
@@ -165,6 +144,10 @@ class ReplaySource(StreamSource):
         t0 = time.perf_counter()
         data = self.fil.data  # unpacks sub-byte payloads once
         for blk in _blocks_from_array(data, self.block_samples):
+            # the fault seam: a replayed recording is in RAM, so a flaky
+            # read costs nothing to redo and the retry policy absorbs it
+            IO_RETRY.call(faults.fire, "fil.read", f"replay:seq{blk.seq}",
+                          site="fil.read", context=f"replay:seq{blk.seq}")
             if self.rate > 0:
                 release = t0 + (
                     (blk.seq + 1) * self.block_samples * self.fil.tsamp
@@ -244,6 +227,7 @@ class FileTailSource(StreamSource):
         pending = b""
         while True:
             try:
+                faults.fire("fil.read", context=f"tail:{self.path}@{offset}")
                 size = os.path.getsize(self.path)
                 avail = size - offset
                 if avail > 0:
@@ -387,6 +371,7 @@ class DadaStreamSource(StreamSource):
             segs = [s for s in self._segments() if s not in consumed]
             for seg in segs:
                 try:
+                    faults.fire("fil.read", context=f"dada:{seg}")
                     with open(seg, "rb") as f:
                         f.seek(DADA_HDR_SIZE)
                         pending += f.read()

@@ -142,6 +142,12 @@ def build(names=KERNELS) -> dict[str, float]:
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    if procs:
+        # the run's telemetry counts the libraries it built (its manifest's
+        # "jit" section stays empty: nothing is compiled per shape)
+        from .obs.telemetry import current
+
+        current().incr("kernels.library_builds", len(procs))
     return times
 
 

@@ -1,13 +1,18 @@
 """JSON Schema validation without a jsonschema dependency: the port's copy
-of the validator in the JAX package's obs/schema.py (the small draft-07
-subset its schemas use: ``type`` with union lists, ``const``, ``enum``,
-``minimum``, ``required``, ``properties``, ``additionalProperties`` and
-``items``). The sift report and the rank model artifact are checked with
-it. The rest of the JAX module (the telemetry manifest's schema) is
-ROADMAP item A.10.
+of the JAX package's obs/schema.py (the small draft-07 subset its schemas
+use: ``type`` with union lists, ``const``, ``enum``, ``minimum``,
+``required``, ``properties``, ``additionalProperties`` and ``items``). The
+telemetry manifest (:func:`validate_manifest`, against the port's copy of
+the JAX package's ``manifest.schema.json``), the metrics samples, the sift
+report and the rank model artifact are checked with it.
 """
 
 from __future__ import annotations
+
+import json
+import os
+
+SCHEMA_PATH = os.path.join(os.path.dirname(__file__), "manifest.schema.json")
 
 _TYPES = {
     "object": dict,
@@ -85,3 +90,14 @@ def validate(instance, schema: dict, path: str = "$") -> None:
         if isinstance(items, dict):
             for i, val in enumerate(instance):
                 validate(val, items, f"{path}[{i}]")
+
+
+def load_schema() -> dict:
+    with open(SCHEMA_PATH) as f:
+        return json.load(f)
+
+
+def validate_manifest(man: dict) -> None:
+    """Validate a telemetry manifest dict against the port's copy of the
+    manifest schema (raises :class:`SchemaError` on violation)."""
+    validate(man, load_schema())

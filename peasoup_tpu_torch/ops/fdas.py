@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .harmonics import harmonic_sums
 from .peaks import cluster_peaks_device, find_peaks_device
@@ -137,25 +138,28 @@ def fdas_spectrum_peaks(
     floor and the z = 0 row is the plain periodicity spectrum), sum
     harmonics, and per level keep the first ``max_peaks`` crossings of
     each (trial, template) row and cluster them."""
-    mean, _, std = spectrum_stats(form_interpolated(fser))
-    corr = correlate_bank(fser, tmpl, segment=segment)  # (D, T, nbins)
-    s = normalise(form_interpolated(corr), mean[:, None], std[:, None])
-    del corr
+    with record_function("FDAS-Correlate"):
+        mean, _, std = spectrum_stats(form_interpolated(fser))
+        corr = correlate_bank(fser, tmpl, segment=segment)  # (D, T, nbins)
+        s = normalise(form_interpolated(corr), mean[:, None], std[:, None])
+        del corr
     d, t, nbins = s.shape
-    levels = [s, *harmonic_sums(s, nharms=nharms, scaled=True)]
+    with record_function("Harmonic summing"):
+        levels = [s, *harmonic_sums(s, nharms=nharms, scaled=True)]
     dev = s.device
     idxs, snrs, counts, ccounts = [], [], [], []
-    for lvl, spec in enumerate(levels):
-        lo = torch.full((d * t,), int(windows[lvl][0]), dtype=torch.int64, device=dev)
-        hi = torch.full((d * t,), int(windows[lvl][1]), dtype=torch.int64, device=dev)
-        i_, s_, c_ = find_peaks_device(
-            spec.reshape(d * t, nbins), threshold, lo, hi, max_peaks=max_peaks
-        )
-        i_, s_, cc_ = cluster_peaks_device(i_, s_, c_, nbins=nbins)
-        idxs.append(i_.reshape(d, t, max_peaks))
-        snrs.append(s_.reshape(d, t, max_peaks))
-        counts.append(c_.reshape(d, t))
-        ccounts.append(cc_.reshape(d, t))
+    with record_function("Peaks"):
+        for lvl, spec in enumerate(levels):
+            lo = torch.full((d * t,), int(windows[lvl][0]), dtype=torch.int64, device=dev)
+            hi = torch.full((d * t,), int(windows[lvl][1]), dtype=torch.int64, device=dev)
+            i_, s_, c_ = find_peaks_device(
+                spec.reshape(d * t, nbins), threshold, lo, hi, max_peaks=max_peaks
+            )
+            i_, s_, cc_ = cluster_peaks_device(i_, s_, c_, nbins=nbins)
+            idxs.append(i_.reshape(d, t, max_peaks))
+            snrs.append(s_.reshape(d, t, max_peaks))
+            counts.append(c_.reshape(d, t))
+            ccounts.append(cc_.reshape(d, t))
     return FdasPeaks(
         idxs=torch.stack(idxs, dim=1).to(torch.int32),
         snrs=torch.stack(snrs, dim=1),

@@ -33,8 +33,13 @@ Deployment, one process per card:
         python -m peasoup_tpu_torch.cli.peasoup -i obs.fil ...
     torchrun --nproc_per_node 8 -m peasoup_tpu_torch.cli.peasoup -i obs.fil ...
 
-Not ported: the JAX drivers' telemetry (context, events, per-process
-manifest shards) and fault-injection seams (ROADMAP item A.10).
+Each process tags its telemetry with its rank, the process count, its
+host and its DM slice (``set_context``) and records ``multihost_slice``
+(or ``multihost_fold``), so its manifest shard (``telemetry.procN.json``,
+written by the CLIs) identifies itself. The exchange carries the JAX
+package's fault seams: ``multihost.barrier`` at every collective and
+``multihost.merge`` where the blobs are combined, both raising
+TransientIOError when a ``PEASOUP_FAULTS`` schedule fires them.
 """
 
 from __future__ import annotations
@@ -42,19 +47,22 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import errno as _errno
-import logging
 import os
 import pickle
+import socket
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..obs.log import get_logger
+from ..obs.telemetry import current as current_telemetry
+from ..resilience import faults
 from ..resilience.errors import TransientIOError
 from .mesh import Mesh, local_devices, make_mesh
 
-log = logging.getLogger("peasoup_tpu_torch.parallel.multihost")
+log = get_logger("parallel.multihost")
 
 # how long a collective (or the rendezvous) waits for a peer
 DEFAULT_TIMEOUT_S = 600.0
@@ -202,7 +210,9 @@ def dm_slice_for_process(
 def _allgather_pickled(payload: bytes, context: str = "") -> list[bytes]:
     """Exchange one pickled blob per process; returns every process's blob
     in process order. Single-process: identity. A peer that died raises
-    TransientIOError within the group's timeout."""
+    TransientIOError within the group's timeout. ``multihost.barrier`` is
+    this collective's fault seam."""
+    faults.fire("multihost.barrier", context=context)
     n = process_count()
     if n == 1:
         return [payload]
@@ -269,7 +279,9 @@ class GangComm:
         self, payload: bytes, context: str = "", timeout_s: float | None = None,
     ) -> list[bytes]:
         """Exchange one blob per member; returns every member's blob in
-        rank order."""
+        rank order. The ``multihost.barrier`` fault seam fires here, as it
+        does for the process group's collective."""
+        faults.fire("multihost.barrier", context=context)
         rnd = self._round
         self._round += 1
         tmp = self._blob_path(rnd, self.rank) + ".w"
@@ -323,10 +335,14 @@ class GangComm:
 
 
 def _unpickle_all(blobs: list[bytes], context: str = "") -> list:
-    """Deserialise every process's blob, the merge step of the drivers; a
-    torn blob classifies as transient where its error says so."""
+    """Deserialise every process's blob, the merge step of the drivers and
+    the ``multihost.merge`` fault seam; a torn blob classifies as transient
+    where its error says so."""
+    faults.fire("multihost.merge", context=context)
     try:
         return [pickle.loads(b) for b in blobs]
+    except TransientIOError:
+        raise
     except Exception as exc:
         _classify_collective_error(exc, context or "merge")
 
@@ -343,6 +359,16 @@ def _comm_topology(comm: GangComm | None) -> tuple[int, int, object]:
 def _merge(gather, payload, context: str) -> list:
     """Every process's payload, in process order (ascending DM slices)."""
     return _unpickle_all(gather(pickle.dumps(payload), context=context), context=context)
+
+
+def _tag_slice(rank: int, nproc: int, lo: int, hi: int, ndm: int) -> None:
+    """Tag this process's telemetry with its place in the run, so its
+    manifest shard identifies itself, and record ``multihost_slice``."""
+    tel = current_telemetry()
+    tel.set_context(process_index=int(rank), process_count=int(nproc),
+                    hostname=socket.gethostname(), dm_slice=[int(lo), int(hi)])
+    tel.event("multihost_slice", processes=nproc, process=rank, dm_lo=lo, dm_hi=hi,
+              ndm=int(ndm))
 
 
 def run_search(fil, config, comm: GangComm | None = None, device="cuda"):
@@ -365,6 +391,7 @@ def run_search(fil, config, comm: GangComm | None = None, device="cuda"):
     lo, hi = dm_slice_for_process(ndm, nproc, rank)
     log.info("multi-process search: process %d/%d owns DM trials [%d, %d) of %d",
              rank, nproc, lo, hi, ndm)
+    _tag_slice(rank, nproc, lo, hi, ndm)
     part = search.run(fil, dm_slice=(lo, hi), finalize=False)
     pieces = _merge(gather, (part.cands, part.n_accel_trials), "search:candidates")
     merged = dataclasses.replace(
@@ -399,6 +426,7 @@ def run_fdas_search(fil, config, comm: GangComm | None = None, device="cuda"):
     lo, hi = dm_slice_for_process(plan.ndm, nproc, rank)
     log.info("multi-process FDAS: process %d/%d owns DM trials [%d, %d) of %d",
              rank, nproc, lo, hi, plan.ndm)
+    _tag_slice(rank, nproc, lo, hi, plan.ndm)
     part = search.run(fil, dm_slice=(lo, hi), finalize=False)
     pieces = _merge(gather, (part.cands, part.n_trials), "fdas:candidates")
     merged = dataclasses.replace(
@@ -429,6 +457,7 @@ def run_single_pulse_search(fil, config, comm: GangComm | None = None, device="c
     lo, hi = dm_slice_for_process(ndm, nproc, rank)
     log.info("multi-process spsearch: process %d/%d owns DM trials [%d, %d) of %d",
              rank, nproc, lo, hi, ndm)
+    _tag_slice(rank, nproc, lo, hi, ndm)
     part = search.run(fil, dm_slice=(lo, hi), finalize=False)
     pieces = _merge(gather, (part.events, part.n_overflowed), "spsearch:events")
     merged = dataclasses.replace(
@@ -455,6 +484,8 @@ def run_survey_fold(observations, folder) -> list[dict]:
     mine = observations[rank::nproc]
     log.info("multi-process survey fold: process %d/%d folds %d of %d observations",
              rank, nproc, len(mine), len(observations))
+    current_telemetry().event("multihost_fold", processes=nproc, process=rank,
+                              observations=len(mine), total=len(observations))
     outcomes = folder.fold_outcomes(mine)
     return [o for piece in _merge(_allgather_pickled, outcomes, "survey_fold:outcomes")
             for o in piece]

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import os
 import time
 
@@ -54,12 +53,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.log import get_logger
 from ..obs.schema import SchemaError, validate
 from ..plan.dedisp_plan import DedispPlan
 from . import write_json_atomic
 from .measure import median, timed_samples
 
-log = logging.getLogger("peasoup_tpu_torch.tuning")
+log = get_logger("tuning")
 
 TUNING_SCHEMA = "peasoup_tpu.tuning_cache"
 TUNING_VERSION = 1
@@ -126,32 +126,29 @@ def validate_cache(doc: dict) -> None:
     validate(doc, schema)
 
 
+def _load_cache_strict(path: str) -> dict:
+    with open(path) as f:
+        doc = json.load(f)
+    if not isinstance(doc, dict) or doc.get("schema") != TUNING_SCHEMA:
+        raise SchemaError(f"not a {TUNING_SCHEMA} document")
+    validate_cache(doc)
+    return doc
+
+
 def load_cache(path: str) -> dict:
     """The tuning cache at ``path``: empty where the file is missing; where
     it is unreadable or breaks the schema, empty too, with a warning and
     the damaged file moved aside to ``*.corrupt`` (a torn shared file
-    re-tunes, it never stops a run)."""
-    try:
-        with open(path) as f:
-            doc = json.load(f)
-        if not isinstance(doc, dict) or doc.get("schema") != TUNING_SCHEMA:
-            raise SchemaError(f"not a {TUNING_SCHEMA} document")
-        validate_cache(doc)
-        return doc
-    except FileNotFoundError:
-        return _empty_cache()
-    except (OSError, ValueError) as exc:  # JSONDecodeError and SchemaError too
-        qpath = path + ".corrupt"
-        try:
-            os.replace(path, qpath)
-        except OSError:
-            qpath = None
-        log.warning(
-            "discarding unreadable tuning cache %s (%s: %.200s)%s; re-tuning from scratch",
-            path, type(exc).__name__, exc,
-            f"; quarantined to {qpath}" if qpath else "",
-        )
-        return _empty_cache()
+    re-tunes, it never stops a run): the resilience layer's
+    load_or_recover, with the ``cache.corrupt`` fault seam before the
+    read."""
+    from ..resilience import faults, load_or_recover
+
+    faults.maybe_corrupt_file(path, context=f"tuning_cache:{path}")
+    return load_or_recover(
+        path, _load_cache_strict, default=None, kind="tuning cache",
+        action="re-tuning from scratch", logger=log,
+    ) or _empty_cache()
 
 
 def save_cache(path: str, doc: dict) -> None:
@@ -450,17 +447,22 @@ def resolve_plan_for_bucket(
     (``source`` "cache") with no measurement; a cold one is selected
     analytically (plan/dedisp_plan.py), tuned on the device where
     ``tune``, and stored."""
+    from ..obs.telemetry import current as current_telemetry
+
     device = resolve_device(device)
     cache_path = cache_path or default_cache_path()
     fp = device_fingerprint(device)
     key = bucket_key(bucket, pipeline)
     doc = load_cache(cache_path)
+    tel = current_telemetry()
     if not force:
         hit = cache_lookup(doc, fp, key)
         if hit is not None:
             plan = DedispPlan.from_doc(hit)
             plan.source = "cache"
             log.info("tuning cache hit for %s on %s: %s", key, fp, plan.summary())
+            tel.event("tuning_cache_hit", bucket=list(bucket), pipeline=pipeline,
+                      **plan.summary())
             return plan
     nchans, nbits = int(bucket[0]), int(bucket[1])
     dm_plan = _dm_plan_for_bucket(bucket, overrides)
@@ -488,6 +490,8 @@ def resolve_plan_for_bucket(
     except OSError as exc:
         log.warning("could not persist tuning cache %s: %.200s", cache_path, exc)
     log.info("tuned plan for %s on %s: %s", key, fp, plan.summary())
+    tel.event("tuning", bucket=list(bucket), pipeline=pipeline, cache_path=cache_path,
+              **plan.summary())
     return plan
 
 

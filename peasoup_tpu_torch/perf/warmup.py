@@ -22,15 +22,15 @@ drivers' own plan machinery.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
 from dataclasses import dataclass, field
 
 import torch
 
 from ..device import resolve_device
+from ..obs.log import get_logger
 
-log = logging.getLogger("peasoup_tpu_torch.warmup")
+log = get_logger("warmup")
 
 
 @dataclass

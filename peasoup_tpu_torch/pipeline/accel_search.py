@@ -30,6 +30,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..ops.dftspec import dft_untwist_interbin
 from ..ops.fft import packed_dft_z, untwist_interbin_normalise
@@ -91,12 +92,13 @@ def preprocess_block(tims, zapmask, *, size, nsamps_valid, pos5, pos25):
     """Once-per-DM-trial stage for a (D, >=size) block: returns the
     whitened, zapped time series xd (D, size) and the per-trial spectrum
     (mean, std) that normalise every accel trial's spectrum."""
-    re, im, med = _pre_spectrum_parts(
-        tims, size=size, nsamps_valid=nsamps_valid, pos5=pos5, pos25=pos25
-    )
-    re_d, im_d, s0 = specchain(re, im, med, zapmask)
-    mean, _, std = spectrum_stats(s0)
-    xd = torch.fft.irfft(torch.complex(re_d, im_d), n=size, dim=-1)
+    with record_function("Spectrum-Chain"):
+        re, im, med = _pre_spectrum_parts(
+            tims, size=size, nsamps_valid=nsamps_valid, pos5=pos5, pos25=pos25
+        )
+        re_d, im_d, s0 = specchain(re, im, med, zapmask)
+        mean, _, std = spectrum_stats(s0)
+        xd = torch.fft.irfft(torch.complex(re_d, im_d), n=size, dim=-1)
     return xd, mean, std
 
 
@@ -118,25 +120,32 @@ def search_rows(
     accel) rows of one DM block. ``fused_dft`` takes the dftspec kernel
     for the spectrum, else cuFFT + the interbin kernel; ``mega_harm`` the
     harmpeaks kernel for sums and peaks, else torch sums + the peaks
-    kernel."""
+    kernel. The stages run under the JAX package's named scopes
+    (torch.profiler.record_function), which tools/scope_trace.py reads."""
     size = xd.shape[-1]
     nbins = size // 2 + 1
     npad = padded_bins(size)
-    x = resample_rows(xd, row_dm, afs)
-    if fused_dft:
-        s = dft_untwist_interbin(x, mean, std, npad=npad)
-    else:
-        s = untwist_interbin_normalise(packed_dft_z(x), mean, std, npad=npad)
-    del x
-    kw = dict(
-        threshold=threshold, max_peaks=max_peaks, scales=level_scales(nharms),
-        nbins=nbins,
-    )
-    if mega_harm:
-        peaks = find_harmonic_cluster_peaks(s, windows, nharms=nharms, **kw)
-    else:
-        # s is padded to SPEC_ALIGN, so its sums are the JAX package's
-        # block-aligned levels
-        sums = harmonic_sums(s, nharms=nharms, scaled=False)
-        peaks = find_cluster_peaks_multi([s, *sums], windows, **kw)
+    with record_function("Acceleration-Loop"):
+        with record_function("Resample"):
+            x = resample_rows(xd, row_dm, afs)
+        with record_function("Spectrum-Chain"):
+            if fused_dft:
+                s = dft_untwist_interbin(x, mean, std, npad=npad)
+            else:
+                s = untwist_interbin_normalise(packed_dft_z(x), mean, std, npad=npad)
+        del x
+        kw = dict(
+            threshold=threshold, max_peaks=max_peaks, scales=level_scales(nharms),
+            nbins=nbins,
+        )
+        if mega_harm:
+            with record_function("Harmonic summing"), record_function("Peaks"):
+                peaks = find_harmonic_cluster_peaks(s, windows, nharms=nharms, **kw)
+        else:
+            # s is padded to SPEC_ALIGN, so its sums are the JAX package's
+            # block-aligned levels
+            with record_function("Harmonic summing"):
+                sums = harmonic_sums(s, nharms=nharms, scaled=False)
+            with record_function("Peaks"):
+                peaks = find_cluster_peaks_multi([s, *sums], windows, **kw)
     return AccelSearchPeaks(*peaks)

@@ -25,13 +25,15 @@ start over; a store whose key differs is ignored.
 from __future__ import annotations
 
 import glob
-import logging
 import os
 import tempfile
 
 import numpy as np
 
-log = logging.getLogger("peasoup_tpu_torch.checkpoint")
+from ..obs.log import get_logger
+from ..resilience import IO_RETRY, faults, load_or_recover
+
+log = get_logger("checkpoint")
 
 # the names an entry's three arrays are stored under, in order: the
 # periodicity search's (idxs, snrs, counts) and, under the same names as in
@@ -108,28 +110,20 @@ class SearchCheckpoint:
     def load(self) -> dict[int, tuple]:
         """The union of every store file, filtered to this slice with local
         keys; {} where none exists or the key changed. A damaged file is
-        warned about, renamed to ``*.corrupt`` and skipped."""
+        warned about, renamed to ``*.corrupt`` and skipped (the resilience
+        layer's load_or_recover, which records ``corrupt_artifact``); the
+        ``cache.corrupt`` fault seam garbles a file before it is read."""
         if not self.base_path:
             return {}
         out: dict[int, tuple] = {}
         for path in self._store_files():
-            try:
-                part = self._load_store(path)
-            except FileNotFoundError:
-                continue
-            except Exception as exc:
-                qpath = path + ".corrupt"
-                try:
-                    os.replace(path, qpath)
-                except OSError:
-                    qpath = None
-                log.warning(
-                    "discarding unreadable checkpoint %s (%s: %.200s)%s; "
-                    "restarting those trials", path, type(exc).__name__, exc,
-                    f"; quarantined to {qpath}" if qpath else "",
-                )
-                continue
-            out.update(part)
+            faults.maybe_corrupt_file(path, context=f"checkpoint:{path}")
+            part = load_or_recover(
+                path, self._load_store, default=None, kind="checkpoint",
+                action="restarting those trials", logger=log,
+            )
+            if part:
+                out.update(part)
         return out
 
     def save(self, results: dict[int, tuple]) -> None:
@@ -147,15 +141,22 @@ class SearchCheckpoint:
                 arrays[f"{n}_{d + self.lo}"] = a
         dirname = os.path.dirname(os.path.abspath(self.write_path)) or "."
         os.makedirs(dirname, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".ckpt.tmp")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                np.savez(f, **arrays)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, self.write_path)
-        except BaseException:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-            raise
+
+        def _write_once() -> None:
+            faults.fire("checkpoint.write", context=self.write_path)
+            fd, tmp = tempfile.mkstemp(dir=dirname, suffix=".ckpt.tmp")
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    np.savez(f, **arrays)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(tmp, self.write_path)
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+                raise
+
+        # a transient write error (EIO, an injected checkpoint.write fault)
+        # is retried; a persistent one raises
+        IO_RETRY.call(_write_once, site="checkpoint.write", context=self.write_path)
 

@@ -19,20 +19,19 @@ slice's to its own sibling file) and a later run searches only the
 trials missing. An out-of-memory error on
 the card steps down the JAX package's ladder: halve the template batch
 while it can, then the DM block; past that it raises. Each step is
-logged.
-
-Not ported: the JAX package's telemetry and its DegradationLadder record
-(ROADMAP A.10).
+logged, and recorded as the JAX package records it: the ``fdas.memory``
+DegradationLadder, the ``fdas_*`` events and the ``device.oom`` fault
+seam at each attempt.
 """
 
 from __future__ import annotations
 
-import logging
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import native
 from ..core.candidates import CandidateCollection, FdasCandidate
@@ -40,17 +39,20 @@ from ..device import resolve_device
 from ..fdas.templates import SPEED_OF_LIGHT, auto_segment, build_template_bank
 from ..io.masks import read_killfile, read_zapfile
 from ..io.sigproc import Filterbank
+from ..obs.log import get_logger
+from ..obs.telemetry import current as current_telemetry
 from ..ops.dedisperse import dedisperse_host, fil_to_device, output_scale
 from ..ops.fdas import fdas_block_core
 from ..ops.zap import birdie_mask
 from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
+from ..resilience import DegradationLadder, faults
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .score import CandidateScorer
 from .search import _freq_factor, _is_oom, _level_windows, _release
 
-log = logging.getLogger("peasoup_tpu_torch.fdas")
+log = get_logger("fdas")
 
 
 @dataclass
@@ -200,10 +202,12 @@ class FdasSearch:
         """Search ``fil`` (the DM trials [lo, hi) of ``dm_slice`` only, if
         given); ``finalize=False`` stops after the per-DM distils."""
         cfg = self.config
+        tel = current_telemetry()
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
 
         t0 = time.perf_counter()
+        tel.set_stage("plan")
         dm_plan = self.build_dm_plan(fil)
         global_ndm = dm_plan.ndm
         dm_lo = 0
@@ -223,6 +227,12 @@ class FdasSearch:
                 n_trials=0, t_total_start=t_total,
             )
             return self.finalize(fil, part) if finalize else part
+        tel.gauge("fdas.n_dm_trials", int(dm_plan.ndm))
+        tel.gauge("fdas.n_templates", int(bank.ntemplates))
+        tel.gauge("fdas.fft_size", int(size))
+        tel.event("fdas_plan", ndm=int(dm_plan.ndm), n_templates=int(bank.ntemplates),
+                  width=int(bank.width), segment=int(segment), zmax=float(cfg.zmax),
+                  wmax=float(cfg.wmax), fft_size=int(size))
         log.info("FDAS plan: %d DM trials x %d templates (width %d, segment %d), "
                  "fft size %d", dm_plan.ndm, bank.ntemplates, bank.width, segment, size)
 
@@ -240,15 +250,20 @@ class FdasSearch:
 
         # trials in host RAM, dedispersed by the kernel segment by segment
         t0 = time.perf_counter()
+        tel.set_stage("dedispersion")
         trials = np.zeros((0, dm_plan.out_nsamps), dtype=np.uint8)
         if len(per_dm) < dm_plan.ndm:
-            trials = dedisperse_host(
-                fil_to_device(fil, self.device), dm_plan.delay_samples(),
-                dm_plan.killmask, dm_plan.out_nsamps,
-                scale=output_scale(fil.nbits, int(dm_plan.killmask.sum())),
-            )
+            with record_function("Dedisperse"):
+                trials = dedisperse_host(
+                    fil_to_device(fil, self.device), dm_plan.delay_samples(),
+                    dm_plan.killmask, dm_plan.out_nsamps,
+                    scale=output_scale(fil.nbits, int(dm_plan.killmask.sum())),
+                )
         self._sync()
         timers["dedispersion"] = time.perf_counter() - t0
+        tel.capture_device_memory("dedispersion")
+        if per_dm:
+            tel.event("checkpoint_resume", restored=len(per_dm), ndm=int(dm_plan.ndm))
 
         nsamps_valid = min(dm_plan.out_nsamps, size)
         tobs = float(np.float32(size) * np.float32(fil.tsamp))
@@ -268,13 +283,16 @@ class FdasSearch:
         )
 
         t0 = time.perf_counter()
+        tel.set_stage("searching")
         self._run_blocks(trials, dm_plan.ndm, bank, zapmask, windows, per_dm,
                          ckpt, geometry)
         del trials
         self._sync()
         timers["search_device"] = time.perf_counter() - t0
+        tel.capture_device_memory("search")
 
         t_host = time.perf_counter()
+        tel.set_stage("search_host")
         harm_finder = HarmonicDistiller(cfg.freq_tol, cfg.max_harm, keep_related=False)
         tmpl_still = AccelerationDistiller(tobs, cfg.freq_tol, keep_related=True)
         dm_trial_cands = CandidateCollection()
@@ -295,6 +313,7 @@ class FdasSearch:
             dm_trial_cands.append(tmpl_still.distill(tmpl_trial_cands.cands))
         timers["search_host"] = time.perf_counter() - t_host
         timers["searching"] = time.perf_counter() - t0
+        tel.gauge("candidates.per_dm_distill", len(dm_trial_cands))
 
         part = PartialFdasResult(
             cands=dm_trial_cands.cands, dm_offset=dm_lo, dm_list=dm_plan.dm_list,
@@ -335,6 +354,7 @@ class FdasSearch:
         block's (idxs, snrs, cluster counts) per trial, (nlev, T, K), go to
         ``per_dm`` and the store."""
         cfg = self.config
+        tel = current_telemetry()
         dev = self.device
         nbins = geometry["size"] // 2 + 1
         ntemplates = bank.ntemplates
@@ -345,13 +365,18 @@ class FdasSearch:
         tim_len = min(geometry["size"], trials.shape[1])
         threshold = float(np.float32(cfg.min_snr))
         self.n_searched = 0
+        ladder = DegradationLadder("fdas.memory", ("template_block_shrink", "dm_block_shrink"))
         retry = False
         while True:
             if retry:
                 _release(dev)
             self.blocks = (db, tb)
             todo = [d for d in range(ndm) if d not in per_dm]
+            tel.event("fdas_wave_plan", n_blocks=-(-len(todo) // db), dm_block=db,
+                      template_block=tb, n_template_batches=-(-ntemplates // tb))
+            tel.set_progress(ndm - len(todo), ndm, unit="dm trials")
             try:
+                faults.fire("device.oom", context=f"fdas:db{db}.tb{tb}")
                 for s0 in range(0, len(todo), db):
                     rows = todo[s0 : s0 + db]
                     tims = torch.from_numpy(trials[rows, :tim_len]).to(dev)
@@ -375,6 +400,8 @@ class FdasSearch:
                         per_dm[d] = (idxs[k], snrs[k], ccounts[k])
                     self.n_searched += len(rows)
                     ckpt.save(per_dm)
+                    tel.set_progress(ndm - len(todo) + s0 + len(rows), ndm,
+                                     unit="dm trials")
                 log.info("searched %d of %d DM trials (%d restored) in tiles of %d DM "
                          "x %d templates", self.n_searched, ndm, ndm - self.n_searched,
                          db, tb)
@@ -387,32 +414,47 @@ class FdasSearch:
                     tb = max(1, tb // 2)
                     log.warning("device OOM; halving the template batch to %d: %.200s",
                                 tb, exc)
+                    tel.event("fdas_oom_template_shrink", template_block=tb,
+                              error=f"{exc!s:.200}")
+                    if ladder.current_rung in (None, "template_block_shrink"):
+                        ladder.step("template_block_shrink", template_block=tb,
+                                    error=f"{exc!s:.200}")
                 elif db > 1:
                     db = max(1, db // 2)
                     log.warning("device OOM at template_block=1; halving the DM block "
                                 "to %d: %.200s", db, exc)
+                    tel.event("fdas_oom_dm_shrink", dm_block=db, error=f"{exc!s:.200}")
+                    ladder.step("dm_block_shrink", dm_block=db, error=f"{exc!s:.200}")
                 else:
+                    ladder.exhausted(dm_block=db, template_block=tb,
+                                     error=f"{exc!s:.200}")
                     raise
 
     def finalize(self, fil: Filterbank, part: PartialFdasResult) -> FdasResult:
         """The global distil and scoring of the per-DM candidates (the JAX
         package's FdasSearch.finalize)."""
         cfg = self.config
+        tel = current_telemetry()
         timers = part.timers
         t0 = time.perf_counter()
+        tel.set_stage("distilling")
         dm_still = DMDistiller(cfg.freq_tol, keep_related=True)
         harm_still = HarmonicDistiller(
             cfg.freq_tol, cfg.max_harm, keep_related=True, fractional_harms=False
         )
+        tel.gauge("candidates.per_dm_total", len(part.cands))
         cands = harm_still.distill(dm_still.distill(part.cands))
+        tel.gauge("candidates.post_harmonic_distill", len(cands))
         timers["distilling"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        tel.set_stage("scoring")
         scorer = CandidateScorer(fil.tsamp, fil.cfreq, fil.foff, abs(fil.foff) * fil.nchans)
         scorer.score_all(cands)
         timers["scoring"] = time.perf_counter() - t0
 
         cands = cands[: cfg.limit]
+        tel.gauge("candidates.final", len(cands))
         timers["total"] = time.perf_counter() - part.t_total_start
         log.info("FDAS search: %d DM x %d template trials -> %d candidates",
                  len(part.dm_list), part.n_templates, len(cands))

@@ -4,21 +4,23 @@ staircase (ops/ffa.py) over every trial on the same device."""
 
 from __future__ import annotations
 
-import logging
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..io.masks import read_killfile
 from ..io.sigproc import Filterbank
+from ..obs.log import get_logger
+from ..obs.telemetry import current as current_telemetry
 from ..ops.dedisperse import dedisperse_host, fil_to_device, output_scale
 from ..ops.ffa import ffa_search_block
 from ..plan.dm_plan import DMPlan
 
-log = logging.getLogger("peasoup_tpu_torch.ffa")
+log = get_logger("ffa")
 
 
 @dataclass
@@ -76,32 +78,50 @@ class FFASearch:
         """Full search of ``fil``; ``progress(fraction)`` is called after
         each octave."""
         cfg = self.config
+        tel = current_telemetry()
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
 
         t0 = time.perf_counter()
+        tel.set_stage("plan")
         plan = self.build_dm_plan(fil)
         timers["plan"] = time.perf_counter() - t0
+        tel.gauge("ffa.n_dm_trials", int(plan.ndm))
+        tel.event("ffa_plan", ndm=int(plan.ndm), p_start=float(cfg.p_start),
+                  p_end=float(cfg.p_end), min_dc=float(cfg.min_dc))
 
         # the staircase prepares the trials on the host (mean removal and
         # downsampling, as the JAX package does), so they land in host RAM
         # a segment at a time
         t0 = time.perf_counter()
-        trials = dedisperse_host(
-            fil_to_device(fil, self.device), plan.delay_samples(), plan.killmask,
-            plan.out_nsamps, scale=output_scale(fil.nbits, int(plan.killmask.sum())),
-        )
+        tel.set_stage("dedispersion")
+        with record_function("Dedisperse"):
+            trials = dedisperse_host(
+                fil_to_device(fil, self.device), plan.delay_samples(), plan.killmask,
+                plan.out_nsamps, scale=output_scale(fil.nbits, int(plan.killmask.sum())),
+            )
         timers["dedispersion"] = time.perf_counter() - t0
+        tel.capture_device_memory("dedispersion")
 
         t0 = time.perf_counter()
+        tel.set_stage("ffa_search")
+
+        def on_progress(f: float) -> None:
+            # feeds the heartbeat's rate and ETA as well as the caller's
+            tel.set_progress(round(f * 100.0, 3), 100.0, unit="%")
+            if progress is not None:
+                progress(f)
+
         cands = ffa_search_block(
             trials, fil.tsamp, cfg.p_start, cfg.p_end, cfg.min_dc, plan.dm_list,
-            snr_min=cfg.min_snr, progress=progress, device=self.device,
+            snr_min=cfg.min_snr, progress=on_progress, device=self.device,
         )
         timers["ffa_search"] = time.perf_counter() - t0
+        tel.capture_device_memory("ffa_search")
 
         out = cands[: cfg.limit]
         timers["total"] = time.perf_counter() - t_total
+        tel.gauge("candidates.final", len(out))
         log.info("FFA search: %d DM trials -> %d period-collapsed candidates",
                  plan.ndm, len(out))
         return FFAResult(candidates=out, dm_list=plan.dm_list, timers=timers,

@@ -33,7 +33,17 @@ out-of-memory error on the card steps down the JAX package's memory
 ladder, the rungs a card has: halve the DM block (and its row batches)
 while it can, then free the card's trials, dedisperse again into host
 RAM through the dedisperse kernel (segment by segment) and size the
-blocks afresh; past that it raises.
+blocks afresh; past that it raises. Each step is recorded as the JAX
+package records it (the ``search.memory`` DegradationLadder, the
+``oom_*`` events), and the ``device.oom`` fault seam fires at each
+attempt.
+
+The run records the JAX package's telemetry through the ambient
+RunTelemetry (obs/telemetry.py; a no-op unless a CLI activated one): its
+stages, gauges and events (``device_plan``, ``accel_dedupe``,
+``wave_plan``, ``max_peaks_escalated``, ``checkpoint_resume``, ...), and
+its stages run under the JAX package's named scopes as
+``torch.profiler.record_function`` scopes (tools/scope_trace.py).
 
 The DM trials are sharded over the devices :func:`_pick_devices` picks
 (every local card up to ``max_num_threads``, as the reference runs one
@@ -62,7 +72,6 @@ measurement fails the run.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import math
 import os
 import time
@@ -72,11 +81,16 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from torch.profiler import record_function
+
 from .. import native
 from ..core.candidates import Candidate
 from ..device import device_context, resolve_device
 from ..io.masks import read_killfile, read_zapfile
 from ..io.sigproc import Filterbank
+from ..obs.log import get_logger
+from ..obs.telemetry import current as current_telemetry
+from ..obs.trace import job_span
 from ..ops.dedisperse import (
     dedisperse, dedisperse_host, dedisperse_matmul, dedisperse_subband,
     fil_to_device, output_scale,
@@ -90,13 +104,14 @@ from ..plan.accel_plan import AccelerationPlan
 from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
+from ..resilience import DegradationLadder, check_revoke, faults, is_resource_exhausted
 from .accel_search import padded_bins, preprocess_block
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .folder import MultiFolder
 from .score import CandidateScorer
 
-log = logging.getLogger("peasoup_tpu_torch.search")
+log = get_logger("search")
 
 
 @dataclass
@@ -582,13 +597,9 @@ def choose_routes(size: int, af_max: float) -> dict[str, bool]:
     return dict(fused_dft=fused_dft, mega_harm=mega_harm)
 
 
-def _is_oom(exc: BaseException) -> bool:
-    """The card ran out of memory: the caching allocator's
-    torch.OutOfMemoryError, or cuFFT failing to allocate a plan's work
-    area. Any other error is not one."""
-    return isinstance(exc, torch.OutOfMemoryError) or (
-        isinstance(exc, RuntimeError) and "CUFFT_ALLOC_FAILED" in str(exc)
-    )
+# the card ran out of memory: the resilience taxonomy's one definition
+# (torch.OutOfMemoryError, cuFFT's CUFFT_ALLOC_FAILED)
+_is_oom = is_resource_exhausted
 
 
 def _release(*devices: torch.device) -> None:
@@ -770,6 +781,9 @@ class PeasoupSearch:
         if (cfg.accel_bucket == SearchConfig.__dataclass_fields__["accel_bucket"].default
                 and dplan.accel_bucket):
             changes["accel_bucket"] = int(dplan.accel_bucket)
+        tel = current_telemetry()
+        tel.event("dedisp_plan", **dplan.summary())
+        tel.set_context(dedisp_plan=dplan.summary())
         log.info("dedispersion plan: %s (subbands=%d, dedisp_block=%d, gain %.2fx, "
                  "predicted S/N loss %.3f, %s): %s", dplan.engine, dplan.subbands,
                  dplan.dedisp_block, dplan.gain, dplan.predicted_loss, dplan.source,
@@ -799,10 +813,12 @@ class PeasoupSearch:
         distils and returns the PartialSearchResult a multi-process merge
         takes (parallel/multihost.py:run_search)."""
         cfg = self.config
+        tel = current_telemetry()
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
 
         t0 = time.perf_counter()
+        tel.set_stage("plan")
         if plan is None:
             plan = self.build_plan(fil)
         if plan.nharms != cfg.nharmonics:
@@ -851,18 +867,26 @@ class PeasoupSearch:
         )
 
         t0 = time.perf_counter()
+        tel.set_stage("dedispersion")
         scale = output_scale(fil.nbits, int(plan.killmask.sum()))
         # sharded trials spread over the shards' devices
         n_cards = len(set(self.devices)) if knobs.subbands == 0 else 1
-        spill = plan.ndm * plan.out_nsamps > self.TRIALS_DEVICE_LIMIT * n_cards
+        trials_bytes = plan.ndm * plan.out_nsamps
+        spill = trials_bytes > self.TRIALS_DEVICE_LIMIT * n_cards
+        tel.event("device_plan", n_devices=len(self.devices),
+                  sharded=len(self.devices) > 1, trials_spill=bool(spill),
+                  trials_bytes=int(trials_bytes), ndm=int(plan.ndm))
         if skip_dedisp:
             log.info("resume fast path: every DM trial restored and npdmp=0; "
                      "dedispersion skipped")
+            tel.event("resume_fast_path", ndm=int(plan.ndm))
             trials = np.zeros((0, plan.out_nsamps), dtype=np.uint8)
         else:
-            trials = self._dedisperse(fil, plan, scale, spill)
+            with record_function("Dedisperse"):
+                trials = self._dedisperse(fil, plan, scale, spill)
         self._sync()
         timers["dedispersion"] = time.perf_counter() - t0
+        tel.capture_device_memory("dedispersion")
 
         tobs = float(np.float32(size) * np.float32(fil.tsamp))
         # float bin_width = 1.0/tobs (pipeline_multi.cu:119)
@@ -873,13 +897,24 @@ class PeasoupSearch:
             pos5=int(cfg.boundary_5_freq / bin_width),
             pos25=int(cfg.boundary_25_freq / bin_width),
         )
+        tel.set_stage("searching")
         accel_lists = plan.accel_lists
+        # trial totals published before the search, so the live heartbeat
+        # can report progress against them
+        tel.gauge("search.n_dm_trials", int(plan.ndm))
+        tel.gauge("search.n_accel_trials", sum(len(a) for a in accel_lists))
+        tel.gauge("search.fft_size", int(size))
         if cfg.dedupe_accel:
             dispatch_lists, expand = _dedupe_identity_accels(
                 accel_lists, fil.tsamp, size
             )
         else:
             dispatch_lists, expand = list(accel_lists), [None] * plan.ndm
+        if any(m is not None for m in expand):
+            tel.event("accel_dedupe", dispatched=sum(len(a) for a in dispatch_lists),
+                      full=sum(len(a) for a in accel_lists))
+        if per_dm:
+            tel.event("checkpoint_resume", restored=len(per_dm), ndm=int(plan.ndm))
         af_max = max(
             (float(np.abs(accel_factor(a, fil.tsamp)).max())
              for a in dispatch_lists if len(a)),
@@ -902,8 +937,10 @@ class PeasoupSearch:
             trials = None  # only the folder reads the trials again
         self._sync()
         timers["search_device"] = time.perf_counter() - t0
+        tel.capture_device_memory("search")
 
         t_host = time.perf_counter()
+        tel.set_stage("search_host")
         harm_finder = HarmonicDistiller(cfg.freq_tol, cfg.max_harm, keep_related=False)
         acc_still = AccelerationDistiller(tobs, cfg.freq_tol, keep_related=True)
         results = [per_dm.pop(dm_idx) for dm_idx in range(plan.ndm)]
@@ -914,6 +951,7 @@ class PeasoupSearch:
             _offset_dm_idx(cands, dm_lo)
         timers["search_host"] = time.perf_counter() - t_host
         timers["searching"] = time.perf_counter() - t0
+        tel.gauge("candidates.per_dm_distill", len(cands))
 
         part = PartialSearchResult(
             cands=cands,
@@ -963,38 +1001,61 @@ class PeasoupSearch:
     def _search_with_ladder(self, fil, plan, trials, scale, skip_dedisp, per_dm, ckpt,
                             dispatch_lists, expand, geometry, routes):
         """:meth:`_search_trials` under the JAX package's memory ladder
-        (its pipeline/search.py:1117-1240), the rungs a card has: on an
-        out-of-memory error, halve the DM block and its row batches and
-        retry (the trials already searched are kept); at one trial and one
-        row, free the device-resident trials, dedisperse again into host
-        RAM (the dedisperse kernel segment by segment, the same bits) and
-        size the blocks afresh. This is the JAX package's subband rung,
-        whose exact subbands serve only to put the trials in host RAM.
-        Past that, raise. Returns the trials the search ended with."""
-        cfg = self.config
+        (its pipeline/search.py:1117-1285, the ``search.memory``
+        DegradationLadder), the rungs a card has: on an out-of-memory error,
+        halve the DM block and its row batches and retry (the trials
+        already searched are kept; rung ``dm_block_shrink``); at one trial
+        and one row, free the device-resident trials, dedisperse again into
+        host RAM (the dedisperse kernel segment by segment, the same bits)
+        and size the blocks afresh (rung ``subband``: the JAX package's
+        exact subbands serve only to put the trials in host RAM). Past that
+        the ladder is exhausted and the error raised: the port has no
+        ``cpu_backend`` rung, since on the card a search runs or raises.
+        The ``device.oom`` fault seam fires at each attempt. Returns the
+        trials the search ended with."""
+        tel = current_telemetry()
+        ladder = DegradationLadder(
+            "search.memory", ("dm_block_shrink", "subband", "cpu_backend")
+        )
         shrink, fell_host, retry = 1, False, False
         while True:
             if retry:
                 _release(*self.devices)
+            d_blk, row_blk = self._blocks(plan, geometry["size"], shrink)
+            bounds = shard_bounds(plan.ndm, len(self.devices))
+            tel.event(
+                "wave_plan", n_waves=-(-max(hi - lo for lo, hi in bounds) // d_blk),
+                n_chunks=sum(-(-(hi - lo) // d_blk) for lo, hi in bounds),
+                shrink=shrink, max_dm_block=d_blk, backend="default",
+            )
             try:
+                faults.fire("device.oom", context=f"search:shrink{shrink}")
                 self._search_trials(trials, plan, dispatch_lists, expand, fil.tsamp,
                                     geometry, routes, per_dm, ckpt, shrink)
                 return trials
             except Exception as exc:
                 if not _is_oom(exc):
                     raise
-                d_blk, row_blk = self._blocks(plan, geometry["size"], shrink)
                 retry = True
                 if d_blk > 1 or row_blk > 1:
                     shrink *= 2
+                    new_blk, new_row = self._blocks(plan, geometry["size"], shrink)
                     log.warning(
                         "device OOM at dm_block=%d (row batch %d); retrying with "
                         "half-size blocks (dm_block=%d, row batch %d): %.200s",
-                        d_blk, row_blk, *self._blocks(plan, geometry["size"], shrink), exc,
+                        d_blk, row_blk, new_blk, new_row, exc,
                     )
+                    tel.event("oom_shrink_retry", dm_block_old=d_blk,
+                              dm_block_new=new_blk, shrink=shrink, error=f"{exc!s:.200}")
+                    # shrinks after the host rung keep the event trail but
+                    # not a ladder step (a ladder never climbs back up)
+                    if ladder.current_rung in (None, "dm_block_shrink"):
+                        ladder.step("dm_block_shrink", dm_block_old=d_blk,
+                                    dm_block_new=new_blk, error=f"{exc!s:.200}")
                     continue
                 if (fell_host or self.knobs.subbands > 0 or skip_dedisp
                         or isinstance(trials, np.ndarray)):
+                    ladder.exhausted(dm_block=d_blk, error=f"{exc!s:.200}")
                     raise
                 fell_host, shrink = True, 1
                 log.warning(
@@ -1002,12 +1063,17 @@ class PeasoupSearch:
                     "into host RAM (dedisperse kernel, segment by segment): %.200s",
                     exc,
                 )
+                tel.event("oom_subband_fallback", nsub=0, engine="dedisperse_host",
+                          dm_block=d_blk, error=f"{exc!s:.200}")
+                ladder.step("subband", nsub=0, engine="dedisperse_host",
+                            error=f"{exc!s:.200}")
             trials = None
             _release(*self.devices)
-            trials = dedisperse_host(
-                fil_to_device(fil, self.device), plan.delays, plan.killmask,
-                plan.out_nsamps, scale=scale, block=self.knobs.dedisp_block,
-            )
+            with record_function("Dedisperse"):
+                trials = dedisperse_host(
+                    fil_to_device(fil, self.device), plan.delays, plan.killmask,
+                    plan.out_nsamps, scale=scale, block=self.knobs.dedisp_block,
+                )
 
     def _blocks(self, plan, size: int, shrink: int = 1) -> tuple[int, int]:
         """(DM trials a preprocessed block, rows a batch) of one shard, each
@@ -1050,46 +1116,68 @@ class PeasoupSearch:
         )
         bounds = shard_bounds(plan.ndm, len(self.devices))
         self.n_searched = 0
-        for k in range(0, max(hi - lo for lo, hi in bounds), d_blk):
-            blocks = []
-            for (lo, hi), dev in zip(bounds, self.devices):
-                lo, hi = lo + k, min(lo + k + d_blk, hi)
-                todo = [d for d in range(lo, hi) if d not in per_dm]
-                if not todo:
-                    blocks.append(None)
-                    continue
-                with device_context(dev):
-                    tims = _trial_rows(trials, lo, hi, size, dev)
-                    xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
-                    del tims
-                blocks.append(dict(
-                    lo=lo, todo=todo, dev=dev, xd=xd, mean=mean, std=std,
-                    rows=[(d - lo, a) for d in todo for a in range(len(dispatch_lists[d]))],
-                    afs={d: accel_factor(dispatch_lists[d], tsamp).astype(np.float32)
-                         for d in todo},
-                    results=[],
-                ))
-            if not any(blocks):
-                continue
-            nrows = max(len(b["rows"]) for b in blocks if b)
-            for r0 in range(0, nrows, row_blk):
-                jobs = [self._job(b, r0, row_blk) if b else None for b in blocks]
-                idxs, snrs, cc = self._search_batch(search, jobs, plan.windows)
-                at = 0
-                for b, job in zip(blocks, jobs):
-                    if job is not None:
-                        n = len(job[1])
-                        b["results"].append((idxs[at:at + n], snrs[at:at + n], cc[at:at + n]))
-                        at += n
-            for b in blocks:
-                if b:
-                    self._collect(b, plan, dispatch_lists, expand, per_dm)
-                    self.n_searched += len(b["todo"])
-            del blocks
-            if ckpt is not None:
-                ckpt.save(per_dm)
+        tel = current_telemetry()
+        rounds = range(0, max(hi - lo for lo, hi in bounds), d_blk)
+        tel.set_progress(0, len(rounds), unit="chunks")
+        for wi, k in enumerate(rounds):
+            with job_span("wave", wave=wi), record_function("DM-Loop"):
+                searched = self._search_round(trials, plan, dispatch_lists, expand,
+                                              tsamp, geometry, per_dm, bounds, k, d_blk,
+                                              row_blk, zaps, search)
+            if searched:
+                if ckpt is not None:
+                    with job_span("checkpoint", wave=wi):
+                        ckpt.save(per_dm)
+                # the revoke seam: a preempt stops here, right after the
+                # checkpoint save, so a resumed run restores exactly this state
+                check_revoke("search.wave")
+            tel.set_progress(wi + 1, len(rounds), unit="chunks")
+            tel.incr("search.dm_trials_done",
+                     sum(max(0, min(lo + k + d_blk, hi) - (lo + k)) for lo, hi in bounds))
         log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
                  plan.ndm, plan.ndm - self.n_searched)
+
+    def _search_round(self, trials, plan, dispatch_lists, expand, tsamp, geometry,
+                      per_dm, bounds, k, d_blk, row_blk, zaps, search) -> bool:
+        """The k-th DM block of every shard, searched together a row batch
+        of each at a time, each searched DM trial's results into
+        ``per_dm``. False where every trial of the round was restored."""
+        size = geometry["size"]
+        blocks = []
+        for (lo, hi), dev in zip(bounds, self.devices):
+            lo, hi = lo + k, min(lo + k + d_blk, hi)
+            todo = [d for d in range(lo, hi) if d not in per_dm]
+            if not todo:
+                blocks.append(None)
+                continue
+            with device_context(dev):
+                tims = _trial_rows(trials, lo, hi, size, dev)
+                xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
+                del tims
+            blocks.append(dict(
+                lo=lo, todo=todo, dev=dev, xd=xd, mean=mean, std=std,
+                rows=[(d - lo, a) for d in todo for a in range(len(dispatch_lists[d]))],
+                afs={d: accel_factor(dispatch_lists[d], tsamp).astype(np.float32)
+                     for d in todo},
+                results=[],
+            ))
+        if not any(blocks):
+            return False
+        nrows = max(len(b["rows"]) for b in blocks if b)
+        for r0 in range(0, nrows, row_blk):
+            jobs = [self._job(b, r0, row_blk) if b else None for b in blocks]
+            idxs, snrs, cc = self._search_batch(search, jobs, plan.windows)
+            at = 0
+            for b, job in zip(blocks, jobs):
+                if job is not None:
+                    n = len(job[1])
+                    b["results"].append((idxs[at:at + n], snrs[at:at + n], cc[at:at + n]))
+                    at += n
+        for b in blocks:
+            if b:
+                self._collect(b, plan, dispatch_lists, expand, per_dm)
+                self.n_searched += len(b["todo"])
+        return True
 
     @staticmethod
     def _job(block: dict, r0: int, row_blk: int):
@@ -1156,6 +1244,8 @@ class PeasoupSearch:
                 break
             old, max_peaks = max_peaks, 1 << int(np.ceil(np.log2(worst)))
             self._learned_max_peaks = max(self._learned_max_peaks, max_peaks)
+            current_telemetry().event("max_peaks_escalated", old=int(old),
+                                      new=int(max_peaks), observed=worst)
             log.debug(
                 "cluster overflow: escalating max_peaks %d -> %d (observed %d)",
                 old, max_peaks, worst,
@@ -1171,16 +1261,23 @@ class PeasoupSearch:
         process's outcomes (parallel/multihost.py:run_search wires the
         exchange; None for one process)."""
         cfg = self.config
+        tel = current_telemetry()
         timers = part.timers
         t0 = time.perf_counter()
+        tel.set_stage("distilling")
         dm_still = DMDistiller(cfg.freq_tol, keep_related=True)
         harm_still = HarmonicDistiller(
             cfg.freq_tol, cfg.max_harm, keep_related=True, fractional_harms=False
         )
-        cands = harm_still.distill(dm_still.distill(part.cands))
+        tel.gauge("candidates.per_dm_total", len(part.cands))
+        cands = dm_still.distill(part.cands)
+        tel.gauge("candidates.post_dm_distill", len(cands))
+        cands = harm_still.distill(cands)
+        tel.gauge("candidates.post_harmonic_distill", len(cands))
         timers["distilling"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        tel.set_stage("scoring")
         scorer = CandidateScorer(
             fil.tsamp, fil.cfreq, fil.foff, abs(fil.foff) * fil.nchans
         )
@@ -1189,6 +1286,7 @@ class PeasoupSearch:
 
         t0 = time.perf_counter()
         if cfg.npdmp > 0:
+            tel.set_stage("folding")
             folder = MultiFolder(
                 part.trials, fil.tsamp, device=self.device,
                 pos5_freq=cfg.boundary_5_freq, pos25_freq=cfg.boundary_25_freq,
@@ -1199,10 +1297,13 @@ class PeasoupSearch:
                 outcomes = fold_exchange(outcomes)
             cands = folder.apply_outcomes(cands, outcomes)
             self._sync()
+            tel.gauge("candidates.folded", min(cfg.npdmp, len(cands)))
         timers["folding"] = time.perf_counter() - t0
+        cands = cands[: cfg.limit]
+        tel.gauge("candidates.final", len(cands))
         timers["total"] = time.perf_counter() - part.t_total_start
         return SearchResult(
-            candidates=cands[: cfg.limit],
+            candidates=cands,
             dm_list=part.dm_list,
             acc_list_dm0=part.acc_list_dm0,
             timers=timers,

@@ -21,8 +21,12 @@ trial missing, and a run with every trial restored skips dedispersion.
 Trials whose block would pass ``TRIALS_DEVICE_LIMIT`` bytes stay in host
 RAM and upload a block at a time. An out-of-memory error on the card
 halves the DM block and retries, keeping the trials already searched (the
-JAX package's ``dm_block_shrink`` rung); at one trial a block it raises
-(the JAX package's last rung, the CPU backend, is not ported).
+JAX package's ``spsearch.memory`` ladder and its ``dm_block_shrink`` rung);
+at one trial a block the ladder is exhausted and the error raised: on the
+card a search runs or raises, so the JAX package's last rung, the CPU
+backend, has no counterpart. The run records the JAX package's ``sp_*``
+events, stages and gauges, and the ``device.oom`` fault seam fires at
+each attempt.
 
 With ``run(dm_slice=(lo, hi), finalize=False)`` a process of a
 multi-process run searches its slice of the global DM list and returns
@@ -39,26 +43,30 @@ As in the JAX package, the single-pulse search takes nothing else from it.
 
 from __future__ import annotations
 
-import logging
 import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..core.candidates import SinglePulseCandidate, SinglePulseCandidateCollection
 from ..device import device_context
 from ..io.masks import read_killfile
 from ..io.sigproc import Filterbank
+from ..obs.log import get_logger
+from ..obs.telemetry import current as current_telemetry
+from ..obs.trace import job_span
 from ..ops.dedisperse import dedisperse, dedisperse_host, fil_to_device, output_scale
 from ..ops.singlepulse import default_widths, plan_pad, single_pulse_search_block
 from ..parallel.mesh import make_mesh
 from ..parallel.sharded_dedisperse import dedisperse_sharded, shard_bounds
 from ..plan.dm_plan import DMPlan
+from ..resilience import DegradationLadder, check_revoke, faults
 from .checkpoint import SearchCheckpoint
 from .search import _is_oom, _pick_devices, _release, _trial_rows
 
-log = logging.getLogger("peasoup_tpu_torch.single_pulse")
+log = get_logger("single_pulse")
 
 
 @dataclass
@@ -326,10 +334,12 @@ class SinglePulseSearch:
         DM-trial list is searched (events carry global dm_idx); with
         ``finalize=False`` the run stops before clustering."""
         cfg = self.config
+        tel = current_telemetry()
         timers: dict[str, float] = {}
         t_total = time.perf_counter()
 
         t0 = time.perf_counter()
+        tel.set_stage("plan")
         global_plan = self.build_dm_plan(fil)
         widths = self.widths_for(global_plan.out_nsamps)
         plan, dm_lo = global_plan, 0
@@ -337,6 +347,11 @@ class SinglePulseSearch:
             dm_lo = dm_slice[0]
             plan = global_plan.subset(*dm_slice)
         timers["plan"] = time.perf_counter() - t0
+        tel.gauge("sp.n_dm_trials", int(global_plan.ndm))
+        tel.gauge("sp.n_widths", len(widths))
+        tel.event("sp_plan", ndm=int(global_plan.ndm),
+                  out_nsamps=int(global_plan.out_nsamps), widths=[int(w) for w in widths],
+                  dm_slice=[int(dm_lo), int(dm_lo + plan.ndm)])
         if plan.ndm == 0:
             # an empty slice (more processes than DM trials) contributes no
             # events and never touches the device
@@ -376,51 +391,78 @@ class SinglePulseSearch:
             log.info("dedispersion plan: dedisp_block=%d (%s): %s",
                      self.dedisp_plan.dedisp_block, self.dedisp_plan.source,
                      self.dedisp_plan.summary())
+            tel.event("dedisp_plan", **self.dedisp_plan.summary())
+            tel.set_context(dedisp_plan=self.dedisp_plan.summary())
             if self.dedisp_plan.dedisp_block:
                 seg = dict(block=self.dedisp_plan.dedisp_block)
 
         t0 = time.perf_counter()
+        tel.set_stage("dedispersion")
         # sharded trials spread over the shards' devices
-        spill = (plan.ndm * plan.out_nsamps
-                 > self.TRIALS_DEVICE_LIMIT * len(set(self.devices)))
+        trials_bytes = plan.ndm * plan.out_nsamps
+        spill = trials_bytes > self.TRIALS_DEVICE_LIMIT * len(set(self.devices))
+        tel.event("sp_device_plan", n_devices=len(self.devices),
+                  sharded=len(self.devices) > 1, trials_spill=bool(spill),
+                  trials_bytes=int(trials_bytes))
         if skip_dedisp:
             log.info("resume fast path: all %d trials restored; dedispersion "
                      "skipped", plan.ndm)
+            tel.event("sp_resume_fast_path", ndm=int(plan.ndm))
             trials = np.zeros((0, plan.out_nsamps), dtype=np.uint8)
         else:
             args = (fil_to_device(fil, self.device), plan.delay_samples(),
                     plan.killmask, plan.out_nsamps)
             scale = output_scale(fil.nbits, int(plan.killmask.sum()))
-            if spill:
-                trials = dedisperse_host(*args, scale=scale, **seg)
-            elif len(self.devices) > 1:
-                trials = dedisperse_sharded(*args, self.mesh, scale=scale)
-            else:
-                trials = dedisperse(*args, scale=scale)
+            with record_function("Dedisperse"):
+                if spill:
+                    trials = dedisperse_host(*args, scale=scale, **seg)
+                elif len(self.devices) > 1:
+                    trials = dedisperse_sharded(*args, self.mesh, scale=scale)
+                else:
+                    trials = dedisperse(*args, scale=scale)
         self._sync()
         timers["dedispersion"] = time.perf_counter() - t0
+        tel.capture_device_memory("dedispersion")
 
         t0 = time.perf_counter()
+        tel.set_stage("searching")
+        if per_dm and not skip_dedisp:
+            tel.event("sp_checkpoint_resume", restored=len(per_dm), ndm=int(plan.ndm))
         tpad, _ = plan_pad(plan.out_nsamps)
         dm_block = self.dm_block(tpad)
+        # the JAX package's spsearch.memory ladder, the rung a card has:
+        # halve the DM block; at one trial it is exhausted and the error
+        # raised (no cpu_backend rung: on the card a search runs or raises)
+        ladder = DegradationLadder("spsearch.memory", ("dm_block_shrink", "cpu_backend"))
         shrink, retry = 1, False
         while True:
             if retry:
                 _release(*self.devices)
             blk = max(1, dm_block // shrink)
+            tel.event("sp_wave_plan", n_chunks=-(-plan.ndm // blk), dm_block=blk,
+                      shrink=shrink, backend="default")
             try:
+                faults.fire("device.oom", context=f"spsearch:shrink{shrink}")
                 self._search_blocks(trials, plan.ndm, blk, widths, per_dm, ckpt)
                 break
             except Exception as exc:
-                if not _is_oom(exc) or blk <= 1:
+                if not _is_oom(exc):
+                    raise
+                if blk <= 1:
+                    ladder.exhausted(dm_block=blk, error=f"{exc!s:.200}")
                     raise
                 shrink *= 2
                 retry = True
                 log.warning("device OOM at dm_block=%d; retrying with dm_block=%d: "
                             "%.200s", blk, max(1, dm_block // shrink), exc)
+                tel.event("sp_oom_shrink_retry", dm_block_old=blk, shrink=shrink,
+                          error=f"{exc!s:.200}")
+                ladder.step("dm_block_shrink", dm_block_old=blk,
+                            dm_block_new=max(1, dm_block // shrink), error=f"{exc!s:.200}")
         del trials
         self._sync()
         timers["searching"] = time.perf_counter() - t0
+        tel.capture_device_memory("search")
 
         recs = []
         n_overflowed = 0
@@ -440,6 +482,8 @@ class SinglePulseSearch:
                 "first %d (ascending time) per trial",
                 n_overflowed, cfg.max_events, cfg.max_events,
             )
+            tel.event("sp_event_overflow", trials=int(n_overflowed),
+                      max_events=cfg.max_events)
         part = PartialSinglePulseResult(
             events=events, dm_list=global_plan.dm_list, widths=widths, timers=timers,
             nsamps=fil.nsamps, n_overflowed=n_overflowed, t_total_start=t_total,
@@ -456,34 +500,52 @@ class SinglePulseSearch:
         elsewhere (host RAM, another shard) move to a block's device a
         block at a time. ``ckpt`` saves after each round of blocks."""
         cfg = self.config
+        tel = current_telemetry()
         threshold = float(cfg.min_snr)
         bounds = shard_bounds(ndm, len(self.devices))
         self.n_searched = 0
-        for k in range(0, max(hi - lo for lo, hi in bounds), blk):
-            outs = []
-            for (lo, hi), dev in zip(bounds, self.devices):
-                lo, hi = lo + k, min(lo + k + blk, hi)
-                if lo >= hi or all(d in per_dm for d in range(lo, hi)):
-                    continue
-                with device_context(dev):
-                    block = _trial_rows(trials, lo, hi, trials.shape[1], dev)
-                    outs.append((lo, single_pulse_search_block(
-                        block, widths, threshold, cfg.max_events, cfg.decimate
-                    )))
-            for lo, res in outs:
-                samples, widx, snrs, counts = (a.cpu().numpy() for a in res)
-                for j in range(len(counts)):
-                    per_dm[lo + j] = (
-                        np.stack([samples[j], widx[j]]).astype(np.int32),
-                        snrs[j].astype(np.float32),
-                        np.int32(counts[j]),
-                    )
-                self.n_searched += len(counts)
-                log.debug("DM trials %d..%d searched", lo, lo + len(counts) - 1)
+        rounds = range(0, max(hi - lo for lo, hi in bounds), blk)
+        tel.set_progress(0, len(rounds), unit="chunks")
+        for ci, k in enumerate(rounds):
+            with job_span("wave", wave=ci), record_function("SP-Chunk"):
+                outs = self._search_round(trials, per_dm, bounds, k, blk, widths,
+                                          threshold)
             if outs and ckpt is not None:
-                ckpt.save(per_dm)
+                with job_span("checkpoint", wave=ci):
+                    ckpt.save(per_dm)
+            tel.set_progress(ci + 1, len(rounds), unit="chunks")
+            if outs:
+                # the revoke seam, right after the checkpoint save
+                check_revoke("spsearch.wave")
         log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
                  ndm, ndm - self.n_searched)
+
+    def _search_round(self, trials, per_dm, bounds, k, blk, widths, threshold) -> list:
+        """The k-th block of every shard, dispatched together before any is
+        read back; each searched trial's events into ``per_dm``. Returns
+        the blocks searched."""
+        cfg = self.config
+        outs = []
+        for (lo, hi), dev in zip(bounds, self.devices):
+            lo, hi = lo + k, min(lo + k + blk, hi)
+            if lo >= hi or all(d in per_dm for d in range(lo, hi)):
+                continue
+            with device_context(dev):
+                block = _trial_rows(trials, lo, hi, trials.shape[1], dev)
+                outs.append((lo, single_pulse_search_block(
+                    block, widths, threshold, cfg.max_events, cfg.decimate
+                )))
+        for lo, res in outs:
+            samples, widx, snrs, counts = (a.cpu().numpy() for a in res)
+            for j in range(len(counts)):
+                per_dm[lo + j] = (
+                    np.stack([samples[j], widx[j]]).astype(np.int32),
+                    snrs[j].astype(np.float32),
+                    np.int32(counts[j]),
+                )
+            self.n_searched += len(counts)
+            log.debug("DM trials %d..%d searched", lo, lo + len(counts) - 1)
+        return outs
 
     def finalize(
         self, fil: Filterbank, part: PartialSinglePulseResult
@@ -491,8 +553,10 @@ class SinglePulseSearch:
         """Cluster the events and package the strongest ``cfg.limit``
         candidates, highest S/N first."""
         cfg = self.config
+        tel = current_telemetry()
         timers = part.timers
         t0 = time.perf_counter()
+        tel.set_stage("clustering")
         clusters = cluster_events_fof(
             part.events, part.widths, time_link=cfg.time_link,
             dm_link=cfg.dm_link, dec=cfg.decimate,
@@ -506,6 +570,9 @@ class SinglePulseSearch:
         out = sorted(cands, key=lambda c: -c.snr)[: cfg.limit]
         timers["clustering"] = time.perf_counter() - t0
         timers["total"] = time.perf_counter() - part.t_total_start
+        tel.gauge("sp.n_events", len(part.events))
+        tel.gauge("sp.n_clusters", len(clusters))
+        tel.gauge("candidates.final", len(out))
         log.info(
             "single-pulse search: %d events -> %d clusters -> %d candidates",
             len(part.events), len(clusters), len(out),

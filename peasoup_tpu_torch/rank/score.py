@@ -4,24 +4,24 @@ The JAX package's rank/score.py: fixed-width batches padded by recycling
 rows, as the survey folder dispatches its folds, on the caller's device.
 When the card runs out of memory the feature batch halves and the same
 rows are retried (raised at batch 1); feature rows are independent, so
-the halved batches give the same bits (tests/test_torch_rank.py). The
-JAX package's DegradationLadder record of each halving is ROADMAP item
-A.10.
+the halved batches give the same bits (tests/test_torch_rank.py). Each
+halving is a step of the ``rank.features`` DegradationLadder, and the
+``device.oom`` fault seam fires at each batch, as in the JAX package.
 """
 
 from __future__ import annotations
-
-import logging
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.log import get_logger
 from ..ops.candidate_features import DM_CURVE_POINTS, NFEATURES, candidate_features_batch
 from ..pipeline.search import _is_oom, _release
+from ..resilience import DegradationLadder, faults
 from .model import RankModel
 
-log = logging.getLogger("peasoup_tpu_torch.rank.score")
+log = get_logger("rank.score")
 
 
 def neutral_dm_curve(n: int) -> np.ndarray:
@@ -47,6 +47,7 @@ def extract_features(
         return np.empty((0, NFEATURES), dtype=np.float32)
     dev = resolve_device(device)
     batch = max(1, int(batch))
+    ladder = DegradationLadder("rank.features", ("batch_shrink",))
     out: list[np.ndarray] = []
     lo = 0
     while lo < n_total:
@@ -54,16 +55,22 @@ def extract_features(
         n = hi - lo
         pad_idx = np.arange(batch) % n + lo
         try:
+            faults.fire("device.oom", context=f"rank.features:{lo}")
             feats = candidate_features_batch(
                 torch.from_numpy(prof[pad_idx]).to(dev),
                 torch.from_numpy(subints[pad_idx]).to(dev),
                 torch.from_numpy(dm_curve[pad_idx]).to(dev),
             )[:n].cpu().numpy()
         except Exception as exc:
-            if not _is_oom(exc) or batch <= 1:
+            if not _is_oom(exc):
+                raise
+            if batch <= 1:
+                ladder.exhausted(batch=batch, error=f"{exc!s:.200}")
                 raise
             log.warning("features out of memory at batch %d (row %d): halving to %d",
                         batch, lo, batch // 2)
+            ladder.step("batch_shrink", batch_old=batch, batch_new=batch // 2,
+                        error=f"{exc!s:.200}")
             batch //= 2
             _release(dev)
             continue  # the same rows at the smaller batch

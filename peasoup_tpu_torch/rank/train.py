@@ -19,12 +19,12 @@ differently, and many steps of descent carry that on.
 
 from __future__ import annotations
 
-import logging
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.log import get_logger
 from ..ops.candidate_features import (
     DM_CURVE_FRACTIONS,
     FEATURE_NAMES,
@@ -39,7 +39,7 @@ from .model import (
 )
 from .score import extract_features, score_feature_matrix
 
-log = logging.getLogger("peasoup_tpu_torch.rank.train")
+log = get_logger("rank.train")
 
 
 # --------------------------------------------------------------------------

@@ -18,11 +18,12 @@ names that file format, which both packages share.
 from __future__ import annotations
 
 import json
-import logging
 import math
 import os
 
-log = logging.getLogger("peasoup_tpu_torch.sift.crossmatch")
+from ..obs.log import get_logger
+
+log = get_logger("sift.crossmatch")
 
 CATALOGUE_SCHEMA = "peasoup_tpu.known_pulsars"
 

@@ -22,17 +22,17 @@ Two sifting passes over the joined candidate set:
 
 from __future__ import annotations
 
-import logging
 import math
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.log import get_logger
 from ..ops.coincidence import coincidence_mask
 from .crossmatch import harmonic_identify
 
-log = logging.getLogger("peasoup_tpu_torch.sift.dedup")
+log = get_logger("sift.dedup")
 
 
 def packed_position_deg(

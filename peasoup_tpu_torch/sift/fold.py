@@ -19,8 +19,10 @@ package's sift/fold.py):
   batches of the same width;
 - halves the batch and retries the same rows when the card runs out of
   memory, and raises at batch 1. Rows are independent, so the halved
-  batches give the same bits. (The JAX package also records a
-  DegradationLadder step; that record is ROADMAP item A.10.)
+  batches give the same bits. Each halving is a step of the
+  ``sift.fold`` DegradationLadder, the ``device.oom`` fault seam fires at
+  each batch, and each shape bucket records ``sift_fold_bucket``, as in
+  the JAX package.
 
 In a run of several processes,
 :func:`peasoup_tpu_torch.parallel.multihost.run_survey_fold` deals the
@@ -31,20 +33,22 @@ folder, and the outcomes are exchanged.
 from __future__ import annotations
 
 import dataclasses
-import logging
 from typing import List
 
 import numpy as np
 import torch
 
+from ..obs.log import get_logger
+from ..obs.telemetry import current as current_telemetry
 from ..ops.fold import fold_bins_np
 from ..ops.fold_optimise import FoldOptimiser
 from ..ops.resample import accel_factor
 from ..ops.survey_fold import survey_fold_batch
 from ..pipeline.folder import _deredden_tim, fold_geometry
 from ..pipeline.search import _is_oom, _release
+from ..resilience import DegradationLadder, faults
 
-log = logging.getLogger("peasoup_tpu_torch.sift.fold")
+log = get_logger("sift.fold")
 
 
 @dataclasses.dataclass
@@ -108,8 +112,10 @@ class SurveyFolder:
         """Fold + optimise every foldable candidate. Returns one outcome
         per candidate: ``key``, ``job_id``, ``opt_sn``, ``opt_period``,
         ``opt_fold`` (nints, nbins), ``opt_prof``, ``period``, ``tobs``."""
+        tel = current_telemetry()
         buckets, geoms = self._plan(observations)
         self.buckets = []
+        ladder = DegradationLadder("sift.fold", ("batch_shrink",))
         batch = self.batch
         all_folds: list[torch.Tensor] = []
         all_meta: list[tuple] = []  # (obs_idx, cand, tobs)
@@ -145,6 +151,7 @@ class SurveyFolder:
                 # (dropped below); rows are independent
                 pad_idx = np.arange(batch) % n + lo
                 try:
+                    faults.fire("device.oom", context=f"sift.fold:{size}:{lo}")
                     folds = survey_fold_batch(
                         torch.stack([xd_cache[keys[j]] for j in pad_idx]),
                         torch.from_numpy(afs[pad_idx]).to(dev),
@@ -152,10 +159,15 @@ class SurveyFolder:
                         nbins=self.nbins, nints=self.nints,
                     )[:n]
                 except Exception as exc:
-                    if not _is_oom(exc) or batch <= 1:
+                    if not _is_oom(exc):
+                        raise
+                    if batch <= 1:
+                        ladder.exhausted(batch=batch, error=f"{exc!s:.200}")
                         raise
                     log.warning("survey fold out of memory at batch %d (bucket %d, "
                                 "row %d): halving to %d", batch, size, lo, batch // 2)
+                    ladder.step("batch_shrink", batch_old=batch, batch_new=batch // 2,
+                                error=f"{exc!s:.200}")
                     batch //= 2
                     _release(dev)
                     continue  # the same rows at the smaller batch
@@ -165,6 +177,8 @@ class SurveyFolder:
             del xd_cache
             self.buckets.append({"size": int(size), "candidates": len(entries),
                                  "batch": int(batch)})
+            tel.event("sift_fold_bucket", size=int(size), candidates=len(entries),
+                      batch=int(batch))
 
         if not all_meta:
             return []

@@ -20,13 +20,12 @@ repeat-source association, arXiv:2110.12749):
 
 from __future__ import annotations
 
-import logging
-
 import numpy as np
 
+from ..obs.log import get_logger
 from .dedup import position_gate_ok
 
-log = logging.getLogger("peasoup_tpu_torch.sift.repeats")
+log = get_logger("sift.repeats")
 
 SECONDS_PER_DAY = 86400.0
 

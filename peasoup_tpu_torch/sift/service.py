@@ -14,8 +14,9 @@ One run consumes the campaign candidate database end to end:
 Re-running replaces the previous sifted product wholesale (latest run
 wins). Each pass's wall time lands in :attr:`SiftRun.timers` under the
 JAX package's timer names (``sift_folding``, ``sift_crossmatch``,
-``sift_dedup``, ``sift_scoring``, ``sift_repeats``); the run telemetry
-and status section the JAX package records are ROADMAP item A.10. Both
+``sift_dedup``, ``sift_scoring``, ``sift_repeats``), and into the run's
+telemetry, with the JAX package's ``sift`` status section (heartbeat and
+manifest), its stages and its ``sift_*`` events. Both
 folds (the survey fold and the DM-curve refold) go through
 parallel/multihost.py:run_survey_fold, which splits the observations over
 the processes of a multi-process run.
@@ -24,7 +25,6 @@ the processes of a multi-process run.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import time
 import uuid
@@ -35,6 +35,8 @@ import torch
 from ..campaign.db import DB_FILENAME, CandidateDB
 from ..device import resolve_device
 from ..io.sigproc import read_filterbank
+from ..obs.log import get_logger
+from ..obs.telemetry import current as current_telemetry
 from ..ops.candidate_features import DM_CURVE_FRACTIONS
 from ..ops.dedisperse import dedisperse, fil_to_device, output_scale
 from ..parallel.multihost import run_survey_fold
@@ -46,7 +48,7 @@ from .dedup import dedup_candidates, multibeam_veto
 from .fold import FoldCandidate, FoldObservation, SurveyFolder
 from .repeats import repeat_sources
 
-log = logging.getLogger("peasoup_tpu_torch.sift.service")
+log = get_logger("sift.service")
 
 
 @dataclasses.dataclass
@@ -116,11 +118,20 @@ class SiftRun:
         self.timers: dict[str, float] = {}
         # the shape buckets each fold pass folded ("survey", "dm_curve")
         self.fold_buckets: dict[str, list] = {}
+        self._progress: dict = {"stage": "idle"}
+
+    # --- the sift status section (status.json + manifest) -------------
+    def status_section(self) -> dict:
+        return dict(self._progress)
+
+    def _mark(self, stage: str, **fields) -> None:
+        self._progress.update({"stage": stage, **fields})
 
     def _timer(self, name: str, t0: float) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timers[name] = time.perf_counter() - t0
+        current_telemetry().add_timer(name, self.timers[name])
 
     # --- fold input assembly ------------------------------------------
     def build_fold_inputs(
@@ -145,6 +156,10 @@ class SiftRun:
             try:
                 fil = read_filterbank(obs["input"])
             except Exception as exc:
+                current_telemetry().event(
+                    "sift_obs_skipped", job_id=obs["job_id"], input=obs.get("input"),
+                    error=f"{type(exc).__name__}: {exc!s:.200}",
+                )
                 log.warning(
                     "skipping %s: cannot read %s (%s)",
                     obs["job_id"], obs.get("input"), exc,
@@ -166,6 +181,10 @@ class SiftRun:
             max_delay = int(delays.max()) if delays.size else 0
             out_nsamps = fil.nsamps - max_delay
             if out_nsamps < 64:
+                current_telemetry().event(
+                    "sift_obs_skipped", job_id=obs["job_id"],
+                    error=f"too short after dedispersion ({out_nsamps} samples)",
+                )
                 log.warning("skipping %s: too short after dedispersion (%d samples)",
                             obs["job_id"], out_nsamps)
                 continue
@@ -308,6 +327,8 @@ class SiftRun:
     # --- the run -------------------------------------------------------
     def run(self) -> dict:
         cfg = self.cfg
+        tel = current_telemetry()
+        tel.set_status_section("sift", self.status_section)
         t_run = time.perf_counter()
         db_path = cfg.resolved_db()
         if not os.path.exists(db_path):
@@ -318,6 +339,8 @@ class SiftRun:
         run_id = uuid.uuid4().hex[:12]
 
         with CandidateDB(db_path) as db:
+            tel.set_stage("loading")
+            self._mark("loading")
             obs_rows = db.observations()
             watermark_rowid = db.max_observation_rowid()
             periodicity = db.all_candidates("periodicity")
@@ -337,11 +360,18 @@ class SiftRun:
                 single_pulse = [
                     c for c in single_pulse if c["job_id"] in keep
                 ]
+                tel.event("sift_tenant_filter", tenant=cfg.tenant,
+                          observations=len(obs_rows), periodicity=len(periodicity),
+                          single_pulse=len(single_pulse))
+            self._mark("loaded", observations=len(obs_rows),
+                       periodicity=len(periodicity), single_pulse=len(single_pulse))
 
             # --- batched survey folding --------------------------------
             outcomes_by_key: dict = {}
             n_folded = 0
             if cfg.fold and periodicity:
+                tel.set_stage("folding")
+                self._mark("folding", folded=0)
                 t0 = time.perf_counter()
                 fold_inputs = self.build_fold_inputs(
                     obs_rows, periodicity
@@ -355,6 +385,9 @@ class SiftRun:
                 outcomes_by_key = {o["key"]: o for o in outcomes}
                 n_folded = len(outcomes)
                 self._timer("sift_folding", t0)
+                tel.event("sift_folded", candidates=n_folded,
+                          observations=len(fold_inputs))
+                self._mark("folded", folded=n_folded)
 
             # effective parameters post-fold: the optimiser's refined
             # period and S/N supersede the search's trial values
@@ -373,6 +406,8 @@ class SiftRun:
                         c["eff_period"] = float(o["opt_period"])
 
             # --- known-pulsar cross-match ------------------------------
+            tel.set_stage("crossmatch")
+            self._mark("crossmatch")
             t0 = time.perf_counter()
             catalogue = load_catalogue(cfg.catalogue or None)
             known_matches: list[dict] = []
@@ -389,8 +424,12 @@ class SiftRun:
                         dict(m, candidate_id=c["id"], job_id=c["job_id"])
                     )
             self._timer("sift_crossmatch", t0)
+            tel.event("sift_crossmatch", matches=len(known_matches),
+                      pulsars=len({m["psr"] for m in known_matches}))
+            self._mark("crossmatched", known=len(known_matches))
 
             # --- multi-beam coincidence veto ---------------------------
+            tel.set_stage("coincidence")
             vetoed = multibeam_veto(
                 [
                     {
@@ -406,8 +445,11 @@ class SiftRun:
                 dm_cell=cfg.dedup_dm_tol,
                 device=self.device,
             )
+            tel.event("sift_coincidence", vetoed=len(vetoed))
 
             # --- campaign-level dedup ----------------------------------
+            tel.set_stage("dedup")
+            self._mark("dedup")
             t0 = time.perf_counter()
             groups = dedup_candidates(
                 [
@@ -491,16 +533,23 @@ class SiftRun:
                 )
                 row_leads.append((len(catalogue_rows) - 1, lead))
             self._timer("sift_dedup", t0)
+            tel.event("sift_dedup", groups=len(groups), candidates=len(periodicity))
+            self._mark("deduped", catalogue=len(catalogue_rows))
 
             # --- candidate ranking -------------------------------------
             if cfg.score and catalogue_rows:
+                tel.set_stage("scoring")
+                self._mark("scoring")
                 t0 = time.perf_counter()
                 n_scored = self._score_catalogue(
                     catalogue_rows, row_leads, outcomes_by_key, obs_rows
                 )
                 self._timer("sift_scoring", t0)
+                tel.event("sift_scored", scored=n_scored, catalogue=len(catalogue_rows))
+                self._mark("scored", scored=n_scored)
 
             # --- repeat single-pulse association -----------------------
+            tel.set_stage("repeats")
             t0 = time.perf_counter()
             sp_sources = repeat_sources(
                 single_pulse,
@@ -515,8 +564,11 @@ class SiftRun:
             for s in sp_sources:
                 s.pop("member_ids", None)
             self._timer("sift_repeats", t0)
+            tel.event("sift_repeats", sources=len(sp_sources))
 
             # --- write the sifted product ------------------------------
+            tel.set_stage("ingest")
+            self._mark("ingest")
             config_doc = dataclasses.asdict(cfg)
             config_doc["n_folded"] = n_folded
             # Incremental-sift watermark: the highest observation rowid
@@ -527,6 +579,7 @@ class SiftRun:
                 run_id, config_doc, catalogue_rows, known_matches,
                 sp_sources,
             )
+            tel.set_stage("done")
             summary = {
                 "run_id": run_id,
                 "db_path": db_path,
@@ -537,6 +590,7 @@ class SiftRun:
                 "duration_s": round(time.perf_counter() - t_run, 3),
                 **tally,
             }
+            self._mark("done", **{k: v for k, v in summary.items() if k != "db_path"})
             log.info(
                 "sift run %s: %d folded, %d catalogue rows (%d known, "
                 "%d rfi), %d repeat single-pulse sources in %.1fs",
@@ -544,4 +598,5 @@ class SiftRun:
                 tally["n_known"], tally["n_rfi"],
                 tally["n_sp_sources"], summary["duration_s"],
             )
+            tel.event("sift_done", **summary)
             return summary

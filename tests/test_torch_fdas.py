@@ -22,6 +22,7 @@ held between runs of equal blocks (ROADMAP §C.2); on the card chip_smoke.py
 holds template batches of 5 and 8 against the auto batch.
 """
 
+import json
 import os
 import xml.etree.ElementTree as ET
 
@@ -407,12 +408,26 @@ def test_cli_files_match_jax(fils, tmp_path):
     (["--status-json", "s.json"], {}, "A.10"),
 ])
 def test_cli_refuses_unported_flags(monkeypatch, tmp_path, argv, env, item):
+    # ROADMAP A.10's telemetry, ported: the observability flags the CLI
+    # refused before are taken now; on a missing input the run fails on the
+    # read, and the flight recorder leaves flight.json and the manifest,
+    # marked aborted, where the flag put it
     from peasoup_tpu_torch.cli.fdas import main
+    from peasoup_tpu_torch.obs.schema import validate_manifest
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
-        main(["-i", str(tmp_path / "x.fil"), "--device", "cpu", *argv])
+    out = tmp_path / "out"
+    with pytest.raises(FileNotFoundError):
+        main(["-i", str(tmp_path / "x.fil"), "-o", str(out), "--device", "cpu",
+              argv[0], str(tmp_path / argv[1])])
+    assert (out / "flight.json").exists()
+    man = json.loads((tmp_path / argv[1] if argv[0] == "--metrics-json"
+                      else out / "telemetry.json").read_text())
+    validate_manifest(man)
+    assert man["aborted"] and man["abort_reason"] == "exception:FileNotFoundError"
+    if argv[0] == "--status-json":
+        assert json.loads((tmp_path / argv[1]).read_text())["done"] is True
 
 
 @pytest.mark.parametrize("env", [

@@ -57,7 +57,11 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.coincidence", "parallel.distributed_fft",
                  "resilience.errors", "plan.dedisp_plan", "campaign.buckets",
                  "perf.measure", "perf.tuning", "perf.roofline", "perf.warmup",
-                 "perf.microbench", "perf.ratchet", "ops.registry", "tools.perf"):
+                 "perf.microbench", "perf.ratchet", "ops.registry", "tools.perf",
+                 "resilience.stats", "resilience.faults", "resilience.revoke",
+                 "obs.log", "obs.telemetry", "obs.trace", "obs.heartbeat", "obs.flight",
+                 "obs.metrics", "obs.profiler", "tools.scope_trace",
+                 "tools.validate_manifest"):
         assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

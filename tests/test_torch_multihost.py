@@ -290,11 +290,24 @@ def test_two_processes_count_every_trial(single, two):
 
 
 def test_only_rank_zero_writes(inputs, two):
+    # rank 0 writes the outputs and the manifest; every process writes its
+    # own manifest shard, telemetry.procN.json (the JAX package's CLI), and
+    # nothing else
+    from peasoup_tpu_torch.obs.schema import validate_manifest
+
     assert [r["cli_rc"] for r in two] == [0, 0]
     out0, out1 = Path(inputs["cli_out"] + "0"), Path(inputs["cli_out"] + "1")
     assert (out0 / "candidates.peasoup").stat().st_size > 0
     assert (out0 / "overview.xml").exists()
-    assert not out1.exists()
+    assert sorted(p.name for p in out1.iterdir()) == ["telemetry.proc1.json"]
+    for path, rank in ((out0 / "telemetry.proc0.json", 0), (out1 / "telemetry.proc1.json", 1),
+                       (out0 / "telemetry.json", 0)):
+        man = json.loads(path.read_text())
+        validate_manifest(man)
+        assert (man["process_index"], man["process_count"]) == (rank, 2)
+        assert man["context"]["process_index"] == rank
+        slices = [e for e in man["events"] if e["kind"] == "multihost_slice"]
+        assert [(e["process"], e["processes"]) for e in slices] == [(rank, 2)]
 
 
 def test_a_dead_peer_fails_the_exchange_fast(tmp_path):

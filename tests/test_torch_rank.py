@@ -234,5 +234,9 @@ def test_rank_cli(tmp_path, capsys):
     assert main(["evaluate", "--examples", "160", "--min-auc", "1.01",
                  "--device", "cpu"]) == 2
     assert "BELOW --min-auc" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="A.10"):
-        main(["eval", "--device", "cpu", "--metrics-json", "m.json"])
+    # ROADMAP A.10's telemetry, ported: --metrics-json, refused before,
+    # writes the manifest with the rank_eval event
+    m = tmp_path / "m.json"
+    assert main(["eval", "--examples", "160", "--device", "cpu", "--metrics-json",
+                 str(m)]) == 0
+    assert [e["kind"] for e in json.loads(m.read_text())["events"]] == ["rank_eval"]

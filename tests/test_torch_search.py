@@ -24,6 +24,7 @@ import xml.etree.ElementTree as ET
 
 import numpy as np
 import pytest
+import torch
 
 import peasoup_tpu.native
 from peasoup_tpu.io import read_filterbank as jax_read_filterbank
@@ -91,6 +92,35 @@ def _identity(c):
     return (c.dm_idx, c.acc, c.nh, np.float32(c.freq))
 
 
+@contextmanager
+def one_thread():
+    """torch's CPU work on one thread for the duration. With four threads
+    or more, MKL computes a batch of few rows (the blocks of a sharded or
+    small-block run, four rows or fewer here) with its threads inside each
+    transform, which rounds otherwise than a taller batch, and the threads
+    it actually takes follow the machine's load; on one thread the FFT's
+    bits do not depend on the batch height (ROADMAP §C)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def one_thread_result(synthetic):
+    """The default port run on one thread: what runs of other block
+    heights are held to, bit for bit."""
+    with one_thread():
+        return PeasoupSearch(SearchConfig(**KW), device="cpu").run(
+            read_filterbank(synthetic[0]))
+
+
+def _bits(result):
+    return [(_identity(c), c.snr) for c in result.candidates]
+
+
 @pytest.mark.parametrize("host", HOSTS)
 def test_candidates_match_jax(synthetic_runs, host):
     jax_result, port_result = synthetic_runs(host)
@@ -149,17 +179,15 @@ def test_dispatch_options_give_the_same_candidates(synthetic, port_result, overr
     ]
 
 
-def test_small_blocks_give_the_same_candidates(synthetic, port_result):
-    # many DM blocks and row batches; the CPU FFT of a smaller batch may
-    # round differently, so S/N is held to 1e-5 relative
+def test_small_blocks_give_the_same_candidates(synthetic, one_thread_result):
+    # many DM blocks and row batches, on one thread, where the CPU FFT of a
+    # smaller batch rounds as a taller one does: the default run's
+    # candidates bit for bit
     path, _, _ = synthetic
     cfg = SearchConfig(**KW, hbm_bytes=1 << 22, dm_block=3)
-    res = PeasoupSearch(cfg, device="cpu").run(read_filterbank(path))
-    assert [_identity(c) for c in res.candidates] == [
-        _identity(c) for c in port_result.candidates
-    ]
-    for a, b in zip(port_result.candidates, res.candidates):
-        assert abs(b.snr - a.snr) <= 1e-5 * a.snr
+    with one_thread():
+        res = PeasoupSearch(cfg, device="cpu").run(read_filterbank(path))
+    assert _bits(res) == _bits(one_thread_result)
 
 
 def test_cli_writes_both_files(synthetic, tmp_path, port_result):
@@ -180,21 +208,21 @@ def test_cli_writes_both_files(synthetic, tmp_path, port_result):
 
 
 @pytest.mark.parametrize("case", ["cold", "warm"])
-def test_tune_now_runs(synthetic, port_result, tmp_path, case):
+def test_tune_now_runs(synthetic, one_thread_result, tmp_path, case):
     # ROADMAP A.10's first item, ported: tune, refused before, resolves the
     # bucket's plan from the tuning cache, measured on the CPU on a cold
     # bucket and read back with no measurement on a warm one. The tuned
-    # DM block changes the CPU FFT's batch, so the identities are the
-    # untuned run's, S/N within 1e-5 relative (as
-    # test_small_blocks_give_the_same_candidates holds it)
+    # DM block changes the CPU FFT's batch, which on one thread rounds as
+    # the untuned run's: its candidates bit for bit
     path, _, _ = synthetic
     cfg = SearchConfig(**KW, tune=True, tuning_cache=str(tmp_path / "tuning.json"))
     fil = read_filterbank(path)
-    if case == "warm":
-        PeasoupSearch(cfg, device="cpu").run(fil)
-    n0 = tuning.measurement_count()
-    search = PeasoupSearch(cfg, device="cpu")
-    res = search.run(fil)
+    with one_thread():
+        if case == "warm":
+            PeasoupSearch(cfg, device="cpu").run(fil)
+        n0 = tuning.measurement_count()
+        search = PeasoupSearch(cfg, device="cpu")
+        res = search.run(fil)
     plan = search.dedisp_plan
     if case == "cold":
         assert tuning.measurement_count() > n0
@@ -204,11 +232,7 @@ def test_tune_now_runs(synthetic, port_result, tmp_path, case):
         assert plan.source == "cache"
     assert plan.engine == "exact"  # 16 channels: below the subband floor
     assert search.knobs.dm_block == plan.dm_block > 0
-    assert [_identity(c) for c in res.candidates] == [
-        _identity(c) for c in port_result.candidates
-    ]
-    for a, b in zip(port_result.candidates, res.candidates):
-        assert abs(b.snr - a.snr) <= 1e-5 * a.snr
+    assert _bits(res) == _bits(one_thread_result)
 
 
 def test_tune_shared_subband_plan_matches_jax(synthetic, tmp_path):
@@ -242,22 +266,20 @@ def test_tune_shared_subband_plan_matches_jax(synthetic, tmp_path):
 
 
 @pytest.mark.parametrize("nshards", [2, 3, 8])
-def test_shard_devices_now_run(synthetic, port_result, nshards):
+def test_shard_devices_now_run(synthetic, one_thread_result, nshards):
     # ROADMAP A.9, ported: shard_devices, refused before, shards the DM
     # trials over that many shards of the CPU. Each shard dedisperses and
-    # searches its own 1/n of the trials, so the blocks are shorter and
-    # the CPU FFT of a shorter batch may round differently: the
-    # identities are the unsharded run's, S/N within 1e-5 relative (as
-    # test_small_blocks_give_the_same_candidates holds it)
+    # searches its own 1/n of the trials, so its FFT batches are shorter
+    # (4 or 3 rows at 8 shards). With threads, MKL rounds such a batch
+    # otherwise than a taller one, by the threads the machine's load lets
+    # it take (ROADMAP §C); on one thread it does not, and the sharded run
+    # is the unsharded run bit for bit
     path, _, _ = synthetic
-    search = PeasoupSearch(SearchConfig(**KW, shard_devices=nshards), device="cpu")
-    assert len(search.devices) == nshards
-    res = search.run(read_filterbank(path))
-    assert [_identity(c) for c in res.candidates] == [
-        _identity(c) for c in port_result.candidates
-    ]
-    for a, b in zip(port_result.candidates, res.candidates):
-        assert abs(b.snr - a.snr) <= 1e-5 * a.snr
+    with one_thread():
+        search = PeasoupSearch(SearchConfig(**KW, shard_devices=nshards), device="cpu")
+        assert len(search.devices) == nshards
+        res = search.run(read_filterbank(path))
+    assert _bits(res) == _bits(one_thread_result)
 
 
 @pytest.mark.parametrize(

@@ -526,7 +526,14 @@ def test_report_and_clis(tmp_path, capsys):
     (camp / "campaign_status.json").write_text("{}")
     with pytest.raises(NotImplementedError, match="A.10"):
         sift_main(["report", "-w", str(camp)])
-    with pytest.raises(NotImplementedError, match="A.10"):
-        sift_main(["run", "-w", str(camp), "--device", "cpu", "--status-json", "s.json"])
+    # ROADMAP A.10's telemetry, ported: --status-json, refused before, takes
+    # the heartbeat; the manifest carries the sift status section
+    status = tmp_path / "s.json"
+    assert sift_main(["run", "-w", str(camp), "--device", "cpu", "--status-json",
+                      str(status)]) == 0
+    assert json.loads(status.read_text())["done"] is True
+    man = json.loads((camp / "sift" / "telemetry.json").read_text())
+    assert man["sift"]["stage"] == "done" and "sift_done" in [
+        e["kind"] for e in man["events"]]
     assert sift_main(["run", "-w", str(camp), "--device", "cpu", "--config",
                       '{"bogus": 1}']) == 2

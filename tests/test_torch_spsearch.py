@@ -139,7 +139,15 @@ def test_cli_output_parses_and_matches_jax(small, tmp_path):
     assert {"plan", "dedispersion", "searching", "clustering", "reading", "writing",
             "total"} <= set(ov.execution_times)
     assert ov.root.find("cuda_device_parameters/platform").text == "cpu"
-    assert not (tmp_path / "port" / "telemetry.json").exists()
+    # both write the run manifest beside the outputs (ROADMAP A.10's
+    # telemetry, ported), with the same gauges
+    import json
+
+    from peasoup_tpu_torch.obs.schema import validate_manifest
+
+    mans = [json.loads((tmp_path / d / "telemetry.json").read_text()) for d in ("port", "jax")]
+    validate_manifest(mans[0])
+    assert mans[0]["gauges"] == mans[1]["gauges"]
 
 
 @pytest.mark.parametrize("case", ["cold", "warm", "host RAM"])

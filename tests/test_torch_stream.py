@@ -380,15 +380,42 @@ def test_cli_replay_matches_jax(fil_path, tmp_path, capsys):
     for name in want.dtype.names:
         if name != "snr":
             np.testing.assert_array_equal(got[name], want[name])
-    assert not (tmp_path / "p" / "telemetry.json").exists()
+    # both write the run manifest with the streaming section (ROADMAP A.10's
+    # telemetry, ported), each valid against its package's schema
+    from peasoup_tpu.obs.schema import validate_manifest as jax_validate
+    from peasoup_tpu_torch.obs.schema import validate_manifest
+
+    for d, check in (("j", jax_validate), ("p", validate_manifest)):
+        with open(tmp_path / d / "telemetry.json") as f:
+            man = json.load(f)
+        check(man)
+        assert man["streaming"]["chunks_done"] == 4 and man["streaming"]["triggers"] == 2
 
 
 @pytest.mark.parametrize("argv", [["--metrics-jsonl", "m.jsonl"], ["--status-json", "s.json"],
                                   ["--metrics-json", "t.json"]])
 def test_cli_refuses_the_a10_flags(fil_path, tmp_path, argv):
+    # ROADMAP A.10's telemetry, ported: the flags the CLI refused before now
+    # run and write what they name: the metrics series (each sample valid
+    # against the metrics schema), the final heartbeat with its streaming
+    # section, or the manifest at the given path
     from peasoup_tpu_torch.cli.stream import main
+    from peasoup_tpu_torch.obs.metrics import load_series
+    from peasoup_tpu_torch.obs.schema import validate_manifest
 
-    with pytest.raises(NotImplementedError, match="A.10"):
-        main(["--replay", fil_path, "-o", str(tmp_path), "--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError, match="A.10"):
-        StreamingSearch(StreamConfig(metrics_jsonl="m.jsonl"), device="cpu")
+    path = str(tmp_path / argv[1])
+    assert main(["--replay", fil_path, "-o", str(tmp_path), "--device", "cpu", *FLAGS,
+                 argv[0], path]) == 0
+    if argv[0] == "--metrics-jsonl":
+        series = load_series(path, validate=True)
+        assert {r["name"] for r in series} >= {"chunk_latency_seconds", "chunks_total",
+                                               "triggers_total"}
+        assert max(r["value"] for r in series if r["name"] == "chunks_total") == 4
+    else:
+        with open(path) as f:
+            doc = json.load(f)
+        if argv[0] == "--status-json":
+            assert doc["done"] is True and doc["streaming"]["chunks_done"] == 4
+        else:
+            validate_manifest(doc)
+            assert [e["kind"] for e in doc["events"]].count("stream_trigger") == 2
