@@ -206,6 +206,36 @@ Phases, each fatal on failure:
      --metrics-json --capture-device-trace` (phase 6's candidates bytes for
      bytes; dedisperse and spchain in the device table) and `peasoup-sift
      run --metrics-json` on phase 23's campaign.
+ 30. The campaign layer on the card (peasoup_tpu_torch/campaign, `python
+     -m peasoup_tpu_torch.cli.campaign`), with --bucket-nsamps at each
+     file's own length, so nothing is padded: (a) `campaign run --pipeline
+     search` over the big grid (phase 3's flags) and the binary grid
+     (phase 4's) as per-job config lines of one bucket: each job's
+     candidates.peasoup is its phase's bytes, overview.xml parses, the DB
+     rows are the candidates, the rollup has 2 done and none quarantined,
+     the first job was warmed (warmup_s > 0) and the second built no
+     kernel library (jit_programs_compiled 0); each job's launches are
+     printed (the big grid's: dedisperse 1, specchain 1, resample, interbin
+     and harmpeaks each once a row batch); then the big grid alone in a
+     fresh campaign and worker with --no-warmup, its duration printed
+     beside the warmed job's, its candidates phase 3's bytes; (b) a
+     `--pipeline spsearch`
+     campaign of the single-pulse grid: phase 6's candidates bytes for
+     bytes, spchain and dedisperse launched; (c) two worker processes
+     sharing the card over four copies of the tutorial grid's file: every
+     job done once, no claim left, none quarantined, each job phase 5's
+     default route's bytes, each worker beat and deregistered; (d) a
+     checkpointed tutorial-grid job (DM blocks of 2) preempted at a wave
+     boundary by a preempt request, released with zero attempts consumed,
+     resumed from its checkpoint with (c)'s bytes; (e) a gang job of two
+     worker processes (--nprocs 2 --group pod) on the binary grid: the
+     leader's candidates are (a)'s binary job's bytes and each member
+     dedispersed its own slice; (f) `campaign status`, `campaign alerts
+     --evaluate` over the five campaigns with nothing firing, `campaign
+     sentinel` enqueued, run and recovered, `campaign serve` on 127.0.0.1
+     answering /status with the rollup and /metrics with an exposition,
+     and `peasoup-sift run --no-fold` then `report` with the campaign
+     section. Each sub-phase's wall time is printed.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -3523,6 +3553,382 @@ def observability_phase(tmp: str, paths: dict, runs: dict, smi: str) -> dict:
     return out
 
 
+# --- the campaign layer on the card (phase 30) -------------------------------
+
+# the campaign worker's lease: short, so that the preempted job's
+# lease-renewer beat (a third of it) observes the request at once
+CAMPAIGN_PREEMPT_LEASE_S = 0.6
+# the preempted job's DM block: many wave boundaries to stop at
+CAMPAIGN_PREEMPT_DM_BLOCK = 2
+CAMPAIGN_TIMEOUT_S = 300.0
+
+
+def config_overrides(cfg) -> dict:
+    """The fields of a pipeline config that differ from its class's
+    defaults: a campaign job's config that builds ``cfg`` again (the
+    CLI's flags and the smoke's configs build the same one)."""
+    base = dataclasses.asdict(type(cfg)())
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in ("outdir", "checkpoint_file") and v != base[k]}
+
+
+def campaign_procs(argvs: list[list[str]]) -> list[str]:
+    """``python -m peasoup_tpu_torch.cli.campaign ... --device cuda`` once
+    per argv, all started together; each must exit 0 within
+    CAMPAIGN_TIMEOUT_S. Returns their outputs."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "peasoup_tpu_torch.cli.campaign", *argv, "--device", "cuda"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for argv in argvs]
+    deadline = time.monotonic() + CAMPAIGN_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        require(False, f"{len(argvs)} campaign worker(s) within {CAMPAIGN_TIMEOUT_S} s")
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-(40 if p.returncode else 2):]:
+            say(f"  campaign worker {i} | {line}")
+        require(p.returncode == 0, f"campaign worker {i} exit code 0 (got {p.returncode})")
+    return outs
+
+
+def write_manifest(path: str, entries: list[dict]) -> str:
+    with open(path, "w") as f:
+        for e in entries:
+            f.write(json.dumps(e) + "\n")
+    return path
+
+
+def done_records(camp: str) -> dict:
+    """{input basename: done record} of a campaign."""
+    from peasoup_tpu_torch.campaign.queue import JobQueue
+
+    return {os.path.basename(d["input"]): d for d in JobQueue(camp).done_records()}
+
+
+def job_file(camp: str, rec: dict, name: str) -> str:
+    return os.path.join(camp, "jobs", rec["job_id"], name)
+
+
+def check_rollup(camp: str, done: int) -> dict:
+    """The campaign's rollup: a campaign_status.json under the JAX
+    package's schema name with ``done`` jobs done, none quarantined, no
+    claim left."""
+    from peasoup_tpu_torch.campaign.rollup import (
+        CAMPAIGN_SCHEMA, load_campaign_status, write_status,
+    )
+
+    write_status(camp)
+    st = load_campaign_status(os.path.join(camp, "campaign_status.json"))
+    require(st["schema"] == CAMPAIGN_SCHEMA, f"{camp}: the rollup is a {CAMPAIGN_SCHEMA}")
+    q = st["queue"]
+    require(q["done"] == done and q["total"] == done and q["quarantined"] == 0,
+            f"{camp}: {done} jobs done, none quarantined (queue {json.dumps(q)})")
+    claims = [n for n in os.listdir(os.path.join(camp, "queue", "claims"))
+              if n.endswith(".json")]
+    require(not claims, f"{camp}: no claim left")
+    return st
+
+
+def db_rows(camp: str, rec: dict) -> int:
+    from peasoup_tpu_torch.campaign.db import DB_FILENAME, CandidateDB
+
+    with CandidateDB(os.path.join(camp, DB_FILENAME)) as db:
+        return len(db.candidates_for(rec["job_id"]))
+
+
+def telemetry_launches(path: str) -> dict:
+    """The kernel launches a campaign job's telemetry manifest records."""
+    with open(path) as f:
+        gauges = json.load(f)["gauges"]
+    return {k.split(".")[-1]: int(v) for k, v in gauges.items()
+            if k.startswith("kernels.launches.")}
+
+
+def campaign_phase(tmp: str, paths: dict, smi: str) -> dict:
+    """Phase 30 (a)-(f), the docstring's, on the card: campaigns of the
+    grids' files, each job held to its standalone phase's outputs."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from peasoup_tpu_torch.campaign.queue import Job, JobQueue, job_id_for
+    from peasoup_tpu_torch.campaign.runner import (
+        CampaignConfig, bucket_for_input, run_worker, save_campaign_config,
+    )
+    from peasoup_tpu_torch.cli.campaign import main as campaign_main
+    from peasoup_tpu_torch.cli.sift import main as sift_main
+    from peasoup_tpu_torch.io.sigproc import read_sigproc_header
+    from peasoup_tpu_torch.obs.metrics import parse_exposition
+
+    configs = dict(big=GRID_CONFIG, binary=BINARY_CONFIG, tut=TUT_CONFIG, sp=SP_CONFIG)
+    base_dirs = {k: os.path.join(tmp, v) for k, v in (
+        ("big", "big_grid"), ("binary", "binary_grid"), ("tut", "tutorial_grid"),
+        ("sp", "single_pulse_grid"))}
+    hbm = torch.cuda.mem_get_info()[0] // 2
+
+    def nsamps(path):
+        with open(path, "rb") as f:
+            return read_sigproc_header(f).nsamples
+
+    def base_bytes(key, name):
+        with open(os.path.join(base_dirs[key], name), "rb") as f:
+            return f.read()
+
+    times, out = {}, {}
+    t_phase = time.perf_counter()
+
+    # (a): one bucket, two search jobs (the big and the binary grid)
+    t0 = time.perf_counter()
+    camp = os.path.join(tmp, "camp")
+    os.makedirs(camp)
+    obs = write_manifest(os.path.join(tmp, "obs.txt"), [
+        {"input": paths["big"], "config": config_overrides(configs["big"])},
+        {"input": paths["binary"], "config": config_overrides(configs["binary"])},
+    ])
+    ladder = sorted({nsamps(paths[k]) for k in ("big", "binary")})
+    campaign_procs([["run", "-w", camp, "--manifest", obs, "--pipeline", "search",
+                     "--bucket-nsamps", ",".join(map(str, ladder))]])
+    recs = done_records(camp)
+    first, second = (recs[os.path.basename(paths[k])] for k in ("big", "binary"))
+    for key, rec in (("big", first), ("binary", second)):
+        got = open(job_file(camp, rec, "candidates.peasoup"), "rb").read()
+        same = got == base_bytes(key, "candidates.peasoup")
+        root = ET.parse(job_file(camp, rec, "overview.xml")).getroot()
+        ncand = len(root.findall("candidates/candidate"))
+        rows = db_rows(camp, rec)
+        say(f"campaign (a), {key} grid job: candidates "
+            + ("bytes for bytes" if same else "NOT") + f" the standalone run's; {ncand} "
+            f"candidates, {rows} DB rows; warmup_s {rec.get('warmup_s')!r}, "
+            f"kernel libraries built {rec['jit_programs_compiled']}, duration "
+            f"{rec['duration_s']!r} s; kernel launches "
+            f"{json.dumps(rec.get('kernel_launches', {}), sort_keys=True)} ({smi})")
+        require(same, f"campaign (a): the {key} grid job's candidates are its standalone "
+                "phase's bytes")
+        require(rows == ncand == sum(rec["ingested"].values()), f"campaign (a): the {key} grid job's DB "
+                "rows are its candidates")
+    require(first.get("warmup_s") is not None and first["warmup_s"] > 0,
+            "campaign (a): the bucket's first job was warmed")
+    require(second["jit_programs_compiled"] == 0 and second.get("warmup_s") is None,
+            "campaign (a): the warm job built no kernel library and was not warmed again")
+    big = first["kernel_launches"]
+    require(big.get("dedisperse") == 1 and big.get("specchain") == 1
+            and all(big.get(k, 0) > 0 for k in ("resample", "interbin", "harmpeaks")),
+            "campaign (a): the big grid's job launched every kernel of its path")
+    require(second["kernel_launches"].get("dedisperse") == 1,
+            "campaign (a): the binary grid's job launched dedisperse")
+    st = check_rollup(camp, 2)
+    # the big grid again, in a fresh campaign and worker with no warmup:
+    # what the bucket's warmup saves its first job
+    camp_cold = os.path.join(tmp, "camp_cold")
+    cold_txt = write_manifest(os.path.join(tmp, "cold.txt"), [
+        {"input": paths["big"], "config": config_overrides(configs["big"])}])
+    campaign_procs([["run", "-w", camp_cold, "--manifest", cold_txt, "--pipeline", "search",
+                     "--bucket-nsamps", str(nsamps(paths["big"])), "--no-warmup"]])
+    [cold] = done_records(camp_cold).values()
+    same = open(job_file(camp_cold, cold, "candidates.peasoup"), "rb").read() == \
+        base_bytes("big", "candidates.peasoup")
+    say(f"campaign (a), the big grid's job with no warmup in a fresh worker: duration "
+        f"{cold['duration_s']!r} s, against {first['duration_s']!r} s warmed (warmup_s "
+        f"{first['warmup_s']!r}); candidates " + ("bytes for bytes" if same else "NOT")
+        + f" the standalone run's ({smi})")
+    require(same and cold.get("warmup_s") is None,
+            "campaign (a): the unwarmed big grid job ran unwarmed to phase 3's bytes")
+    out["a"] = dict(first=first, second=second, cold=cold)
+    times["a"] = time.perf_counter() - t0
+
+    # (b): a spsearch campaign of the single-pulse grid
+    t0 = time.perf_counter()
+    camp_sp = os.path.join(tmp, "camp_sp")
+    sp_dir = os.path.join(tmp, "sp_obs")
+    os.makedirs(sp_dir)
+    shutil.copy(paths["sp"], os.path.join(sp_dir, "sp.fil"))
+    campaign_procs([["run", "-w", camp_sp, "--data-dir", sp_dir, "--pipeline", "spsearch",
+                     "--config", json.dumps(config_overrides(configs["sp"])),
+                     "--bucket-nsamps", str(nsamps(paths["sp"])), "--no-warmup"]])
+    [rec] = done_records(camp_sp).values()
+    same = open(job_file(camp_sp, rec, "candidates.singlepulse"), "rb").read() == \
+        base_bytes("sp", "candidates.singlepulse")
+    say(f"campaign (b), spsearch job: candidates " + ("bytes for bytes" if same else "NOT")
+        + f" the standalone run's; {rec['n_candidates']} candidates; kernel launches "
+        f"{json.dumps(rec.get('kernel_launches', {}), sort_keys=True)} ({smi})")
+    require(same, "campaign (b): the single-pulse job's candidates are phase 6's bytes")
+    require(rec["kernel_launches"].get("spchain", 0) > 0
+            and rec["kernel_launches"].get("dedisperse", 0) > 0,
+            "campaign (b): spchain and dedisperse launched")
+    check_rollup(camp_sp, 1)
+    times["b"] = time.perf_counter() - t0
+
+    # (c): two worker processes over four copies of the tutorial grid
+    t0 = time.perf_counter()
+    camp_tut = os.path.join(tmp, "camp_tut")
+    tut_dir = os.path.join(tmp, "tut_obs")
+    os.makedirs(tut_dir)
+    tut_cfg = dict(config_overrides(configs["tut"]), hbm_bytes=hbm)
+    copies = [shutil.copy(paths["tut"], os.path.join(tut_dir, f"tut{i}.fil"))
+              for i in range(4)]
+    tut_txt = write_manifest(os.path.join(tmp, "tut.txt"),
+                             [{"input": c, "config": tut_cfg} for c in copies])
+    outs = campaign_procs([["run", "-w", camp_tut, "--manifest", tut_txt, "--pipeline",
+                            "search", "--bucket-nsamps", str(nsamps(paths["tut"])),
+                            "--no-warmup", "--worker-id", f"tw{i}", "--poll", "0.2"]
+                           for i in range(2)])
+    recs = done_records(camp_tut)
+    require(sorted(recs) == sorted(os.path.basename(c) for c in copies),
+            "campaign (c): every job done")
+    require(all(r["attempts"] == 1 for r in recs.values()),
+            "campaign (c): every job done exactly once, in one attempt")
+    tut_bytes = {open(job_file(camp_tut, r, "candidates.peasoup"), "rb").read()
+                 for r in recs.values()}
+    require(tut_bytes == {base_bytes("tut", "candidates.peasoup")},
+            "campaign (c): the four jobs' candidates are phase 5's default route's bytes")
+    by_worker: dict = {}
+    for r in recs.values():
+        by_worker[r["worker_id"]] = by_worker.get(r["worker_id"], 0) + 1
+    workers = os.path.join(camp_tut, "queue", "workers")
+    for wid in ("tw0", "tw1"):
+        require(not os.path.exists(os.path.join(workers, f"{wid}.json")),
+                f"campaign (c): worker {wid} deregistered")
+        with open(os.path.join(workers, f"{wid}.metrics.jsonl")) as f:
+            beats = sum(1 for ln in f if '"worker_heartbeat_unix"' in ln)
+        require(beats > 0, f"campaign (c): worker {wid} beat")
+    say(f"campaign (c): jobs by worker {json.dumps(by_worker, sort_keys=True)}; "
+        f"candidates phase 5's bytes; kernel launches a job "
+        + "; ".join(json.dumps(r.get("kernel_launches", {}), sort_keys=True)
+                    for _, r in sorted(recs.items()))
+        + "; workers' last lines: "
+        + " | ".join(o.strip().splitlines()[-1] for o in outs) + f" ({smi})")
+    check_rollup(camp_tut, 4)
+    times["c"] = time.perf_counter() - t0
+
+    # (d): a checkpointed tutorial-grid job preempted at a wave boundary
+    t0 = time.perf_counter()
+    camp_pre = os.path.join(tmp, "camp_pre")
+    os.makedirs(camp_pre)
+    pre_fil = shutil.copy(paths["tut"], os.path.join(camp_pre, "tut_pre.fil"))
+    save_campaign_config(camp_pre, CampaignConfig(
+        pipeline="search", lease_s=CAMPAIGN_PREEMPT_LEASE_S, backoff_base_s=0.05,
+        warmup=False, config=dict(config_overrides(configs["tut"]),
+                                  dm_block=CAMPAIGN_PREEMPT_DM_BLOCK)))
+    q = JobQueue(camp_pre, lease_s=CAMPAIGN_PREEMPT_LEASE_S, backoff_base_s=0.05)
+    jid = job_id_for(pre_fil)
+    q.add_job(Job(job_id=jid, input=pre_fil, pipeline="search",
+                  bucket=bucket_for_input(pre_fil)))
+    tally: dict = {}
+    worker_t = threading.Thread(target=lambda: tally.update(run_worker(
+        camp_pre, worker_id="victim", poll_s=0.05, device="cuda")))
+    worker_t.start()
+    claim = os.path.join(camp_pre, "queue", "claims", f"{jid}.json")
+    deadline = time.monotonic() + CAMPAIGN_TIMEOUT_S
+    while not os.path.exists(claim) and worker_t.is_alive():
+        require(time.monotonic() < deadline, "campaign (d): the job was claimed")
+        time.sleep(0.005)
+    requested = q.request_preempt(jid, requester="chip_smoke", grace_s=120.0)
+    worker_t.join(timeout=CAMPAIGN_TIMEOUT_S)
+    require(requested and not worker_t.is_alive(), "campaign (d): the worker drained")
+    [rec] = q.done_records()
+    with open(os.path.join(camp_pre, "jobs", jid, "telemetry.json")) as f:
+        events = {e["kind"] for e in json.load(f)["events"]}
+    same = open(job_file(camp_pre, rec, "candidates.peasoup"), "rb").read() == \
+        base_bytes("tut", "candidates.peasoup")
+    say(f"campaign (d): tally {json.dumps(tally, sort_keys=True)}; attempts "
+        f"{rec['attempts']}, preemptions {rec.get('preemptions')}, latency "
+        f"{rec.get('preempt_latency_s')} s; resume events "
+        f"{sorted(events & {'checkpoint_resume', 'resume_fast_path'})}; the resumed "
+        f"attempt's kernel launches {json.dumps(rec.get('kernel_launches', {}), sort_keys=True)}"
+        "; candidates " + ("bytes for bytes (c)'s" if same else "NOT (c)'s bytes")
+        + f" ({smi})")
+    require(tally.get("released") == 1 and rec["attempts"] == 1
+            and rec.get("preemptions") == 1,
+            "campaign (d): preempted once, released with zero attempts consumed")
+    require("checkpoint_resume" in events, "campaign (d): the job resumed from its checkpoint")
+    require(same, "campaign (d): the resumed job's candidates are (c)'s bytes")
+    check_rollup(camp_pre, 1)
+    times["d"] = time.perf_counter() - t0
+
+    # (e): a gang job, nprocs 2, on the binary grid
+    t0 = time.perf_counter()
+    camp_gang = os.path.join(tmp, "camp_gang")
+    gang_txt = write_manifest(os.path.join(tmp, "gang.txt"), [
+        {"input": paths["binary"], "config": dict(config_overrides(configs["binary"]),
+                                                  hbm_bytes=hbm)}])
+    campaign_procs([["run", "-w", camp_gang, "--manifest", gang_txt, "--pipeline", "search",
+                     "--nprocs", "2", "--group", "pod", "--worker-id", f"g{i}",
+                     "--bucket-nsamps", str(nsamps(paths["binary"])), "--no-warmup",
+                     "--poll", "0.2"] for i in range(2)])
+    [rec] = done_records(camp_gang).values()
+    same = open(job_file(camp_gang, rec, "candidates.peasoup"), "rb").read() == \
+        open(job_file(camp, second, "candidates.peasoup"), "rb").read()
+    leader = telemetry_launches(job_file(camp_gang, rec, "telemetry.json"))
+    member = telemetry_launches(job_file(camp_gang, rec, "telemetry.proc1.json"))
+    say(f"campaign (e): gang {json.dumps(rec.get('gang'), sort_keys=True)}; leader's "
+        f"candidates " + ("bytes for bytes (a)'s binary job's" if same else "NOT (a)'s")
+        + f"; launches leader {json.dumps(leader, sort_keys=True)}, member "
+        f"{json.dumps(member, sort_keys=True)} ({smi})")
+    require(rec.get("gang", {}).get("nprocs") == 2, "campaign (e): a gang of two ran the job")
+    require(same, "campaign (e): the gang's candidates are the single-process job's bytes")
+    require(leader.get("dedisperse") == 1 and member.get("dedisperse") == 1,
+            "campaign (e): each member dedispersed its own slice")
+    check_rollup(camp_gang, 1)
+    times["e"] = time.perf_counter() - t0
+
+    # (f): the operator surface
+    t0 = time.perf_counter()
+    require(run_cli(campaign_main, ["status", "-w", camp])[0] == 0,
+            "campaign (f): campaign status renders")
+    for c in (camp, camp_sp, camp_tut, camp_pre, camp_gang):
+        rc, text = run_cli(campaign_main, ["alerts", "-w", c, "--evaluate"])
+        require(rc == 0 and "firing" not in text, f"campaign (f): no alert firing over {c}")
+    require(run_cli(campaign_main, ["sentinel", "-w", camp])[0] == 0,
+            "campaign (f): a sentinel enqueued")
+    campaign_procs([["run", "-w", camp, "--no-warmup"]])
+    rc, text = run_cli(campaign_main, ["sentinel", "-w", camp, "--check"])
+    say("campaign (f): sentinel: " + " | ".join(text.strip().splitlines()[-2:]))
+    require(rc == 0 and "[recovered]" in text, "campaign (f): the sentinel was recovered")
+    port = free_port()
+    server = threading.Thread(target=campaign_main, args=(
+        ["serve", "-w", camp, "--host", "127.0.0.1", "--port", str(port),
+         "--max-requests", "2"],))
+    server.start()
+    bodies = {}
+    for route in ("/status", "/metrics"):
+        for _ in range(100):
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                            timeout=30) as r:
+                    bodies[route] = r.read().decode()
+                break
+            except OSError:
+                time.sleep(0.05)
+    server.join(timeout=60)
+    require(not server.is_alive(), "campaign (f): the portal shut down")
+    status = json.loads(bodies["/status"])
+    require(status["queue"]["done"] == 3, "campaign (f): /status answers with the rollup")
+    series = parse_exposition(bodies["/metrics"])
+    require(len(series) > 0, "campaign (f): /metrics answers with a valid exposition")
+    require(run_cli(sift_main, ["run", "-w", camp, "--no-fold", "--device", "cuda"])[0] == 0,
+            "campaign (f): peasoup-sift run over the campaign")
+    rc, _ = run_cli(sift_main, ["report", "-w", camp])
+    with open(os.path.join(camp, "sift", "report.json")) as f:
+        report = json.load(f)
+    require(rc == 0 and (report.get("campaign") or {}).get("schema")
+            == "peasoup_tpu.campaign_status",
+            "campaign (f): the sift report holds the campaign section")
+    times["f"] = time.perf_counter() - t0
+    say(f"campaign (f): status, alerts over five campaigns, the sentinel, /status and "
+        f"/metrics ({len(series)} samples), the sift report's campaign section ({smi})")
+    wall = time.perf_counter() - t_phase
+    say("phase 30 sub-phases (s): " + json.dumps({k: round(v, 3) for k, v in times.items()})
+        + f"; {wall:.1f} s in all ({smi})")
+    out.update(times=times, wall=wall, rollup=st)
+    return out
+
+
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
     busy share of the run's wall time."""
@@ -3772,6 +4178,9 @@ def main() -> int:
              lambda: runs.setdefault("tuning", tuning_phase(tmp, dev, paths, runs, checks, smi))),
             ("29, observability on the card",
              lambda: runs.setdefault("obs", observability_phase(tmp, paths, runs, smi))),
+            ("30, the campaign layer on the card",
+             lambda: runs.setdefault("campaign", campaign_phase(
+                 tmp, dict(paths, tut=os.path.join(tmp, "tut.fil")), smi))),
         ):
             t0 = time.perf_counter()
             fn()

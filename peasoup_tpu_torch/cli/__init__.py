@@ -34,17 +34,27 @@ class _VersionAction(argparse.Action):
         parser.exit(0)
 
 
-def add_observability_args(p) -> None:
-    """The JAX CLIs' observability flags, flag by flag, and --version."""
+def add_version_arg(p) -> None:
+    """--version: the port's version, torch's, and the device."""
     p.add_argument("--version", action=_VersionAction, nargs=0,
                    help="print the package's version, torch's, and the device, then exit")
-    g = p.add_argument_group("observability")
-    g.add_argument(
+
+
+def add_log_level_arg(p) -> None:
+    """--log-level, the library log threshold of every CLI."""
+    p.add_argument(
         "--log-level", dest="log_level", default=None,
         choices=["debug", "info", "warning", "error"],
         help="library log threshold (messages go to stderr; default warning, or "
         "info with -v; PEASOUP_LOG_LEVEL also works)",
     )
+
+
+def add_observability_args(p) -> None:
+    """The JAX CLIs' observability flags, flag by flag, and --version."""
+    add_version_arg(p)
+    g = p.add_argument_group("observability")
+    add_log_level_arg(g)
     g.add_argument(
         "--metrics-json", dest="metrics_json", default=None,
         help="path for the telemetry.json run manifest (peasoup and spsearch "

@@ -15,10 +15,10 @@ may have been written by either package. It runs on the CUDA device
 unless ``--device cpu`` is given. As in the JAX CLI, ``run`` writes its
 live heartbeat to ``<workdir>/sift/status.json`` (or ``--status-json``)
 and its manifest, with the ``sift`` status section, to
-``<workdir>/sift/telemetry.json`` (or ``--metrics-json``). Refused with
-NotImplementedError (ROADMAP A.10): a campaign rollup
-(``<workdir>/campaign_status.json``) for the report. The report links no
-DM-time bowtie plot (``tools/plotting``, A.10).
+``<workdir>/sift/telemetry.json`` (or ``--metrics-json``). ``report``
+folds in the campaign rollup (``<workdir>/campaign_status.json``, written
+by either package's ``peasoup-campaign``) as the JAX CLI does. The report
+links no DM-time bowtie plot (``tools/plotting``, ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -182,17 +182,24 @@ def _cmd_report(args) -> int:
     if not os.path.exists(db_path):
         print(f"peasoup-sift: no database at {db_path}", file=sys.stderr)
         return 2
+    campaign_status = None
     status_path = os.path.join(args.workdir, "campaign_status.json")
     if os.path.exists(status_path):
-        raise NotImplementedError(
-            f"not ported yet: the campaign rollup of {status_path} in the report "
-            "(campaign/rollup is ROADMAP item A.10)"
-        )
+        try:
+            from ..campaign.rollup import load_campaign_status
+
+            campaign_status = load_campaign_status(status_path)
+        except Exception as exc:
+            print(
+                f"peasoup-sift: ignoring unreadable rollup "
+                f"{status_path}: {exc}", file=sys.stderr,
+            )
     sift_dir = os.path.join(args.workdir, "sift")
     html_path = args.html or os.path.join(sift_dir, "report.html")
     json_path = args.json_out or os.path.join(sift_dir, "report.json")
     with CandidateDB(db_path) as db:
-        doc = build_report(db, None, limit=args.limit, tenant=args.tenant or None)
+        doc = build_report(db, campaign_status, limit=args.limit,
+                           tenant=args.tenant or None)
     print("peasoup-sift: bowtie plot skipped: tools/plotting is ROADMAP item A.10",
           file=sys.stderr)
     write_report(doc, json_path, html_path, bowtie_href=None)

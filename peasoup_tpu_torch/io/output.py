@@ -14,7 +14,9 @@ package's ``.singlepulse`` text table (PRESTO's first five columns, then
 the cluster footprint) and a ``<single_pulse_search>`` overview.xml
 section; the JAX package's tools.parsers read both. The FDAS search
 writes the JAX package's ``.fdas`` table and ``<fdas_search>`` section,
-and its candidates with their f-dot provenance.
+and its candidates with their f-dot provenance. A campaign's FFA job
+writes the JAX package's ``.ffa`` table and ``<ffa_search_parameters>``
+section.
 """
 
 from __future__ import annotations
@@ -83,6 +85,23 @@ def write_singlepulse(path: str, candidates: Sequence) -> str:
                 f"{c.width:d} {c.width_idx:d} {c.dm_idx:d} {c.members:d} "
                 f"{c.sample_lo:d} {c.sample_hi:d} {c.dm_idx_lo:d} "
                 f"{c.dm_idx_hi:d} {c.width_lo:d} {c.width_hi:d}\n"
+            )
+    return path
+
+
+FFA_COLUMNS = ("period", "dm", "snr", "width", "duty_cycle")
+
+
+def write_ffa_candidates(path: str, candidates: Sequence) -> str:
+    """Write FFACandidates as a whitespace-delimited text table (one row
+    per period-collapsed candidate, in the order given), the JAX
+    package's ``.ffa`` format."""
+    with open(path, "w", encoding="ascii") as f:
+        f.write("# " + " ".join(FFA_COLUMNS) + "\n")
+        for c in candidates:
+            f.write(
+                f"{c.period:.9f} {c.dm:.6f} {c.snr:.4f} {c.width:d} "
+                f"{c.dc:.6f}\n"
             )
     return path
 
@@ -246,6 +265,35 @@ class OutputFileWriter:
             e.append(Element("ddm_snr_ratio", float(np.float32(c.ddm_snr_ratio))))
             e.append(Element("nassoc", c.count_assoc()))
             e.append(Element("byte_offset", byte_map.get(ii, 0)))
+            cands.append(e)
+
+    def add_ffa_section(self, cfg, infilename: str, candidates: Sequence) -> None:
+        """FFA search parameters and candidates, as the JAX package's
+        campaign writes them: the ``<candidates>`` entries carry the
+        periodicity field set (``acc`` and ``nh`` vacuous for an FFA
+        detection) so tools.parsers.OverviewFile and the campaign
+        database read FFA jobs through the periodicity path, plus the
+        FFA's width and duty cycle."""
+        s = self.root.append(Element("ffa_search_parameters"))
+        s.append(Element("infilename", infilename))
+        s.append(Element("outdir", cfg.outdir))
+        s.append(Element("killfilename", cfg.killfilename))
+        for name in ("dm_start", "dm_end", "dm_tol", "dm_pulse_width", "p_start",
+                     "p_end", "min_dc", "min_snr"):
+            s.append(Element(name, float(np.float32(getattr(cfg, name)))))
+        cands = self.root.append(Element("candidates"))
+        for ii, c in enumerate(candidates):
+            e = Element("candidate")
+            e.add_attribute("id", ii)
+            e.append(Element("period", float(c.period)))
+            e.append(Element("opt_period", float(c.period)))
+            e.append(Element("dm", float(np.float32(c.dm))))
+            e.append(Element("acc", 0.0))
+            e.append(Element("nh", 0))
+            e.append(Element("snr", float(np.float32(c.snr))))
+            e.append(Element("folded_snr", 0.0))
+            e.append(Element("width", int(c.width)))
+            e.append(Element("duty_cycle", float(np.float32(c.dc))))
             cands.append(e)
 
     def add_fdas_section(self, cfg, zs: Iterable[float], ws: Iterable[float]) -> None:

@@ -7,8 +7,10 @@ crash flight recorder (:mod:`.flight`), the schema contract
 ``metrics.schema.json``, copied), time-series metrics with Prometheus
 exposition (:mod:`.metrics`), cross-process trace correlation
 (:mod:`.trace`) and on-demand profiling of a live worker
-(:mod:`.profiler`). The JAX package's alerts, health and portal modules
-sit on its campaign layer and wait for the port's (ROADMAP A.10)."""
+(:mod:`.profiler`), and on the campaign layer the survey-health alert
+engine (:mod:`.alerts`, with the JAX package's ``alerts.schema.json``),
+the scientific data-quality sentinels (:mod:`.health`) and the campaign
+portal (:mod:`.portal`)."""
 
 from .flight import FLIGHT_SCHEMA, FlightRecorder, load_flight
 from .heartbeat import STATUS_SCHEMA, Heartbeat, load_status

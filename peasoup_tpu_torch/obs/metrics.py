@@ -1,6 +1,5 @@
 """Time-series metrics (the port's copy of the JAX package's
-obs/metrics.py, without the campaign's journal rotation and its HTTP
-endpoint, which belong to the campaign layer, ROADMAP A.10).
+obs/metrics.py).
 
 - :class:`MetricsRecorder`: an **append-only** time-series file (one
   JSON sample per line: the stream's ``--metrics-jsonl``, a campaign
@@ -16,6 +15,8 @@ endpoint, which belong to the campaign layer, ROADMAP A.10).
   the standard text exposition format (``# TYPE`` comments,
   ``{label="..."}`` sets, histogram ``_bucket``/``_sum``/``_count``
   triplets).
+- :func:`rotate_journal` keeps the campaign's append-only journals
+  bounded, and :func:`serve_metrics` serves the exposition over HTTP.
 
 Every sample line validates against the port's copy of the JAX package's
 ``obs/metrics.schema.json`` through :mod:`peasoup_tpu_torch.obs.schema`.
@@ -189,6 +190,55 @@ class MetricsRecorder:
 
 # --------------------------------------------------------------------------
 # reading + fleet aggregation
+def rotate_journal(
+    path: str, max_bytes: int, keep_bytes: int | None = None
+) -> bool:
+    """The recorder's tail-keeping rotation as a standalone operation
+    for any append-only jsonl journal (``queue/alerts.jsonl``,
+    ``queue/submissions.jsonl``, the per-tenant alert journals —
+    ``peasoup-campaign prune --journals``): when ``path`` exceeds
+    ``max_bytes``, atomically rewrite it keeping the newest whole
+    lines that fit ``keep_bytes`` (default half of ``max_bytes``).
+    Returns True when a rotation happened. Alert-engine state restores
+    from the SNAPSHOT (``queue/alerts.json``), never the journal, so
+    truncating journal history can never re-fire an alert — the
+    restart-no-refire regression test pins that."""
+    keep = int(keep_bytes or max(4096, int(max_bytes) // 2))
+    try:
+        if os.path.getsize(path) <= int(max_bytes):
+            return False
+        with open(path) as f:
+            lines = f.readlines()
+    except OSError:
+        return False
+    kept: list[str] = []
+    total = 0
+    for ln in reversed(lines):
+        # budgets are bytes on disk, so measure encoded length —
+        # len(ln) undercounts multibyte UTF-8 journal content
+        total += len(ln.encode("utf-8"))
+        if total > keep:
+            break
+        kept.append(ln)
+    kept.reverse()
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "w") as f:
+            f.writelines(kept)
+        os.replace(tmp, path)
+    except OSError:
+        log.debug("journal rotation failed: %s", path, exc_info=True)
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        return False
+    log.info(
+        "rotated %s: kept %d of %d lines", path, len(kept), len(lines)
+    )
+    return True
+
+
 # --------------------------------------------------------------------------
 
 def load_series(path: str, validate: bool = False) -> list[dict]:
@@ -425,3 +475,52 @@ def _split_labels(inner: str) -> list[str]:
     if buf:
         parts.append("".join(buf))
     return [p for p in (s.strip() for s in parts) if p]
+
+
+def serve_metrics(
+    root: str,
+    port: int = 9099,
+    host: str = "127.0.0.1",
+    max_requests: int | None = None,
+) -> None:
+    """Serve ``GET /metrics`` (Prometheus exposition, regenerated per
+    request from the campaign's metrics files) on a stdlib HTTP
+    server. Blocks; ``max_requests`` bounds it for tests."""
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    class _Handler(BaseHTTPRequestHandler):
+        def do_GET(self) -> None:  # noqa: N802 (http.server contract)
+            if self.path.rstrip("/") not in ("", "/metrics"):
+                self.send_error(404)
+                return
+            try:
+                body = prometheus_exposition(
+                    fleet_samples(root)
+                ).encode()
+            except Exception as exc:
+                self.send_error(500, f"{type(exc).__name__}: {exc}")
+                return
+            self.send_response(200)
+            self.send_header(
+                "Content-Type", "text/plain; version=0.0.4"
+            )
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args) -> None:
+            log.debug("metrics http: " + fmt, *args)
+
+    server = HTTPServer((host, port), _Handler)
+    log.info(
+        "serving campaign metrics at http://%s:%d/metrics (root %s)",
+        host, server.server_address[1], root,
+    )
+    try:
+        if max_requests is None:
+            server.serve_forever()
+        else:
+            for _ in range(max_requests):
+                server.handle_request()
+    finally:
+        server.server_close()

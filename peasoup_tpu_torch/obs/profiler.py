@@ -2,10 +2,9 @@
 package's obs/profiler.py, under ``torch.profiler``).
 
 "Which kernel is this worker stuck in" is a question operators ask about
-a process they did not start with profiling enabled. In the JAX package
-the request is a ``profile.request`` file beside a campaign worker's
-registry entry (the port's campaign runner is not ported yet, ROADMAP
-A.10); this module is the worker-side capture: a **bounded**
+a process they did not start with profiling enabled. The request is a
+``profile.request`` file beside a campaign worker's registry entry
+(``peasoup-campaign profile``); this module is the worker-side capture: a **bounded**
 ``torch.profiler`` trace of the process's CUDA work, written as a Chrome
 trace into ``outdir`` and announced in the worker's metrics and telemetry,
 so the capture itself is observable.

@@ -6,8 +6,7 @@ worker, preempted and resumed by another, or fanned out across the
 processes of a multi-process run. This module stitches them together:
 
 - a **trace id** (:func:`new_trace_id`) is shared by every process that
-  touches the job (in the JAX package the campaign queue mints it; the
-  port's campaign layer is not ported yet, ROADMAP A.10), so each tags
+  touches the job (the campaign queue mints it at enqueue), so each tags
   its spans with the same id;
 - each process appends **span records** to its own ``trace-<worker>.jsonl``
   (single writer per file, one JSON line per finished span: a killed

@@ -58,6 +58,7 @@ import torch.distributed as dist
 
 from ..obs.log import get_logger
 from ..obs.telemetry import current as current_telemetry
+from ..obs.trace import flow_id_for, job_span
 from ..resilience import faults
 from ..resilience.errors import TransientIOError
 from .mesh import Mesh, local_devices, make_mesh
@@ -291,7 +292,17 @@ class GangComm:
         deadline = time.monotonic() + (
             self.timeout_s if timeout_s is None else float(timeout_s)
         )
-        return self._await_round(rnd, context, deadline)
+        # the barrier wait is a span in the job's trace (a no-op without
+        # a campaign tracer active); every rank derives the same flow id
+        # from shared coordinates, linking the ranks' spans of one round
+        with job_span(
+            "gang_barrier", cat="sched",
+            flow_id=flow_id_for(
+                os.path.basename(self.gang_dir), context or "barrier", rnd
+            ),
+            context=context or "barrier", round=rnd, rank=self.rank,
+        ):
+            return self._await_round(rnd, context, deadline)
 
     def _await_round(self, rnd: int, context: str, deadline: float) -> list[bytes]:
         last_beat = 0.0

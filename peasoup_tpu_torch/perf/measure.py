@@ -10,6 +10,9 @@ the one path by which the tuner (perf/tuning.py) and the microbenchmarks
   the timed window;
 * :func:`event_samples` - k device-anchored samples of ``call()`` between
   two CUDA events on the device's current stream;
+* :func:`event_run_samples` - k device-anchored samples, each one event
+  pair around a run of back-to-back calls after a warm-up, reported per
+  call (the microbenchmarks' timer);
 * :func:`device_busy_seconds` - the device time of the CUDA kernels one
   ``run()`` launched, from ``torch.profiler``. Where the JAX version logs
   and returns 0.0 when its trace fails, this one raises.
@@ -80,6 +83,41 @@ def event_samples(call, reps: int, device, prepare=None) -> list[float]:
             samples.append(start.elapsed_time(end) / 1e3)
     samples.sort()
     return samples
+
+
+def event_run_samples(call, reps: int, device, warmup: int = 3,
+                      span_s: float = 2e-3, max_calls: int = 256) -> tuple[list[float], int]:
+    """(samples, calls): ``reps`` per-call times of ``call()`` in seconds,
+    sorted ascending, each one pair of CUDA events around ``calls``
+    back-to-back calls divided by ``calls``. ``warmup`` untimed calls come
+    first; ``calls`` is sized from one more timed call so that a sample
+    spans about ``span_s`` (at most ``max_calls``). A lone call's event
+    pair holds the wrapper's host part and any stall of the host between
+    the two records; back to back, the card runs one call while the host
+    enqueues the next, so a sample reads the slower of the two per call
+    and a stall is shared by every call of the run. Raises ValueError for a
+    device that is not a CUDA device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"CUDA events time a CUDA device, not {device}")
+    with torch.cuda.device(device):
+        for _ in range(max(0, int(warmup))):
+            call()
+        one = event_samples(call, 1, device)[0]
+        calls = int(min(max_calls, max(1, -(-span_s // max(one, 1e-9)))))
+        torch.cuda.synchronize(device)
+        samples = []
+        for _ in range(max(1, int(reps))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                call()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end) / 1e3 / calls)
+    samples.sort()
+    return samples, calls
 
 
 def summarize(samples: list[float]) -> dict:

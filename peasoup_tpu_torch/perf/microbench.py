@@ -3,9 +3,11 @@ perf/microbench.py).
 
 Each registered program (ops/registry.py) is built at its representative
 shape on the device, called once untimed (its first call, which loads a
-kernel's library, is ``compile_s``), then timed: the median of k CUDA-event
-samples on the card (perf/measure.py:event_samples), host-clock samples on
-the CPU. The result is a ``perf.json`` keyed by program name, validated
+kernel's library, is ``compile_s``), then timed: on the card the median of
+k CUDA-event samples, each around a run of back-to-back calls after a
+warm-up and divided by the run's length (perf/measure.py:event_run_samples;
+a lone call's event pair held host stalls of several times the program's
+time at these small shapes), host-clock samples on the CPU. The result is a ``perf.json`` keyed by program name, validated
 against ``perf.schema.json`` beside this module, that names the device, and
 on the card its power limit as ``nvidia-smi`` reports it: the document the
 ratchet (perf/ratchet.py) holds against the port's baseline.
@@ -22,7 +24,7 @@ import torch
 
 from ..device import resolve_device
 from . import write_json_atomic
-from .measure import event_samples, summarize, timed_samples
+from .measure import event_run_samples, event_samples, median, summarize, timed_samples
 from .roofline import stage_for_program
 
 PERF_SCHEMA = "peasoup_tpu_torch.perf"
@@ -78,8 +80,10 @@ def bench_program(spec, reps: int, device: torch.device) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         rec["compile_s"] = round(time.perf_counter() - t0, 6)
-        samples = (event_samples(call, reps, device) if device.type == "cuda"
-                   else timed_samples(call, reps, device=device))
+        if device.type == "cuda":
+            samples, rec["calls_per_sample"] = event_run_samples(call, reps, device)
+        else:
+            samples = timed_samples(call, reps, device=device)
         rec.update(summarize(samples))
     except Exception as exc:  # recorded; the ratchet fails a broken program
         rec["error"] = f"{type(exc).__name__}: {exc!s:.300}"
@@ -156,3 +160,43 @@ def write_perf(doc: dict, path: str) -> None:
     """Validate and atomically write a perf.json document."""
     validate_perf(doc)
     write_json_atomic(path, doc)
+
+
+def spread_pass(device: str | torch.device = "cuda") -> dict:
+    """One pass over the registry on the card under two timers, program by
+    program: ``{name: {"call": s, "run": s, "calls": n}}``. ``call`` is the
+    median of DEFAULT_REPS samples of one CUDA-event pair around a lone
+    call (perf/measure.py:event_samples), ``run`` the microbenchmark's own:
+    the median of DEFAULT_REPS back-to-back runs of ``calls`` calls, per
+    call (event_run_samples)."""
+    from ..ops.registry import registered_programs
+
+    device = resolve_device(device)
+    reps = DEFAULT_REPS
+    out = {}
+    for spec in registered_programs():
+        fn, args, kwargs = spec.build(device)
+
+        def call():
+            fn(*args, **kwargs)
+
+        call()
+        torch.cuda.synchronize(device)
+        lone = median(event_samples(call, reps, device))
+        run, calls = event_run_samples(call, reps, device)
+        out[spec.name] = {"call": lone, "run": median(run), "calls": calls}
+    return out
+
+
+def spread_table(passes: list[dict]) -> dict:
+    """Each program's median, min and max over ``passes`` (of
+    :func:`spread_pass`) under each timer, with the max/min ratio."""
+    table = {}
+    for name in sorted(passes[0]):
+        row = {}
+        for timer in ("call", "run"):
+            xs = sorted(p[name][timer] for p in passes)
+            row[timer] = {"median": median(xs), "min": xs[0], "max": xs[-1],
+                          "ratio": xs[-1] / xs[0] if xs[0] > 0 else None}
+        table[name] = row
+    return table

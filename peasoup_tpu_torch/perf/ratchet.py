@@ -52,9 +52,25 @@ class PerfProblem:
         return f"{self.program}: [{self.kind}] {self.message}"
 
 
-def baseline_from_perf(doc: dict, tolerance: float = DEFAULT_TOLERANCE) -> dict:
+def baseline_from_perf(doc: dict, tolerance: float = DEFAULT_TOLERANCE,
+                       more: list[dict] | None = None) -> dict:
     """Pin a baseline from a perf.json run (programs with an error are left
-    out: a broken program is repaired, not pinned)."""
+    out: a broken program is repaired, not pinned). With ``more`` runs of
+    the same card, each program's pinned execute median is the median of
+    its medians over all the runs (those where it ran), so that a baseline
+    is not pinned from one lucky or unlucky pass over the registry."""
+    from .measure import median
+
+    runs = [doc, *(more or [])]
+    for other in runs[1:]:
+        if (other.get("backend"), other.get("device_kind")) != (
+                doc["backend"], doc["device_kind"]):
+            raise ValueError("a baseline is pinned from runs on one kind of device")
+
+    def pinned(name: str) -> float:
+        return median([r["programs"][name]["execute_median_s"] for r in runs
+                       if not r["programs"].get(name, {"error": "absent"}).get("error")])
+
     return {
         "schema": BASELINE_SCHEMA,
         "version": BASELINE_VERSION,
@@ -64,8 +80,9 @@ def baseline_from_perf(doc: dict, tolerance: float = DEFAULT_TOLERANCE) -> dict:
         "power_limit": doc["power_limit"],
         "torch_version": doc.get("torch_version"),
         "tolerance": tolerance,
+        "runs": len(runs),
         "programs": {
-            name: {"execute_median_s": rec["execute_median_s"],
+            name: {"execute_median_s": pinned(name),
                    "compile_s": rec["compile_s"], "args": rec.get("args", [])}
             for name, rec in sorted(doc["programs"].items()) if not rec.get("error")
         },

@@ -11,10 +11,8 @@ registry (ops/registry.py) once, and reports the kernels it built in this
 process against those it found built.
 
 :func:`warm_bucket` warms one campaign bucket: ``mode="registry"`` runs
-:func:`warm_registry`; ``mode="dryrun"`` runs the pipeline once over a
-synthetic observation that fills the bucket
-(:func:`synthetic_bucket_observation`), which loads every kernel, the
-native distil library and the plan tables the bucket's jobs use.
+:func:`warm_registry`; ``mode="dryrun"`` builds and loads every kernel
+library and the native distil library and opens the card's context.
 :func:`shape_ctx_for_bucket` derives the bucket's geometry with the
 drivers' own plan machinery.
 """
@@ -144,13 +142,11 @@ class ShapeCtx:
     fold_nsamps: int = 0  # the survey fold's power-of-two series length
 
 
-def _filtered_config(cls, overrides: dict, **fixed):
+def _filtered_config(cls, overrides: dict):
     """A config of ``cls`` from the overrides it knows (others dropped, as
     the JAX package's warmup drops them)."""
     names = {f.name for f in dataclasses.fields(cls)}
-    merged = {k: v for k, v in overrides.items() if k in names}
-    merged.update(fixed)
-    return cls(**merged)
+    return cls(**{k: v for k, v in overrides.items() if k in names})
 
 
 def shape_ctx_for_bucket(bucket, pipeline: str, overrides: dict) -> ShapeCtx:
@@ -218,45 +214,20 @@ def shape_ctx_for_bucket(bucket, pipeline: str, overrides: dict) -> ShapeCtx:
     )
 
 
-def synthetic_bucket_observation(bucket, path: str, seed: int = 0):
-    """Write a synthetic observation that fills a bucket exactly: noise at
-    the bucket's shape and bit depth plus a bright broadband pulse train
-    every ~50 ms (so the candidate paths run over real work), and read it
-    back, so a sub-byte bucket carries the packed bytes as a real
-    observation does."""
-    import numpy as np
-
-    from ..io.sigproc import Filterbank, SigprocHeader, read_filterbank, write_filterbank
-
-    nchans, nbits, nsamps, tsamp, fch1, foff = bucket
-    nchans, nbits, nsamps = int(nchans), int(nbits), int(nsamps)
-    rng = np.random.default_rng(seed)
-    hi = (1 << min(nbits, 8)) - 1
-    data = rng.integers(0, max(1, hi // 4) + 1, size=(nsamps, nchans), dtype=np.uint8)
-    period = max(64, int(round(0.05 / float(tsamp))))
-    for s in range(period // 2, nsamps, period):
-        data[s : min(s + 4, nsamps), :] = hi
-    hdr = SigprocHeader(
-        source_name="WARMUP", data_type=1, nchans=nchans, nbits=nbits, nifs=1,
-        tsamp=float(tsamp), tstart=50000.0, fch1=float(fch1), foff=float(foff),
-    )
-    write_filterbank(path, Filterbank(header=hdr, data=data))
-    return read_filterbank(path)
-
-
-def warm_bucket(bucket, pipeline: str, overrides: dict, scratch_dir: str,
-                mode: str = "dryrun", device: str | torch.device = "cuda") -> dict:
+def warm_bucket(bucket, mode: str = "dryrun",
+                device: str | torch.device = "cuda") -> dict:
     """Warm one campaign bucket on ``device``. ``mode="registry"`` runs
-    :func:`warm_registry`; ``mode="dryrun"`` runs the pipeline once over a
-    synthetic observation of the bucket (one observation's work, and
-    every kernel and table the bucket's jobs load). Returns the stats:
-    kernels built in this process, seconds, and the error where the warmup
-    failed (recorded, as the JAX package records it: the first real job
-    then fails loudly on its own)."""
-    import os
-    import shutil
-
-    from .. import kernels
+    :func:`warm_registry`; ``mode="dryrun"`` does what the bucket's first
+    job would otherwise wait for: it builds (where missing) and loads every
+    kernel library and the native distil library, and opens the card's
+    context. The port compiles nothing per shape, so where the JAX
+    package's dry run searches a synthetic observation to compile the
+    bucket's programs, this one searches nothing: such a search made the
+    first job slower, not faster. Returns the stats: kernels built in this
+    process, seconds, and the error where the warmup failed (recorded, as
+    the JAX package records it: the first real job then fails loudly on
+    its own)."""
+    from .. import kernels, native
 
     device = resolve_device(device)
     t0 = time.perf_counter()
@@ -270,10 +241,12 @@ def warm_bucket(bucket, pipeline: str, overrides: dict, scratch_dir: str,
             if rep.errors:
                 stats["error"] = rep.errors[0].error
         elif mode == "dryrun":
-            os.makedirs(scratch_dir, exist_ok=True)
-            fil = synthetic_bucket_observation(bucket, os.path.join(scratch_dir, "warmup.fil"))
-            _dryrun_pipeline(pipeline, overrides, scratch_dir, fil, device)
-            shutil.rmtree(scratch_dir, ignore_errors=True)
+            if native.enabled():
+                native.load()
+            if device.type == "cuda":
+                kernels.load()
+                torch.zeros(1, device=device)
+                _sync(device)
         else:
             raise ValueError(f"unknown warmup mode {mode!r}")
     except Exception as exc:  # recorded in the stats, as the JAX package does
@@ -282,23 +255,5 @@ def warm_bucket(bucket, pipeline: str, overrides: dict, scratch_dir: str,
     if device.type == "cuda":
         stats["kernels_built"] = [k for k in kernels.KERNELS
                                   if k not in found and kernels.library_path(k).exists()]
-    stats["seconds"] = round(time.perf_counter() - t0, 3)
+    stats["seconds"] = time.perf_counter() - t0
     return stats
-
-
-def _dryrun_pipeline(pipeline: str, overrides: dict, outdir, fil, device) -> None:
-    """One run of the pipeline over the synthetic observation, nothing kept."""
-    if pipeline == "spsearch":
-        from ..pipeline.single_pulse import SinglePulseConfig, SinglePulseSearch
-
-        cfg = _filtered_config(SinglePulseConfig, overrides, outdir=str(outdir),
-                               checkpoint_file="")
-        SinglePulseSearch(cfg, device=device).run(fil)
-    elif pipeline == "search":
-        from ..pipeline.search import PeasoupSearch, SearchConfig
-
-        cfg = _filtered_config(SearchConfig, overrides, outdir=str(outdir),
-                               checkpoint_file="")
-        PeasoupSearch(cfg, device=device).run(fil)
-    else:
-        raise ValueError(f"no dry run for pipeline {pipeline!r}")

@@ -19,12 +19,12 @@ Grammar (``PEASOUP_FAULTS`` env var)::
 
     PEASOUP_FAULTS='fil.read:p=0.1:n=3,device.oom:at=1'
 
-The grammar takes every site, but the port has seams only where it has
-the code: ``queue.claim``, ``worker.kill``, ``clock.skew`` and
-``preempt.revoke`` belong to the campaign runner and ``cache.corrupt``'s
-warmup seam to a persistent compilation cache, neither of which the port
-has (ROADMAP A.10); ``cache.corrupt`` still garbles the checkpoint and
-the tuning cache before they are read (:func:`maybe_corrupt_file`).
+The campaign layer holds the JAX package's seams at its sites:
+``queue.claim`` and ``clock.skew`` in campaign/queue.py, ``worker.kill``
+and ``preempt.revoke`` in campaign/runner.py. ``cache.corrupt``'s warmup
+seam belongs to a persistent compilation cache, which the port does not
+have; ``cache.corrupt`` garbles the checkpoint and the tuning cache
+before they are read (:func:`maybe_corrupt_file`).
 ``device.oom`` raises the card's own out-of-memory form,
 :class:`torch.OutOfMemoryError`, so the driver's real handler catches it.
 

@@ -12,10 +12,10 @@ tables) into:
   JSON inlined in a ``<script type="application/json">`` block, tables
   rendered server-side and fold postage stamps drawn as inline SVG.
 
-The campaign rollup the JAX package folds in (``campaign/rollup``) and
-the DM-time bowtie plot it links (``tools/plotting``) are ROADMAP item
-A.10: ``build_report`` takes the rollup as an argument, and the CLI
-passes none and links no plot.
+``build_report`` takes the campaign rollup (campaign/rollup.py) as an
+argument, which the CLI reads from the workdir. The DM-time bowtie plot
+the JAX package links (``tools/plotting``) is ROADMAP item A.10: the CLI
+links no plot.
 """
 
 from __future__ import annotations

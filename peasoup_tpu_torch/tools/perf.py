@@ -16,6 +16,10 @@ Subcommands:
   program running, every kernel and every counterpart of the JAX registry
   registered, a warm pass that builds no kernel, and, on the card the
   baseline names, the timings.
+* ``spread`` - time every registered program on the card under the lone
+  call's timer and the microbenchmark's back-to-back one, over several
+  passes in this process and in fresh ones, and print each program's
+  median, min and max: how far one bench can stray from another.
 * ``tune`` - resolve (and on a cold cache measure) the dedispersion plan
   of one shape bucket into ``tuning_cache.json`` (perf/tuning.py), the
   offline form of what ``--tune`` does; ``--list`` and ``--prune`` keep
@@ -64,8 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated program names (default: all)")
 
     c = sub.add_parser("check", parents=[common], help="ratchet a perf.json against the baseline")
-    c.add_argument("--perf", default="perf.json",
-                   help="perf.json to check (default ./perf.json)")
+    c.add_argument("--perf", default=["perf.json"], nargs="+",
+                   help="perf.json to check (default ./perf.json); with "
+                   "--write-baseline, one or more runs of one card, each "
+                   "program pinned at the median of its medians")
     c.add_argument("--baseline", default=BASELINE_PATH,
                    help="baseline (default: the port's perf/perf_baseline.json)")
     c.add_argument("--timing", choices=("auto", "on", "off"), default="auto",
@@ -75,6 +81,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the warm invariant (a warm pass builds no kernel)")
     c.add_argument("--write-baseline", action="store_true",
                    help="re-pin --baseline from the perf.json and exit 0")
+
+    s = sub.add_parser("spread", parents=[common], help="each registered program's spread "
+                       "over several passes under two timers")
+    s.add_argument("--rounds", type=int, default=10, help="passes in this process (default 10)")
+    s.add_argument("--fresh", type=int, default=3,
+                   help="passes each in a fresh process (default 3)")
+    s.add_argument("--baseline", default=BASELINE_PATH,
+                   help="baseline the passes are counted against (default: the port's)")
+    s.add_argument("-o", "--output", default=None, metavar="PATH",
+                   help="also write the passes and the table as JSON")
+    s.add_argument("--one-pass", action="store_true", help=argparse.SUPPRESS)
 
     t = sub.add_parser("tune", parents=[common], help="tune the dedispersion plan of one shape bucket "
                        "into the tuning cache (or --list/--prune its entries)")
@@ -155,13 +172,18 @@ def _cmd_check(args) -> int:
         PerfProblem, baseline_from_perf, check_perf, load_baseline, write_baseline,
     )
 
-    perf_doc = load_perf(args.perf)
+    docs = [load_perf(p) for p in args.perf]
+    perf_doc = docs[0]
     if args.write_baseline:
-        write_baseline(baseline_from_perf(perf_doc), args.baseline)
+        write_baseline(baseline_from_perf(perf_doc, more=docs[1:]), args.baseline)
         n = len([r for r in perf_doc["programs"].values() if not r["error"]])
         print(f"peasoup-perf: baseline written to {args.baseline} ({n} program(s) "
-              f"pinned on {perf_doc['device_kind']})")
+              f"pinned on {perf_doc['device_kind']} from {len(docs)} run(s))")
         return 0
+    if len(docs) > 1:
+        print("peasoup-perf: check takes one --perf (several only with "
+              "--write-baseline)", file=sys.stderr)
+        return 2
     if not os.path.exists(args.baseline):
         print(f"peasoup-perf: baseline {args.baseline} missing (create one with: "
               "check --write-baseline)", file=sys.stderr)
@@ -192,6 +214,58 @@ def _cmd_check(args) -> int:
         return 1
     print(f"peasoup-perf check: OK ({len(baseline['programs'])} baseline programs, "
           f"{perf_doc['device_kind']})")
+    return 0
+
+
+def _cmd_spread(args) -> int:
+    import subprocess
+
+    from ..device import resolve_device
+    from ..perf.microbench import power_limit, spread_pass, spread_table
+    from ..perf.ratchet import load_baseline
+    from ..perf.warmup import warm_registry
+
+    device = resolve_device(args.device)
+    if device.type != "cuda":
+        print("peasoup-perf spread: the timers are the card's (give a CUDA --device)",
+              file=sys.stderr)
+        return 2
+    if args.one_pass:
+        print("PASS " + json.dumps(spread_pass(device=device)))
+        return 0
+    warm_registry(device=device)
+    passes = [spread_pass(device=device) for _ in range(args.rounds)]
+    for _ in range(args.fresh):
+        proc = subprocess.run(
+            [sys.executable, "-m", "peasoup_tpu_torch.tools.perf", "spread", "--one-pass",
+             "--device", str(device)], capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("PASS ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 2
+        passes.append(json.loads(lines[-1][5:]))
+    card = power_limit(device)
+    base = load_baseline(args.baseline)
+    pinned = {n: r["execute_median_s"] for n, r in base["programs"].items()}
+    tol = float(base["tolerance"])
+    table = spread_table(passes)
+    print(f"{len(passes)} passes ({args.rounds} in one process, {args.fresh} fresh) on "
+          f"{card}; us: median [min..max] x max/min")
+    for name, row in table.items():
+        c, r = row["call"], row["run"]
+        print(f"  {name:44s} lone {c['median'] * 1e6:9.2f} [{c['min'] * 1e6:.2f}.."
+              f"{c['max'] * 1e6:.2f}] x{c['ratio']:.2f} | back to back "
+              f"{r['median'] * 1e6:9.2f} [{r['min'] * 1e6:.2f}..{r['max'] * 1e6:.2f}] "
+              f"x{r['ratio']:.2f}")
+    over = {t: sum(any(p[n][t] > pinned[n] * tol for n in p if n in pinned) for p in passes)
+            for t in ("call", "run")}
+    print(f"peasoup-perf spread: passes with a program past the baseline x {tol:g}: lone "
+          f"{over['call']}/{len(passes)}, back to back {over['run']}/{len(passes)} ({card})")
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump({"card": card, "rounds": args.rounds, "fresh": args.fresh,
+                       "passes": passes, "table": table, "over_baseline": over}, f, indent=1)
+            f.write("\n")
     return 0
 
 
@@ -274,6 +348,7 @@ def main(argv=None) -> int:
             "warmup": _cmd_warmup,
             "bench": _cmd_bench,
             "check": _cmd_check,
+            "spread": _cmd_spread,
             "tune": _cmd_tune,
         }[args.cmd](args)
     except Exception:

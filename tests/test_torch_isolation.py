@@ -61,7 +61,11 @@ def test_importing_every_module_loads_no_jax():
                  "resilience.stats", "resilience.faults", "resilience.revoke",
                  "obs.log", "obs.telemetry", "obs.trace", "obs.heartbeat", "obs.flight",
                  "obs.metrics", "obs.profiler", "tools.scope_trace",
-                 "tools.validate_manifest"):
+                 "tools.validate_manifest", "campaign.queue", "campaign.registry",
+                 "campaign.tenants", "campaign.usage", "campaign.rollup",
+                 "campaign.autoscale", "campaign.ingest", "campaign.runner",
+                 "obs.alerts", "obs.health", "obs.portal", "tools.watch",
+                 "cli.campaign"):
         assert f"peasoup_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -101,7 +105,7 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("cli", ["ffa", "coincidencer", "accmap", "fdas", "stream",
-                                 "sift", "rank"])
+                                 "sift", "rank", "campaign"])
 def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
     # the FFA, coincidencer, accmap, FDAS and streaming entry points run on
     # the card unless asked for the CPU: without one they raise before
@@ -121,18 +125,21 @@ def test_smaller_searches_default_to_the_card(monkeypatch, tmp_path, cli):
     missing = str(tmp_path / "missing.fil")
     argv = {"ffa": ["-i", missing], "coincidencer": [missing], "accmap": [missing],
             "fdas": ["-i", missing], "stream": ["--replay", missing],
-            "sift": ["run", "-w", str(tmp_path)], "rank": ["score", "-w", str(tmp_path)]}[cli]
+            "sift": ["run", "-w", str(tmp_path)], "rank": ["score", "-w", str(tmp_path)],
+            "campaign": ["run", "-w", str(tmp_path), "--manifest", missing]}[cli]
     with pytest.raises(RuntimeError, match="is_available"):
         main(argv)
 
 
 @pytest.mark.parametrize("entry", ["multibeam_veto", "run_search", "run_single_pulse_search",
                                    "run_fdas_search", "resolve_plan_for_bucket",
-                                   "warm_registry", "run_microbench"])
+                                   "warm_registry", "run_microbench", "CampaignRunner",
+                                   "run_worker"])
 def test_library_entry_points_default_to_the_card(monkeypatch, entry):
     # the sift's multibeam veto, the multi-process drivers and the tuning
     # and measurement layer run on the card unless asked for the CPU:
     # without one they raise before any work
+    from peasoup_tpu_torch.campaign import runner
     from peasoup_tpu_torch.parallel import multihost
     from peasoup_tpu_torch.perf import microbench, tuning, warmup
     from peasoup_tpu_torch.pipeline.fdas import FdasConfig
@@ -149,6 +156,8 @@ def test_library_entry_points_default_to_the_card(monkeypatch, entry):
             (16, 8, 1024, 1e-3, 1400.0, -8.0), "search", {}, "unused.json"),
         "warm_registry": lambda: warmup.warm_registry(),
         "run_microbench": lambda: microbench.run_microbench(),
+        "CampaignRunner": lambda: runner.CampaignRunner("unused"),
+        "run_worker": lambda: runner.run_worker("unused"),
     }[entry]
     with pytest.raises(RuntimeError, match="is_available"):
         call()

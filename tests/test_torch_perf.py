@@ -140,6 +140,52 @@ def test_check_subcommand_exit_codes(tmp_path, capsys):
                       str(tmp_path / "none.json")]) == 2
 
 
+def test_spread_table_and_its_subcommand(capsys):
+    # each program's median, min and max over the passes, per timer; the
+    # subcommand times the card only
+    passes = [{"a": {"call": c, "run": r, "calls": 4}} for c, r in
+              ((3e-6, 2e-6), (1e-6, 2e-6), (2e-6, 4e-6), (9e-6, 1e-6))]
+    row = microbench.spread_table(passes)["a"]
+    assert row["call"] == {"median": pytest.approx(2.5e-6), "min": 1e-6, "max": 9e-6,
+                           "ratio": pytest.approx(9.0)}
+    assert row["run"]["median"] == 2e-6 and row["run"]["ratio"] == pytest.approx(4.0)
+    assert perf_main(["spread", "--device", "cpu"]) == 2
+    assert "CUDA --device" in capsys.readouterr().err
+
+
+def test_baseline_pinned_at_the_median_of_runs(tmp_path, capsys):
+    # several benches of one card pin each program at the median of its
+    # medians, so no single pass over the registry sets the baseline
+    doc = microbench.run_microbench(reps=2, programs=SOME, device="cpu")
+    runs = []
+    for scale in (1.0, 3.0, 0.5, 1.2, 9.0):
+        r = copy.deepcopy(doc)
+        for rec in r["programs"].values():
+            rec["execute_median_s"] = 1e-3 * scale
+        runs.append(r)
+    runs[1]["programs"]["kernels.resample"]["error"] = "RuntimeError: boom"
+    base = ratchet.baseline_from_perf(runs[0], more=runs[1:])
+    assert base["runs"] == 5
+    assert base["programs"]["kernels.dedisperse"]["execute_median_s"] == pytest.approx(1.2e-3)
+    # a broken run's program is pinned from the runs where it ran
+    assert base["programs"]["kernels.resample"]["execute_median_s"] == pytest.approx(1.1e-3)
+    with pytest.raises(ValueError, match="one kind of device"):
+        ratchet.baseline_from_perf(runs[0], more=[dict(runs[1], device_kind="other")])
+    paths = []
+    for k, r in enumerate(runs[:3]):
+        paths.append(str(tmp_path / f"perf{k}.json"))
+        microbench.write_perf(r, paths[-1])
+    out = str(tmp_path / "base.json")
+    assert perf_main(["check", "--device", "cpu", "--perf", *paths, "--baseline", out,
+                      "--write-baseline"]) == 0
+    assert "from 3 run(s)" in capsys.readouterr().out
+    pinned = ratchet.load_baseline(out)["programs"]["ops.spectrum.form_power"]
+    assert pinned["execute_median_s"] == pytest.approx(1e-3)
+    # check itself takes one run
+    assert perf_main(["check", "--device", "cpu", "--perf", *paths, "--baseline",
+                      out]) == 2
+
+
 def test_the_ports_baseline_names_its_card():
     base = ratchet.load_baseline(ratchet.BASELINE_PATH)
     assert base["backend"] == "cuda" and "H100" in base["device_kind"]
@@ -171,11 +217,13 @@ def test_measure_primitives():
     assert measure.summarize(samples)["reps"] == 3
     with pytest.raises(ValueError, match="CUDA events"):
         measure.event_samples(lambda: None, 3, "cpu")
+    with pytest.raises(ValueError, match="CUDA events"):
+        measure.event_run_samples(lambda: None, 3, "cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         measure.device_busy_seconds(lambda: None, "cpu")
 
 
-def test_shape_ctx_and_dry_run(tmp_path):
+def test_shape_ctx_and_dry_run():
     bucket = (16, 8, 1 << 15, 0.000256, 1400.0, -8.0)
     from peasoup_tpu.perf.warmup import shape_ctx_for_bucket as jax_shape_ctx
 
@@ -187,10 +235,9 @@ def test_shape_ctx_and_dry_run(tmp_path):
     assert ctx.fft_size == 1 << 14 and ctx.accel_pad == 4 and ctx.ndm > 1
     sp = warmup.shape_ctx_for_bucket(bucket, "spsearch", dict(dm_end=60.0, n_widths=8))
     assert sp.widths == (1, 2, 4, 8, 16, 32, 64, 128) and sp.tpad >= sp.out_nsamps
-    stats = warmup.warm_bucket(bucket, "spsearch", dict(dm_end=60.0, n_widths=8),
-                               str(tmp_path / "scratch"), device="cpu")
+    stats = warmup.warm_bucket(bucket, device="cpu")
     assert stats["error"] is None and stats["kernels_built"] == []
-    assert not (tmp_path / "scratch").exists()
+    assert stats["mode"] == "dryrun" and stats["seconds"] > 0
 
 
 @pytest.mark.cuda

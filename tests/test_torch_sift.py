@@ -482,7 +482,23 @@ def test_tenant_slice(tmp_path):
         assert all(json.loads(c["job_ids"]) == ["job0"] for c in db.sift_catalogue())
 
 
-def test_report_and_clis(tmp_path, capsys):
+@pytest.fixture
+def jax_log_kept():
+    """The JAX CLIs install their log handler on the stderr of the moment,
+    here pytest's capture, which is closed after the test: put the JAX
+    logger back as it was, so no later test in the process finds a handler
+    on a closed stream."""
+    from peasoup_tpu.obs import log as jax_log
+
+    logger = jax_log.get_logger()
+    handler, handlers, level = jax_log._handler, list(logger.handlers), logger.level
+    yield
+    jax_log._handler = handler
+    logger.handlers[:] = handlers
+    logger.setLevel(level)
+
+
+def test_report_and_clis(tmp_path, capsys, jax_log_kept):
     """`cli.sift run` and `report`, then `cli.rank score`, on the CPU: the
     report is schema-valid, is the JAX package's report of the same
     database, and rank score rewrites the scores the sift stored."""
@@ -523,9 +539,24 @@ def test_report_and_clis(tmp_path, capsys):
         if c["score"] is not None:
             assert abs(c["score"] - b["score"]) <= 1e-4
             assert abs(c["score"] - j["score"]) <= SCORE_ATOL
+    # the campaign rollup, refused before the campaign layer was ported:
+    # an unreadable one is ignored with a warning, as in the JAX CLI, and
+    # a real one is the report's campaign section, as the JAX report's
+    from peasoup_tpu.cli.sift import main as jax_sift_main
+    from peasoup_tpu_torch.campaign.rollup import write_status
+
+    capsys.readouterr()
     (camp / "campaign_status.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        sift_main(["report", "-w", str(camp)])
+    assert sift_main(["report", "-w", str(camp)]) == 0
+    assert "ignoring unreadable rollup" in capsys.readouterr().err
+    assert json.loads((camp / "sift" / "report.json").read_text())["campaign"] is None
+    write_status(str(camp))
+    sections = []
+    for main in (sift_main, jax_sift_main):
+        assert main(["report", "-w", str(camp)]) == 0
+        sections.append(json.loads((camp / "sift" / "report.json").read_text())["campaign"])
+    assert sections[0] == sections[1]
+    assert sections[0]["schema"] == "peasoup_tpu.campaign_status"
     # ROADMAP A.10's telemetry, ported: --status-json, refused before, takes
     # the heartbeat; the manifest carries the sift status section
     status = tmp_path / "s.json"

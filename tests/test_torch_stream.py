@@ -359,7 +359,23 @@ FLAGS = ["--rate", "0", "--dm_end", "20", "-m", "7", "--n_widths", "6", "--chunk
          "--decimate", "8", "--latency-slo", "30", "--no-warmup"]
 
 
-def test_cli_replay_matches_jax(fil_path, tmp_path, capsys):
+@pytest.fixture
+def jax_log_kept():
+    """The JAX CLIs install their log handler on the stderr of the moment,
+    here pytest's capture, which is closed after the test: put the JAX
+    logger back as it was, so no later test in the process finds a handler
+    on a closed stream."""
+    from peasoup_tpu.obs import log as jax_log
+
+    logger = jax_log.get_logger()
+    handler, handlers, level = jax_log._handler, list(logger.handlers), logger.level
+    yield
+    jax_log._handler = handler
+    logger.handlers[:] = handlers
+    logger.setLevel(level)
+
+
+def test_cli_replay_matches_jax(fil_path, tmp_path, capsys, jax_log_kept):
     from peasoup_tpu.cli.stream import main as jax_main
     from peasoup_tpu_torch.cli.stream import main
 
