@@ -236,6 +236,27 @@ Phases, each fatal on failure:
      answering /status with the rollup and /metrics with an exposition,
      and `peasoup-sift run --no-fold` then `report` with the campaign
      section. Each sub-phase's wall time is printed.
+ 31. The chaos soak and the user-facing tools on the card: (a) `python -m
+     peasoup_tpu_torch.tools.chaos --mode both --device cuda --seed 7` at
+     the tool's defaults exits 0, SURVIVED, its report ok, each campaign
+     job's done record shows dedisperse and spchain launched and the
+     stream soak dedisperse and boxcar; (b) `--mode fleet --seed 11
+     --workers 4 --n-obs 6 --lease 1.0`, every worker a port campaign
+     process on the card: 7 jobs done, a kill reaped, 2 flaky reads, a
+     preemption resumed, the gang done, an autoscale up; (c) the campaign
+     soak in this process at CHAOS_FULL_NSAMPS samples (the single-pulse
+     grid's length) at the tool's 8 channels and 3 observations: every
+     job's candidates the fault-free run's bytes, spchain's launch shapes
+     printed; (d) tools.divergence on the tutorial grid's file at DM 30,
+     accelerations -5, 0 and 5, on the card and on the CPU: every S/N
+     level meets the standard against the f64 oracle (the same S/N > 9
+     membership, |dS/N| < 5e-3), the resample kernel launched; (e)
+     tools.report --merge over phase 26's spsearch shards validates,
+     tools.as_text reads the big grid's overview.xml, phase 23's sift
+     wrote sift/bowtie.svg, phase 30's campaign portal answers
+     /bowtie.svg with 200 and an SVG, and the tutorial grid with `-p`
+     draws the bar on stderr and writes the default run's candidate
+     bytes. Each part's wall time is printed.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -3828,7 +3849,12 @@ def campaign_phase(tmp: str, paths: dict, smi: str) -> dict:
     while not os.path.exists(claim) and worker_t.is_alive():
         require(time.monotonic() < deadline, "campaign (d): the job was claimed")
         time.sleep(0.005)
-    requested = q.request_preempt(jid, requester="chip_smoke", grace_s=120.0)
+    # the claim is created (O_EXCL) before its document is written: a
+    # request that reads it empty finds no claim and asks again
+    requested = False
+    while not requested and worker_t.is_alive():
+        require(time.monotonic() < deadline, "campaign (d): the preempt request landed")
+        requested = q.request_preempt(jid, requester="chip_smoke", grace_s=120.0)
     worker_t.join(timeout=CAMPAIGN_TIMEOUT_S)
     require(requested and not worker_t.is_alive(), "campaign (d): the worker drained")
     [rec] = q.done_records()
@@ -3926,6 +3952,241 @@ def campaign_phase(tmp: str, paths: dict, smi: str) -> dict:
     say("phase 30 sub-phases (s): " + json.dumps({k: round(v, 3) for k, v in times.items()})
         + f"; {wall:.1f} s in all ({smi})")
     out.update(times=times, wall=wall, rollup=st)
+    return out
+
+
+# --- the chaos soak and the user-facing tools on the card (phase 31) --------
+
+# (c)'s observations: the single-pulse grid's length at the chaos tool's
+# own 8 channels
+CHAOS_FULL_NSAMPS = 1 << 21
+CHAOS_TIMEOUT_S = 400.0
+
+
+def chaos_cli(argv: list[str], workdir: str) -> tuple[dict, str, float]:
+    """``python -m peasoup_tpu_torch.tools.chaos ARGV -o WORKDIR --device
+    cuda`` in a process of its own; it must exit 0 and survive. Returns its
+    report, output and wall time."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "peasoup_tpu_torch.tools.chaos", *argv, "-o", workdir,
+             "--device", "cuda"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+            text=True, timeout=CHAOS_TIMEOUT_S,
+        )
+    except subprocess.TimeoutExpired:
+        require(False, f"peasoup-chaos {' '.join(argv)} within {CHAOS_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    report_path = os.path.join(workdir, "chaos_report.json")
+    report = json.load(open(report_path)) if os.path.exists(report_path) else {}
+    if proc.returncode or not report.get("ok"):
+        for line in out.strip().splitlines()[-60:]:
+            say(f"  chaos | {line}")
+    require(proc.returncode == 0 and "SURVIVED" in proc.stdout and report.get("ok"),
+            f"peasoup-chaos {' '.join(argv)}: exit 0, SURVIVED, report ok (rc "
+            f"{proc.returncode}, violations {report.get('violations')}, error "
+            f"{report.get('error')})")
+    return report, out, wall
+
+
+def chaos_tools_phase(tmp: str, smi: str) -> dict:
+    """Phase 31 (a)-(e), the docstring's, on the card."""
+    import contextlib
+    import io
+    import threading
+    import urllib.request
+
+    from peasoup_tpu_torch.cli.campaign import main as campaign_main
+    from peasoup_tpu_torch.cli.peasoup import main as peasoup_main
+    from peasoup_tpu_torch.obs.schema import validate_manifest
+    from peasoup_tpu_torch.resilience import STATS, faults
+    from peasoup_tpu_torch.tools import chaos
+    from peasoup_tpu_torch.tools.as_text import main as as_text_main
+    from peasoup_tpu_torch.tools.divergence import (
+        STANDARD_ABS, compare_trial, level_standard,
+    )
+    from peasoup_tpu_torch.tools.parsers import OverviewFile
+    from peasoup_tpu_torch.tools.report import main as report_main
+
+    times, out = {}, {}
+
+    # (a) the campaign and stream soaks, the tool's defaults
+    report, _, times["a"] = chaos_cli(["--mode", "both", "--seed", "7"],
+                                      os.path.join(tmp, "chaos_both"))
+    jobs = report["campaign"]["jobs"]
+    stream_launches = report["stream"]["chaos"]["kernel_launches"]
+    say(f"31a chaos --mode both: {times['a']:.1f} s wall; campaign queue "
+        f"{json.dumps(report['campaign']['queue'])}, workers killed "
+        f"{report['campaign']['chaos']['workers_killed']}, injections "
+        f"{[(r['site'], r['ordinal']) for r in report['campaign']['injections']['injected']]}"
+        f"; jobs {json.dumps(jobs, sort_keys=True)}; stream {report['stream']['n_triggers']}"
+        f" triggers over {report['stream']['chaos']['n_chunks']} chunks, launches "
+        f"{json.dumps(stream_launches, sort_keys=True)} ({smi})")
+    require(len(jobs) == 3 and all(
+        j["kernel_launches"].get("dedisperse", 0) > 0
+        and j["kernel_launches"].get("spchain", 0) > 0 for j in jobs.values()),
+        "31a every campaign job launched dedisperse and spchain")
+    require(stream_launches.get("dedisperse", 0) > 0 and stream_launches.get("boxcar", 0) > 0,
+            "31a the stream soak launched dedisperse and boxcar")
+    out["a"] = dict(jobs=jobs, stream=stream_launches)
+
+    # (b) the fleet: worker processes of the port's campaign CLI on the card
+    report, _, times["b"] = chaos_cli(
+        ["--mode", "fleet", "--seed", "11", "--workers", "4", "--n-obs", "6",
+         "--lease", "1.0", "--fleet-timeout", "300"], os.path.join(tmp, "chaos_fleet"))
+    sec = report["fleet"]
+    say(f"31b chaos --mode fleet: {times['b']:.1f} s wall (the fleet {sec['wall_s']} s); "
+        f"queue {json.dumps(sec['queue'])}; kills {json.dumps(sec['kills'])}; late joins "
+        f"{sec['late_joins']}; recovery {json.dumps(sec['recovery'], sort_keys=True)}; "
+        f"preemption resumed {sec['preemption']['jobs_resumed']}, latency "
+        f"{sec['preemption']['latency_s']} s; gang {json.dumps(sec['gang'])}; autoscale ups "
+        f"{sec['autoscale']['ups']}; profile {json.dumps(sec['observability'].get('profile'))}"
+        f"; launches a job (attempts, preemptions) " + "; ".join(
+            f"{json.dumps(j['kernel_launches'], sort_keys=True)} ({j['attempts']}, "
+            f"{j['preemptions']})" for j in sec["jobs"].values())
+        + f" ({smi})")
+    require(sec["violations"] == [] and sec["queue"]["done"] == 7,
+            "31b the fleet: 7 jobs done, no violation")
+    require(bool(sec["kills"]) and bool(sec["late_joins"])
+            and sec["recovery"]["worker.kill"]["reaped_retries"] >= 1,
+            "31b the fleet: a worker SIGKILLed, its job reaped and retried")
+    require(sec["recovery"]["fil.read"]["injected"] == 2, "31b the fleet: 2 flaky reads")
+    require(sec["preemption"]["jobs_resumed"] >= 1 and bool(sec["preemption"]["latency_s"]),
+            "31b the fleet: a preemption resumed, its latency attributed")
+    require(sec["gang"]["done"] == 1 and sec["autoscale"]["ups"] >= 1,
+            "31b the fleet: the gang job done, an autoscale up")
+    # a preempted or reaped job resumes from the checkpoint its first attempt
+    # saved: where that came after the job's one DM block, it launches nothing
+    first = [j for j in sec["jobs"].values() if j["attempts"] == 1 and not j["preemptions"]]
+    require(len(first) > 0 and all(j["kernel_launches"].get("dedisperse", 0) > 0
+                                   and j["kernel_launches"].get("spchain", 0) > 0
+                                   for j in first),
+            "31b every fleet job done at its first attempt launched dedisperse and spchain")
+    out["b"] = dict(wall_s=sec["wall_s"], recovery=sec["recovery"])
+
+    # (c) the campaign soak at the single-pulse grid's length, in this process
+    t0 = time.perf_counter()
+    w = os.path.join(tmp, "chaos_full")
+    kernels.reset_launches()
+    try:
+        sec = chaos.run_campaign_soak(w, chaos.DEFAULT_CAMPAIGN_FAULTS, 7,
+                                      nsamps=CHAOS_FULL_NSAMPS, lease_s=1.0, device="cuda")
+    finally:
+        faults.configure(None)
+        STATS.reset()
+    times["c"] = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    spchain_shapes = {str(k): v for k, v in kernels.launch_shapes["spchain"].items()}
+    same = all(
+        open(os.path.join(w, "ref", "jobs", j, "candidates.singlepulse"), "rb").read()
+        == open(os.path.join(w, "chaos", "jobs", j, "candidates.singlepulse"), "rb").read()
+        for j in sec["jobs"])
+    say(f"31c campaign soak at {CHAOS_FULL_NSAMPS} samples x 8 channels, 3 obs: "
+        f"{times['c']:.1f} s wall (reference {sec['reference']['wall_s']} s, chaos "
+        f"{sec['chaos']['wall_s']} s); queue {json.dumps(sec['queue'])}; killed "
+        f"{sec['chaos']['workers_killed']}; candidates "
+        + ("bytes for bytes the fault-free run's" if same else "NOT the fault-free run's")
+        + f"; launches (both campaigns) {json.dumps({k: v for k, v in launches.items() if v})}"
+        f"; spchain launch shapes {json.dumps(spchain_shapes)} ({smi})")
+    require(sec["violations"] == [] and same and len(sec["jobs"]) == 3,
+            "31c the full-size soak survived with the fault-free run's candidate bytes")
+    require(launches["spchain"] > 0 and launches["dedisperse"] > 0,
+            "31c dedisperse and spchain launched")
+    out["c"] = dict(launches=launches, spchain_shapes=spchain_shapes)
+
+    # (d) the divergence chain on the card against the f64 oracle
+    t0 = time.perf_counter()
+    tut = os.path.join(tmp, "tut.fil")
+    accs = [-5.0, 0.0, 5.0]
+    kernels.reset_launches()
+    rows, oracle, meta = compare_trial(tut, 30.0, accs, device="cuda")
+    resampled = kernels.launches["resample"]
+    cpu_rows, _, cpu_meta = compare_trial(tut, 30.0, accs, device="cpu")
+    times["d"] = time.perf_counter() - t0
+    for (name, err), (_, cerr) in zip(rows, cpu_rows):
+        say(f"31d {name:>16s}  relerr card {err:9.3e}  cpu {cerr:9.3e}")
+    std = level_standard(oracle, meta)
+    for (name, dsnr, same), (_, cdsnr, csame) in zip(std, level_standard(oracle, cpu_meta)):
+        say(f"31d {name:>16s}  max|dS/N| card {dsnr:9.3e} cpu {cdsnr:9.3e}; S/N > 9 "
+            f"membership card {'same' if same else 'DIFFERS'}, cpu "
+            f"{'same' if csame else 'DIFFERS'}")
+    say(f"31d divergence at DM 30, accelerations {accs}: {times['d']:.1f} s wall; resample "
+        f"launches {resampled} ({smi})")
+    require(all(same and dsnr < STANDARD_ABS for _, dsnr, same in std),
+            "31d every S/N level on the card at the standard against the oracle")
+    require(resampled == len(accs), "31d the resample kernel launched once an acceleration")
+    out["d"] = dict(levels=std, resample_launches=resampled)
+
+    # (e) the tools over earlier phases' outputs
+    t0 = time.perf_counter()
+    shards = [os.path.join(tmp, f"procs_spsearch.rank{r}", f"telemetry.proc{r}.json")
+              for r in range(2)]
+    merged_path = os.path.join(tmp, "merged.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = report_main(["--merge", *shards, "-o", merged_path])
+    merged = json.load(open(merged_path))
+    validate_manifest(merged)
+    imb = merged["straggler"]["imbalance"]
+    say(f"31e report --merge over phase 26's spsearch shards: {merged['n_hosts']} hosts, "
+        f"{len(buf.getvalue().splitlines())} lines rendered, slowest/mean "
+        f"{imb['ratio']:.3f}, stages {sorted(merged['timers'])}")
+    require(rc == 0 and merged["merged"] and merged["n_hosts"] == 2,
+            "31e report --merge over phase 26's two spsearch shards validates")
+    big_xml = os.path.join(tmp, "big_grid", "overview.xml")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = as_text_main([big_xml])
+    lines = buf.getvalue().splitlines()
+    ncand = len(OverviewFile(big_xml).candidates)
+    say(f"31e as_text over the big grid's overview.xml: {ncand} candidates; "
+        f"{lines[0]} | {lines[1] if len(lines) > 1 else ''}")
+    require(rc == 0 and len(lines) == ncand + 1 and ncand > 0,
+            "31e as_text prints every candidate of the big grid")
+    svg = open(os.path.join(tmp, "campaign", "sift", "bowtie.svg")).read()
+    require(svg.startswith("<svg") and svg.endswith("</svg>"),
+            "31e phase 23's sift wrote sift/bowtie.svg")
+    camp = os.path.join(tmp, "camp")
+    port = free_port()
+    server = threading.Thread(target=campaign_main, args=(
+        ["serve", "-w", camp, "--host", "127.0.0.1", "--port", str(port),
+         "--max-requests", "1"],))
+    server.start()
+    body, status, ctype = b"", 0, ""
+    for _ in range(100):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/bowtie.svg",
+                                        timeout=30) as r:
+                body, status, ctype = r.read(), r.status, r.headers.get("Content-Type")
+            break
+        except OSError:
+            time.sleep(0.05)
+    server.join(timeout=60)
+    say(f"31e the portal over phase 30's campaign: /bowtie.svg {status} {ctype}, "
+        f"{len(body)} bytes")
+    require(status == 200 and body.startswith(b"<svg") and ctype == "image/svg+xml",
+            "31e the portal answers /bowtie.svg with 200 and an SVG")
+    outdir = os.path.join(tmp, "tut_p")
+    err = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        rc = peasoup_main(["-i", os.path.join(tmp, "tut.fil"), "-o", outdir, *TUT_FLAGS,
+                           "-p"])
+    same = same_bytes(os.path.join(outdir, "candidates.peasoup"),
+                      os.path.join(tmp, "tutorial_grid", "candidates.peasoup"))
+    frames = err.getvalue().count("\rComplete:")
+    say(f"31e the tutorial grid with -p: {frames} bar frames on stderr, the last "
+        f"{err.getvalue().rsplit(chr(13), 1)[-1].strip()!r}; candidates "
+        + ("bytes for bytes" if same else "NOT") + " phase 5's default route's; launches "
+        f"{json.dumps({k: v for k, v in kernels.launches.items() if v})}")
+    require(rc == 0 and "Complete: 100.0%" in err.getvalue() and same,
+            "31e -p draws the bar on stderr and leaves the candidates' bytes")
+    times["e"] = time.perf_counter() - t0
+    say("phase 31 parts (s): " + json.dumps({k: round(v, 3) for k, v in times.items()})
+        + f" ({smi})")
+    out["times"] = times
     return out
 
 
@@ -4181,6 +4442,8 @@ def main() -> int:
             ("30, the campaign layer on the card",
              lambda: runs.setdefault("campaign", campaign_phase(
                  tmp, dict(paths, tut=os.path.join(tmp, "tut.fil")), smi))),
+            ("31, the chaos soak and the user-facing tools on the card",
+             lambda: runs.setdefault("chaos", chaos_tools_phase(tmp, smi))),
         ):
             t0 = time.perf_counter()
             fn()

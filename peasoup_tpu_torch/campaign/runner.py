@@ -159,11 +159,19 @@ class CampaignConfig:
 def save_campaign_config(root: str, cfg: CampaignConfig) -> CampaignConfig:
     """Persist the campaign config; if one already exists it WINS (a
     second worker attaching with different flags must not fork the
-    campaign's semantics mid-flight)."""
+    campaign's semantics mid-flight). The document is written whole to a
+    file of this process's own and published with ``os.link``, which
+    fails where the config exists: a worker started beside the first
+    never reads a config half written (the JAX package's O_EXCL create
+    publishes the empty file first)."""
     os.makedirs(root, exist_ok=True)
     path = os.path.join(root, CAMPAIGN_CONFIG)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(cfg.to_doc(), f, indent=2)
+        f.write("\n")
     try:
-        fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        os.link(tmp, path)
     except FileExistsError:
         existing = load_campaign_config(root)
         if existing.to_doc() != cfg.to_doc():
@@ -173,9 +181,8 @@ def save_campaign_config(root: str, cfg: CampaignConfig) -> CampaignConfig:
                 root, existing.pipeline,
             )
         return existing
-    with os.fdopen(fd, "w") as f:
-        json.dump(cfg.to_doc(), f, indent=2)
-        f.write("\n")
+    finally:
+        os.unlink(tmp)
     return cfg
 
 
@@ -937,6 +944,7 @@ class CampaignRunner:
             enabled=self.campaign.metrics,
         )
         self._profile_thread: threading.Thread | None = None
+        self._profile_s = 0.0
         self._last_queue_sample = 0.0
         self._last_alert_eval = 0.0
 
@@ -1587,6 +1595,7 @@ class CampaignRunner:
             return
         self.registry.clear_profile(self.worker_id)
         seconds = float(req.get("seconds") or 5.0)
+        self._profile_s = seconds
         now_unix = time.time()
         outdir = os.path.join(
             self.root, "profiles",
@@ -1718,6 +1727,14 @@ class CampaignRunner:
                 )
                 write_status(self.root, self.queue)
                 self._evaluate_alerts()
+            # a request that landed since the last poll is answered, and
+            # a capture still running announces its outcome in this
+            # worker's metrics stream, before the worker leaves (the
+            # leave would clear the request unanswered, and the capture's
+            # thread is a daemon, which the interpreter's exit would drop)
+            self._observe_profile()
+            if self._profile_thread is not None:
+                self._profile_thread.join(timeout=self._profile_s + 30.0)
             # dead peers' membership entries expire within one lease;
             # reap them on the way out so a drained campaign leaves a
             # clean registry (the fleet soak's zero-leak invariant)

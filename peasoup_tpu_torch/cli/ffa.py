@@ -79,6 +79,7 @@ def main(argv: list[str] | None = None) -> int:
     from ..io.sigproc import read_filterbank
     from ..io.xml_writer import Element
     from ..pipeline.ffa import FFAConfig, FFASearch
+    from ..utils import ProgressBar
 
     cfg = FFAConfig(
         killfilename=args.killfile, limit=args.limit, dm_start=args.dm_start,
@@ -102,12 +103,19 @@ def main(argv: list[str] | None = None) -> int:
         if args.verbose:
             print(f"FFA search: {search.build_dm_plan(fil).ndm} DM trials, periods "
                   f"{args.p_start}-{args.p_end} s, min_dc {args.min_dc}")
-        progress = None
-        if args.verbose or args.progress_bar:
+        bar = ProgressBar() if args.progress_bar else None
+        if bar:
+            bar.start()
+            progress = bar.update
+        elif args.verbose:
             progress = lambda f: print(f"FFA octaves: {f * 100:5.1f}% done")  # noqa: E731
+        else:
+            progress = None
         with tel.device_capture(search.device):
             result = search.run(fil, progress=progress)
         tel.set_stage("writing")
+    if bar:
+        bar.stop()
     if args.verbose:
         print(f"{len(result.candidates)} period-collapsed candidates")
 

@@ -17,8 +17,9 @@ live heartbeat to ``<workdir>/sift/status.json`` (or ``--status-json``)
 and its manifest, with the ``sift`` status section, to
 ``<workdir>/sift/telemetry.json`` (or ``--metrics-json``). ``report``
 folds in the campaign rollup (``<workdir>/campaign_status.json``, written
-by either package's ``peasoup-campaign``) as the JAX CLI does. The report
-links no DM-time bowtie plot (``tools/plotting``, ROADMAP A.10).
+by either package's ``peasoup-campaign``) as the JAX CLI does, and writes
+the DM-time bowtie plot ``<workdir>/sift/bowtie.svg`` beside the report,
+linked from it (tools/plotting.py).
 """
 
 from __future__ import annotations
@@ -200,9 +201,24 @@ def _cmd_report(args) -> int:
     with CandidateDB(db_path) as db:
         doc = build_report(db, campaign_status, limit=args.limit,
                            tenant=args.tenant or None)
-    print("peasoup-sift: bowtie plot skipped: tools/plotting is ROADMAP item A.10",
-          file=sys.stderr)
-    write_report(doc, json_path, html_path, bowtie_href=None)
+    # the DM-time bowtie diagnostic rides beside the report and is
+    # linked from it (a missing or empty SP table renders an empty plot;
+    # a failure only loses the plot, never the report)
+    bowtie_href = None
+    try:
+        from ..tools.plotting import bowtie_from_db
+
+        svg = bowtie_from_db(db_path, tenant=args.tenant or None)
+        os.makedirs(sift_dir, exist_ok=True)
+        bowtie_path = os.path.join(sift_dir, "bowtie.svg")
+        tmp = bowtie_path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(svg)
+        os.replace(tmp, bowtie_path)
+        bowtie_href = "bowtie.svg"
+    except Exception as exc:
+        print(f"peasoup-sift: bowtie plot skipped: {exc}", file=sys.stderr)
+    write_report(doc, json_path, html_path, bowtie_href=bowtie_href)
     print(f"peasoup-sift report: {json_path} + {html_path}")
     if args.print_summary:
         run = doc["run"]

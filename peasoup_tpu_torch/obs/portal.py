@@ -19,10 +19,8 @@ Endpoints:
 - ``/jobs/<id>`` — one job's queue record, done record, quarantine
   record and trace summary.
 - ``/report`` and ``/bowtie.svg`` — the sift HTML report and bowtie
-  plot when the campaign has been sifted. The port's sift draws no
-  bowtie (``tools/plotting`` is still to be ported, ROADMAP A.10): a
-  ``sift/bowtie.svg`` that the JAX package's sift wrote is served, and
-  without one the route answers 501 naming that item.
+  plot when the campaign has been sifted (``peasoup-sift report`` writes
+  both; 404 before).
 - ``/tenants`` and ``/tenants/<name>`` — the multi-tenant view: per
   tenant queue tallies, quota vs windowed device-seconds, usage
   ledger, firing alerts, per-tenant sift/bowtie links.
@@ -443,15 +441,6 @@ def _index_body(root: str) -> bytes:
     return doc.encode()
 
 
-# the route the port cannot draw yet (the DM-time bowtie needs
-# tools/plotting): answered 501 where the file is absent
-_NOT_PORTED = object()
-BOWTIE_NOT_PORTED = (
-    "the DM-time bowtie plot needs tools/plotting, which the port does not "
-    "have yet (ROADMAP A.10, the tools/ item)"
-)
-
-
 def serve_portal(
     root: str,
     port: int = 9100,
@@ -475,9 +464,6 @@ def serve_portal(
                 body, ctype = self._route(self.path)
             except Exception as exc:
                 self.send_error(500, f"{type(exc).__name__}: {exc}")
-                return
-            if body is _NOT_PORTED:
-                self.send_error(501, BOWTIE_NOT_PORTED)
                 return
             if body is None:
                 self.send_error(404)
@@ -533,9 +519,8 @@ def serve_portal(
                     "text/html; charset=utf-8",
                 )
             if path == "/bowtie.svg":
-                body = _file_body(os.path.join(root, "sift", "bowtie.svg"))
                 return (
-                    _NOT_PORTED if body is None else body,
+                    _file_body(os.path.join(root, "sift", "bowtie.svg")),
                     "image/svg+xml",
                 )
             return None, ""

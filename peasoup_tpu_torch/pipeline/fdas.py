@@ -47,6 +47,7 @@ from ..ops.zap import birdie_mask
 from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..resilience import DegradationLadder, faults
+from ..utils import ProgressBar
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .score import CandidateScorer
@@ -284,8 +285,15 @@ class FdasSearch:
 
         t0 = time.perf_counter()
         tel.set_stage("searching")
-        self._run_blocks(trials, dm_plan.ndm, bank, zapmask, windows, per_dm,
-                         ckpt, geometry)
+        progress = ProgressBar() if cfg.progress_bar else None
+        if progress:
+            progress.start()
+        try:
+            self._run_blocks(trials, dm_plan.ndm, bank, zapmask, windows, per_dm,
+                             ckpt, geometry, progress)
+        finally:
+            if progress:
+                progress.stop()
         del trials
         self._sync()
         timers["search_device"] = time.perf_counter() - t0
@@ -346,13 +354,14 @@ class FdasSearch:
         )
 
     def _run_blocks(self, trials, ndm, bank, zapmask, windows, per_dm, ckpt,
-                    geometry) -> None:
+                    geometry, progress=None) -> None:
         """Every DM trial missing from ``per_dm`` in (dm_block x
         template_block) tiles, under the JAX package's two-rung memory
         ladder: on an out-of-memory error halve the template batch while it
         is above one row, then the DM block; past that raise. Each DM
         block's (idxs, snrs, cluster counts) per trial, (nlev, T, K), go to
-        ``per_dm`` and the store."""
+        ``per_dm`` and the store; ``progress`` (a ProgressBar) is
+        updated after each."""
         cfg = self.config
         tel = current_telemetry()
         dev = self.device
@@ -402,6 +411,8 @@ class FdasSearch:
                     ckpt.save(per_dm)
                     tel.set_progress(ndm - len(todo) + s0 + len(rows), ndm,
                                      unit="dm trials")
+                    if progress:
+                        progress.update((ndm - len(todo) + s0 + len(rows)) / ndm)
                 log.info("searched %d of %d DM trials (%d restored) in tiles of %d DM "
                          "x %d templates", self.n_searched, ndm, ndm - self.n_searched,
                          db, tb)

@@ -43,7 +43,9 @@ RunTelemetry (obs/telemetry.py; a no-op unless a CLI activated one): its
 stages, gauges and events (``device_plan``, ``accel_dedupe``,
 ``wave_plan``, ``max_peaks_escalated``, ``checkpoint_resume``, ...), and
 its stages run under the JAX package's named scopes as
-``torch.profiler.record_function`` scopes (tools/scope_trace.py).
+``torch.profiler.record_function`` scopes (utils/trace.py:trace_span,
+tools/scope_trace.py). ``progress_bar`` draws a ProgressBar on stderr over
+the DM waves.
 
 The DM trials are sharded over the devices :func:`_pick_devices` picks
 (every local card up to ``max_num_threads``, as the reference runs one
@@ -81,8 +83,6 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from torch.profiler import record_function
-
 from .. import native
 from ..core.candidates import Candidate
 from ..device import device_context, resolve_device
@@ -105,6 +105,7 @@ from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
 from ..resilience import DegradationLadder, check_revoke, faults, is_resource_exhausted
+from ..utils import ProgressBar, trace_span
 from .accel_search import padded_bins, preprocess_block
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
@@ -357,7 +358,8 @@ def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> li
     trial sorted again and acceleration-distilled in a second, and
     Candidate objects are made for those rows only, with the winner ->
     absorbed edges building the assoc trees. Same arguments and result as
-    :func:`_distill_per_trial`."""
+    :func:`_distill_per_trial`. With ``PEASOUP_TIE_CAPTURE`` set, the rows
+    and segments are first written to that .npz for tools/tie_mc.py."""
     nlev = plan.nharms + 1
     factors = np.asarray(plan.factors, dtype=np.float32)
     ndm = len(results)
@@ -393,7 +395,29 @@ def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> li
     lvl_all = np.concatenate(g_lvl)
     a_all = np.concatenate(g_a)
     dm_all = np.concatenate(g_dm)
-    seg_off = np.concatenate([[0], np.cumsum(np.concatenate(g_segc))]).astype(np.int64)
+    seg_counts = np.concatenate(g_segc).astype(np.int64)
+    seg_off = np.concatenate([[0], np.cumsum(seg_counts)]).astype(np.int64)
+    max_a = max((len(a) for a in accel_lists[:ndm]), default=1)
+    acc_tab = np.zeros((ndm, max(max_a, 1)))
+    for d, accs in enumerate(accel_lists[:ndm]):
+        acc_tab[d, : len(accs)] = accs
+    if os.environ.get("PEASOUP_TIE_CAPTURE"):
+        # tie-stability capture (tools/tie_mc.py): the raw pre-sort rows
+        # and segment structure, everything needed to replay the whole
+        # distil chain offline under S/N perturbations, in the JAX
+        # package's keys and dtypes
+        np.savez(
+            os.environ["PEASOUP_TIE_CAPTURE"],
+            freqs=freqs_all, snr=snr_all, lvl=lvl_all, a=a_all.astype(np.int32),
+            seg_counts=seg_counts,
+            dm_of_seg=np.repeat(np.arange(ndm, dtype=np.int64),
+                                [len(accel_lists[d]) for d in range(ndm)]),
+            acc_tab=acc_tab, dm_list=plan.dm_list,
+            harm_tol=harm_finder.tolerance, harm_max=harm_finder.max_harm,
+            harm_frac=harm_finder.fractional_harms,
+            acc_tobs_over_c=acc_still.tobs_over_c, acc_tol=acc_still.tolerance,
+            freq_tol=harm_finder.tolerance, max_harm=harm_finder.max_harm,
+        )
 
     # the harmonic distil of every accel trial (segment), rows S/N-sorted
     # by the reference's std::sort within each
@@ -410,10 +434,6 @@ def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> li
     # trials' survivors in that order, sorted again
     seg_dm = np.searchsorted(s_dm, np.arange(ndm + 1)).astype(np.int64)
     order2 = surv[native.snr_sort_perm_seg(s_snr.astype(np.float32), seg_dm)]
-    max_a = max((len(a) for a in accel_lists[:ndm]), default=1)
-    acc_tab = np.zeros((ndm, max(max_a, 1)))
-    for d, accs in enumerate(accel_lists[:ndm]):
-        acc_tab[d, : len(accs)] = accs
     d_dm, d_freq, d_snr = dm_all[order2], freqs_all[order2], snr_all[order2]
     d_lvl, d_acc = lvl_all[order2], acc_tab[dm_all[order2], a_all[order2]]
     unique2, esrc, edst = native.accel_distill_seg(
@@ -882,7 +902,7 @@ class PeasoupSearch:
             tel.event("resume_fast_path", ndm=int(plan.ndm))
             trials = np.zeros((0, plan.out_nsamps), dtype=np.uint8)
         else:
-            with record_function("Dedisperse"):
+            with trace_span("Dedisperse"):
                 trials = self._dedisperse(fil, plan, scale, spill)
         self._sync()
         timers["dedispersion"] = time.perf_counter() - t0
@@ -1069,7 +1089,7 @@ class PeasoupSearch:
                             error=f"{exc!s:.200}")
             trials = None
             _release(*self.devices)
-            with record_function("Dedisperse"):
+            with trace_span("Dedisperse"):
                 trials = dedisperse_host(
                     fil_to_device(fil, self.device), plan.delays, plan.killmask,
                     plan.out_nsamps, scale=scale, block=self.knobs.dedisp_block,
@@ -1119,8 +1139,11 @@ class PeasoupSearch:
         tel = current_telemetry()
         rounds = range(0, max(hi - lo for lo, hi in bounds), d_blk)
         tel.set_progress(0, len(rounds), unit="chunks")
+        progress = ProgressBar() if self.config.progress_bar else None
+        if progress:
+            progress.start()
         for wi, k in enumerate(rounds):
-            with job_span("wave", wave=wi), record_function("DM-Loop"):
+            with job_span("wave", wave=wi), trace_span("DM-Loop"):
                 searched = self._search_round(trials, plan, dispatch_lists, expand,
                                               tsamp, geometry, per_dm, bounds, k, d_blk,
                                               row_blk, zaps, search)
@@ -1134,6 +1157,10 @@ class PeasoupSearch:
             tel.set_progress(wi + 1, len(rounds), unit="chunks")
             tel.incr("search.dm_trials_done",
                      sum(max(0, min(lo + k + d_blk, hi) - (lo + k)) for lo, hi in bounds))
+            if progress:
+                progress.update((wi + 1) / len(rounds))
+        if progress:
+            progress.stop()
         log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
                  plan.ndm, plan.ndm - self.n_searched)
 

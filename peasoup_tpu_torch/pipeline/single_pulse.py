@@ -48,7 +48,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.candidates import SinglePulseCandidate, SinglePulseCandidateCollection
 from ..device import device_context
@@ -63,6 +62,7 @@ from ..parallel.mesh import make_mesh
 from ..parallel.sharded_dedisperse import dedisperse_sharded, shard_bounds
 from ..plan.dm_plan import DMPlan
 from ..resilience import DegradationLadder, check_revoke, faults
+from ..utils import ProgressBar, trace_span
 from .checkpoint import SearchCheckpoint
 from .search import _is_oom, _pick_devices, _release, _trial_rows
 
@@ -413,7 +413,7 @@ class SinglePulseSearch:
             args = (fil_to_device(fil, self.device), plan.delay_samples(),
                     plan.killmask, plan.out_nsamps)
             scale = output_scale(fil.nbits, int(plan.killmask.sum()))
-            with record_function("Dedisperse"):
+            with trace_span("Dedisperse"):
                 if spill:
                     trials = dedisperse_host(*args, scale=scale, **seg)
                 elif len(self.devices) > 1:
@@ -506,17 +506,26 @@ class SinglePulseSearch:
         self.n_searched = 0
         rounds = range(0, max(hi - lo for lo, hi in bounds), blk)
         tel.set_progress(0, len(rounds), unit="chunks")
-        for ci, k in enumerate(rounds):
-            with job_span("wave", wave=ci), record_function("SP-Chunk"):
-                outs = self._search_round(trials, per_dm, bounds, k, blk, widths,
-                                          threshold)
-            if outs and ckpt is not None:
-                with job_span("checkpoint", wave=ci):
-                    ckpt.save(per_dm)
-            tel.set_progress(ci + 1, len(rounds), unit="chunks")
-            if outs:
-                # the revoke seam, right after the checkpoint save
-                check_revoke("spsearch.wave")
+        progress = ProgressBar() if cfg.progress_bar else None
+        if progress:
+            progress.start()
+        try:
+            for ci, k in enumerate(rounds):
+                with job_span("wave", wave=ci), trace_span("SP-Chunk"):
+                    outs = self._search_round(trials, per_dm, bounds, k, blk, widths,
+                                              threshold)
+                if outs and ckpt is not None:
+                    with job_span("checkpoint", wave=ci):
+                        ckpt.save(per_dm)
+                tel.set_progress(ci + 1, len(rounds), unit="chunks")
+                if progress:
+                    progress.update((ci + 1) / len(rounds))
+                if outs:
+                    # the revoke seam, right after the checkpoint save
+                    check_revoke("spsearch.wave")
+        finally:
+            if progress:
+                progress.stop()
         log.info("searched %d of %d DM trials (%d restored)", self.n_searched,
                  ndm, ndm - self.n_searched)
 

@@ -13,9 +13,8 @@ tables) into:
   rendered server-side and fold postage stamps drawn as inline SVG.
 
 ``build_report`` takes the campaign rollup (campaign/rollup.py) as an
-argument, which the CLI reads from the workdir. The DM-time bowtie plot
-the JAX package links (``tools/plotting``) is ROADMAP item A.10: the CLI
-links no plot.
+argument, which the CLI reads from the workdir; the CLI also writes the
+DM-time bowtie plot (tools/plotting.py) beside the report and links it.
 """
 
 from __future__ import annotations
@@ -205,8 +204,7 @@ def render_html(doc: dict, bowtie_href: str | None = None) -> str:
     """The self-contained survey page. The full report JSON is inlined
     (``</`` escaped so a string can never close the script block) —
     saving the page saves the data. ``bowtie_href`` links the DM-time
-    bowtie diagnostic SVG beside the report (the JAX package's
-    tools/plotting.py; the port's CLI passes none, ROADMAP A.10)."""
+    bowtie diagnostic SVG beside the report (tools/plotting.py)."""
     run = doc["run"]
     parts = [
         "<!doctype html><html><head><meta charset='utf-8'>",

@@ -1,17 +1,22 @@
-"""overview.xml as arrays: the part of the JAX package's tools/parsers.py
-that the candidate database reads (:class:`OverviewFile`, with
-:data:`CAND_FIELDS` and :data:`SP_CAND_FIELDS`). It parses the overview
-either package writes: the periodicity candidates, the FDAS extras and the
-``<single_pulse_search>`` section. The JAX module's ``read_singlepulse``
-and ``CandidateFileParser`` belong to its tools (ROADMAP A.10).
+"""Parsers of the search outputs, the port's copy of the JAX package's
+tools/parsers.py: :class:`OverviewFile` (overview.xml as arrays, with
+:data:`CAND_FIELDS` and :data:`SP_CAND_FIELDS`; the periodicity
+candidates, the FDAS extras and the ``<single_pulse_search>`` section of
+the overview either package writes), :func:`read_singlepulse` (the
+``.singlepulse`` text table) and :class:`CandidateFileParser`
+(candidates.peasoup records by byte offset: the optional FOLD block and
+the detection list).
 """
 
 from __future__ import annotations
 
 import re
+import struct
 import xml.etree.ElementTree as ET
 
 import numpy as np
+
+from ..core.candidates import CANDIDATE_POD_DTYPE
 
 CAND_FIELDS = [
     ("period", "f8"),
@@ -62,6 +67,34 @@ def _rows(nodes, fields) -> np.ndarray:
     return np.array(rows, dtype=fields)
 
 
+def read_singlepulse(path: str) -> np.ndarray:
+    """Parse a ``.singlepulse`` text table (io.output.write_singlepulse)
+    into a record array with SP_CAND_FIELDS. The '#' header row names the
+    columns, so extra or reordered columns parse by name (missing fields
+    default to 0)."""
+    with open(path, "r", encoding="ascii") as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    names = None
+    rows = []
+    for ln in lines:
+        if ln.startswith("#"):
+            if names is None:
+                names = ln.lstrip("# ").split()
+            continue
+        rows.append(ln.split())
+    if names is None:
+        names = [fname for fname, _ in SP_CAND_FIELDS]
+    out = np.zeros(len(rows), dtype=SP_CAND_FIELDS)
+    col_of = {n: i for i, n in enumerate(names)}
+    for fname, ftype in SP_CAND_FIELDS:
+        ci = col_of.get(fname)
+        if ci is None:
+            continue
+        vals = [r[ci] if ci < len(r) else 0 for r in rows]
+        out[fname] = np.asarray(vals, dtype=np.dtype(ftype))
+    return out
+
+
 class OverviewFile:
     """overview.xml as header/search dicts and candidate record arrays
     (plus, when a <single_pulse_search> section is present, its width list
@@ -100,3 +133,40 @@ class OverviewFile:
         if node is None:
             return {}
         return {child.tag: (child.text or "") for child in node}
+
+
+class CandidateFileParser:
+    """Read candidates.peasoup records by byte offset
+    (tools/peasoup_tools.py:46-80)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.f = open(path, "rb")
+
+    def close(self):
+        self.f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def read_candidate(self, byte_offset: int) -> dict:
+        self.f.seek(byte_offset)
+        magic = self.f.read(4)
+        fold = None
+        nbins = nints = 0
+        if magic == b"FOLD":
+            nbins, nints = struct.unpack("<ii", self.f.read(8))
+            fold = np.frombuffer(
+                self.f.read(4 * nbins * nints), dtype="<f4"
+            ).reshape(nints, nbins)
+        else:
+            self.f.seek(byte_offset)
+        (ndets,) = struct.unpack("<i", self.f.read(4))
+        hits = np.frombuffer(
+            self.f.read(CANDIDATE_POD_DTYPE.itemsize * ndets),
+            dtype=CANDIDATE_POD_DTYPE,
+        )
+        return {"fold": fold, "nbins": nbins, "nints": nints, "hits": hits}

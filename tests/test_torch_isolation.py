@@ -65,8 +65,14 @@ def test_importing_every_module_loads_no_jax():
                  "campaign.tenants", "campaign.usage", "campaign.rollup",
                  "campaign.autoscale", "campaign.ingest", "campaign.runner",
                  "obs.alerts", "obs.health", "obs.portal", "tools.watch",
-                 "cli.campaign"):
+                 "cli.campaign", "utils", "utils.progress", "utils.trace",
+                 "utils.debug", "tools.chaos", "tools.plotting", "tools.report",
+                 "tools.as_text", "tools.recall", "tools.divergence", "tools.tie_mc"):
         assert f"peasoup_tpu_torch.{name}" in mods
+    # the JAX package's utils/cache.py has no counterpart: it wires XLA's
+    # persistent compilation cache, and the port compiles nothing per
+    # shape (each kernel library is built once per source hash)
+    assert "peasoup_tpu_torch.utils.cache" not in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

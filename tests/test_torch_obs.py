@@ -55,6 +55,12 @@ def _filled() -> RunTelemetry:
 
 
 def test_manifest_round_trip(tmp_path):
+    from peasoup_tpu_torch.resilience.stats import STATS
+
+    # the manifest's resilience section is the process's: start from none
+    # (an earlier test in the worker may have spent a retry budget, as
+    # tests/test_torch_sift.py's exhausted fold ladder does)
+    STATS.reset()
     tel = _filled()
     man = tel.write(str(tmp_path / "t" / "telemetry.json"))
     back = load_manifest(str(tmp_path / "t" / "telemetry.json"))

@@ -793,19 +793,16 @@ class TestAgainstJax:
         # one document, both renderers
         assert render_campaign_status(docs[0]) == jax_render(docs[0])
 
-    def test_same_portal_bodies(self, health_campaign):
+    def test_same_portal_bodies(self, health_campaign, tmp_path):
+        import shutil
         import socket
 
         from peasoup_tpu.obs.portal import serve_portal as jax_serve
         from peasoup_tpu_torch.campaign.rollup import write_status
-        from peasoup_tpu_torch.obs.portal import BOWTIE_NOT_PORTED, serve_portal
+        from peasoup_tpu_torch.cli.sift import main as sift_main
+        from peasoup_tpu_torch.obs.portal import serve_portal
 
-        root, jid, _, _ = health_campaign
-        write_status(root)  # both portals then serve the one rollup file
-        routes = ["/", "/metrics", "/status", "/alerts", "/usage", "/candidates",
-                  "/tenants", "/report", f"/jobs/{jid}", "/jobs/none", "/bowtie.svg"]
-        got = {}
-        for name, serve in (("jax", jax_serve), ("port", serve_portal)):
+        def fetch(serve, root, routes):
             s = socket.socket()
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
@@ -827,7 +824,14 @@ class TestAgainstJax:
                     except OSError:
                         time.sleep(0.02)
             srv.join(timeout=10)
-            got[name] = out
+            return out
+
+        root, jid, _, _ = health_campaign
+        write_status(root)  # both portals then serve the one rollup file
+        routes = ["/", "/metrics", "/status", "/alerts", "/usage", "/candidates",
+                  "/tenants", "/report", f"/jobs/{jid}", "/jobs/none", "/bowtie.svg"]
+        got = {name: fetch(serve, root, routes)
+               for name, serve in (("jax", jax_serve), ("port", serve_portal))}
         for route in routes[:-1]:
             (jcode, jbody), (tcode, tbody) = got["jax"][route], got["port"][route]
             assert jcode == tcode, route
@@ -836,12 +840,19 @@ class TestAgainstJax:
                     json.loads(tbody)), route
             else:
                 assert jbody == tbody, route
-        # the port draws no bowtie yet: 501 names the missing module where
-        # the JAX portal has no file to serve either (404)
+        # no sift yet: neither portal has a bowtie to serve
         assert got["jax"]["/bowtie.svg"][0] == 404
-        code, body = got["port"]["/bowtie.svg"]
-        assert code == 501 and b"tools/plotting" in body
-        assert "tools/plotting" in BOWTIE_NOT_PORTED
+        assert got["port"]["/bowtie.svg"][0] == 404
+        # the port's sift draws sift/bowtie.svg; both portals serve it
+        sifted = str(tmp_path / "sifted")
+        shutil.copytree(root, sifted)
+        assert sift_main(["run", "-w", sifted, "--no-fold", "--device", "cpu"]) == 0
+        assert sift_main(["report", "-w", sifted]) == 0
+        with open(os.path.join(sifted, "sift", "bowtie.svg"), "rb") as f:
+            svg = f.read()
+        assert svg.startswith(b"<svg") and svg.endswith(b"</svg>")
+        for serve in (jax_serve, serve_portal):
+            assert fetch(serve, sifted, ["/bowtie.svg"])["/bowtie.svg"] == (200, svg)
 
 
 class TestServeMetrics:
