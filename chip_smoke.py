@@ -257,6 +257,24 @@ Phases, each fatal on failure:
      /bowtie.svg with 200 and an SVG, and the tutorial grid with `-p`
      draws the bar on stderr and writes the default run's candidate
      bytes. Each part's wall time is printed.
+ 32. The static-analysis gate on the card: (a) `python -m
+     peasoup_tpu_torch.tools.audit --device cuda --baseline
+     peasoup_tpu_torch/analysis/audit_baseline.json --json <tmp>` exits 0;
+     its report shows every kernel built for sm_90a, launched and matched
+     against its plain version at its registry geometry and both ladder
+     rungs, every registered program audited at its representative shape
+     and at 2 or more rungs, and every model-checking scenario with no
+     violation, complete_vs_claim among them; (b) the contract engine's
+     ladder and the kernel engine in this process on the rungs the big
+     grid's campaign jobs bucket to (its 64 channels, 2 bits, 64 us, fch1
+     and foff, its search's config): the kernel engine at full width,
+     each kernel at the bucket's own rows (its 77 DM trials, 616
+     resampled rows), the contract ladder at the rungs' sample lengths
+     with its builds' rows capped at 4; no finding, every kernel's launch
+     count grown; each engine's wall time and the peak memory are
+     printed; (c) with the JAX package's `complete` order
+     monkeypatched onto the port's JobQueue, complete_vs_claim reports a
+     PSM301 whose schedule replays to the same trace twice.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -4057,6 +4075,11 @@ def chaos_tools_phase(tmp: str, smi: str) -> dict:
             "31b the fleet: a preemption resumed, its latency attributed")
     require(sec["gang"]["done"] == 1 and sec["autoscale"]["ups"] >= 1,
             "31b the fleet: the gang job done, an autoscale up")
+    prof = sec["observability"].get("profile") or {}
+    require(bool(prof.get("drilled")) and prof.get("marker_cleared") is True
+            and prof.get("samples", 0) >= 1,
+            "31b the fleet: the profile drill ran, its marker cleared, a "
+            "profile_captures_total sample announced")
     # a preempted or reaped job resumes from the checkpoint its first attempt
     # saved: where that came after the job's one DM block, it launches nothing
     first = [j for j in sec["jobs"].values() if j["attempts"] == 1 and not j["preemptions"]]
@@ -4206,6 +4229,129 @@ def print_profile(prof, wall: float) -> None:
         f"kernels on the device ({100 * busy / 1e3 / wall:.1f}% busy)")
     for name, (ms, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]:
         say(f"profile: {ms:10.3f} ms {n:6d} launches  {name[:110]}")
+
+
+# --- the static-analysis gate on the card (phase 32) ----------------------
+
+AUDIT_BASELINE = "peasoup_tpu_torch/analysis/audit_baseline.json"
+AUDIT_TIMEOUT_S = 900
+
+
+def audit_phase(tmp: str, smi: str) -> dict:
+    """Phase 32 (a)-(c), the docstring's. Returns the kernel launches the
+    audit made, by kernel, and the parts' times."""
+    from peasoup_tpu_torch.analysis.contracts import (
+        ContractConfig, audit_programs_ladder, ladder_builds, ladder_rungs,
+    )
+    from peasoup_tpu_torch.analysis.kernels import audit_kernels
+    from peasoup_tpu_torch.ops import registry
+    from peasoup_tpu_torch.analysis.mc import replay
+    from peasoup_tpu_torch.analysis.mc.scenarios import (
+        jax_order_complete, run_mc, scenario_names, scenarios,
+    )
+    from peasoup_tpu_torch.campaign import queue as qmod
+
+    times, launches = {}, dict.fromkeys(SOURCES, 0)
+
+    # (a) the gate's CLI, every engine at its defaults
+    report_path = os.path.join(tmp, "audit.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "peasoup_tpu_torch.tools.audit", "--device", "cuda",
+         "--baseline", AUDIT_BASELINE, "--json", report_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=AUDIT_TIMEOUT_S,
+    )
+    times["a"] = time.perf_counter() - t0
+    say("32a " + " | ".join(proc.stdout.strip().splitlines()[-3:]))
+    require(proc.returncode == 0,
+            f"peasoup-audit --device cuda exits 0 (rc {proc.returncode}):\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(report_path) as fh:
+        rep = json.load(fh)
+    require(rep["device"] == "cuda" and rep["summary"]["new"] == 0, "the report is clean")
+    checks = rep["kernel_checks"]
+    require(sorted(checks) == sorted(SOURCES), "the report checks all nine kernels")
+    nrungs = len(rep["ladder"]["rungs"])
+    for name, c in checks.items():
+        require(c["card"] == "sm_90a" and c["launches"] >= 1 + nrungs
+                and c["matched"] == len(c["shapes"]) == 1 + nrungs,
+                f"{name} built for sm_90a, launched and matched at its registry "
+                f"geometry and {nrungs} rungs: {c}")
+        launches[name] += c["launches"]
+    cov = rep["ladder"]["coverage"]
+    require(len(rep["programs"]) == 40 and sorted(cov) == sorted(rep["programs"])
+            and all(len(r) >= 2 for r in cov.values()),
+            "every registered program audited at its representative shape and 2+ rungs")
+    mc = rep["mc"]
+    require([p["name"] for p in mc["per_scenario"]] == scenario_names()
+            and "complete_vs_claim" in scenario_names() and mc["violations"] == 0,
+            f"every model-checking scenario with no violation: {mc['per_scenario']}")
+    say(f"32a peasoup-audit --device cuda: {times['a']:.1f} s wall, "
+        f"{rep['summary']['files_scanned']} files, {len(rep['programs'])} programs at rungs "
+        f"{rep['ladder']['rungs']}, {mc['scenarios']} mc scenarios ({mc['schedules']} "
+        f"schedules, {mc['crash_points']} crash points); kernels "
+        + json.dumps({k: [c["launches"], c["equality"], c["max_abs_err"]]
+                      for k, c in checks.items()}) + f" ({smi})")
+
+    # (b) in this process at the big grid's campaign rungs: the kernel
+    # engine at the bucket's own rows, the contract ladder's rows capped
+    rungs = ladder_rungs(base_nsamps=NSAMPS, count=2)
+    bucket = (NCHANS, 2, TSAMP, FCH1, FOFF)
+    ov = config_overrides(GRID_CONFIG)
+    before = dict(kernels.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lrep = audit_programs_ladder(rungs=rungs, cfg=ContractConfig(device="cuda"),
+                                 overrides=ov, bucket=bucket)
+    times["b_contracts"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    krep = audit_kernels(device="cuda", rungs=rungs, bucket=bucket, overrides=ov)
+    times["b_kernels"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    grown = {k: kernels.launches[k] - before[k] for k in SOURCES}
+    for name in SOURCES:
+        launches[name] += grown[name]
+    found = [f.render() for f in lrep.findings + krep.findings]
+    require(not found, "no finding at the big grid's rungs:\n" + "\n".join(found))
+    rows = {k: sorted({s.get("rows", s.get("ndm")) for _, s in ladder_builds(
+        registry._KERNEL_BUILDS[k][1], rungs, ov, bucket, ladder_rows=0)}) for k in SOURCES}
+    require(all(v == rungs for v in lrep.coverage.values()),
+            f"every program at both full-width rungs: {lrep.coverage}")
+    require(all(grown[k] > 0 for k in SOURCES), f"every kernel launched: {grown}")
+    say(f"32b at rungs {rungs} (bucket {bucket}): contract ladder (rows capped at 4) "
+        f"{times['b_contracts']:.1f} s wall over {len(lrep.coverage)} programs, kernel "
+        f"engine at full width (rows {json.dumps(rows)}) {times['b_kernels']:.1f} s wall, peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); launches {json.dumps(grown)}; matched "
+        + json.dumps({k: [c["matched"], c["shapes"]] for k, c in krep.checks.items()})
+        + f" ({smi})")
+
+    # (c) the JAX package's complete order, seeded onto the port's queue
+    t0 = time.perf_counter()
+    port_complete = qmod.JobQueue.complete
+    qmod.JobQueue.complete = jax_order_complete
+    try:
+        mrep = run_mc(names=["complete_vs_claim"])
+    finally:
+        qmod.JobQueue.complete = port_complete
+    require(mrep.violations >= 1 and mrep.findings[0].rule == "PSM301",
+            "complete_vs_claim reports the JAX order's race as PSM301")
+    sched = mrep.findings[0].source_line.split("schedule=", 1)[1].strip()
+    scenario = {x.name: x for x in scenarios()}["complete_vs_claim"]
+    qmod.JobQueue.complete = jax_order_complete
+    try:
+        r1, r2 = replay(scenario, sched), replay(scenario, sched)
+    finally:
+        qmod.JobQueue.complete = port_complete
+    require(r1.violation is not None and r1.trace == r2.trace,
+            "the PSM301 schedule replays to the same trace twice")
+    times["c"] = time.perf_counter() - t0
+    say(f"32c complete_vs_claim with the JAX order: {mrep.findings[0].message} "
+        f"(schedule {sched}, {len(r1.trace)} trace ops, replayed twice alike)")
+    say("phase 32 parts (s): " + json.dumps({k: round(v, 3) for k, v in times.items()})
+        + f" ({smi})")
+    return dict(launches=launches, times=times, peak_bytes=peak)
 
 
 def main() -> int:
@@ -4444,6 +4590,8 @@ def main() -> int:
                  tmp, dict(paths, tut=os.path.join(tmp, "tut.fil")), smi))),
             ("31, the chaos soak and the user-facing tools on the card",
              lambda: runs.setdefault("chaos", chaos_tools_phase(tmp, smi))),
+            ("32, the static-analysis gate on the card",
+             lambda: runs.setdefault("audit", audit_phase(tmp, smi))),
         ):
             t0 = time.perf_counter()
             fn()
@@ -4462,6 +4610,8 @@ def main() -> int:
             "source": f"peasoup_tpu_torch/csrc/{name}.cu",
             "replaces": SOURCES[name],
             "launches": runs[c["path"]]["launches"][name],
+            # phase 32's: the audit's CLI (a) and its engines in process (b)
+            "audit_launches": runs["audit"]["launches"][name],
             "max_abs_err": c["max_abs_err"],
             "ms": c["ms"],
             "plain_ms": c["plain_ms"],

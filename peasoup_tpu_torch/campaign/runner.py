@@ -168,6 +168,7 @@ def save_campaign_config(root: str, cfg: CampaignConfig) -> CampaignConfig:
     path = os.path.join(root, CAMPAIGN_CONFIG)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     with open(tmp, "w") as f:
+        # audit: ignore[PSA008] -- the tmp file is this thread's own; os.link publishes it whole
         json.dump(cfg.to_doc(), f, indent=2)
         f.write("\n")
     try:

@@ -103,6 +103,7 @@ class Heartbeat:
     def start(self) -> "Heartbeat":
         if self._thread is not None:
             return self
+        # audit: ignore[PSA009] -- threading.Event is internally locked
         self._stop_evt.clear()
         self._beat()  # immediate first snapshot: liveness from t=0
         self._thread = threading.Thread(
@@ -216,8 +217,8 @@ class Heartbeat:
                     if self._rate and done < total
                     else (0.0 if done >= total else None)
                 )
-        # single writer: only the beat thread increments, and stop()
-        # joins it before the final beat
+        # audit: ignore[PSA009] -- single writer: only the beat thread
+        # increments, and stop() joins it before the final beat
         self._seq += 1
         sections = {}
         try:

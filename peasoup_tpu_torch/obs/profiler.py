@@ -58,6 +58,7 @@ def capture_device_profile(outdir: str, duration_s: float = DEFAULT_CAPTURE_S,
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             time.sleep(duration_s)
+        # audit: ignore[PSA006] -- an epoch stamp in the trace's file name, not a duration
         path = os.path.join(outdir, f"profile-{os.getpid()}-{int(time.time())}.json")
         prof.export_chrome_trace(path)
         outcome["captured"] = True

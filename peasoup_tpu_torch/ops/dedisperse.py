@@ -254,6 +254,7 @@ def dedisperse_host(
     seg = -(-max(block, 1_000_000_000 // max(1, out_nsamps)) // block) * block
     out = np.empty((delays.shape[0], out_nsamps), dtype=np.uint8)
     for s0 in range(0, delays.shape[0], seg):
+        # audit: ignore[PSA001] -- trials in host RAM: one copy a segment
         out[s0 : s0 + seg] = dedisperse(
             fil_tc, delays[s0 : s0 + seg], killmask, out_nsamps, scale=scale
         ).cpu().numpy()
@@ -306,15 +307,17 @@ def matmul_band(delays_block: np.ndarray, quant: int = MATMUL_BAND_QUANT) -> int
     return -(-spread // quant) * quant
 
 
-def banded_onehot(delays_block: np.ndarray, band: int) -> tuple[np.ndarray, np.ndarray]:
-    """(base (C,) i32, onehot (D, C, band) f32) for one trial block: the
-    shift-selection operand of the banded contraction."""
+def banded_onehot(delays_block: np.ndarray, band: int,
+                  device: torch.device) -> tuple[np.ndarray, torch.Tensor]:
+    """(base (C,) i32, onehot (D, C, band) f32 on ``device``) for one trial
+    block: the shift-selection operand of the banded contraction. The
+    one-hot is made on ``device`` from the block's (D, C) residual delays,
+    so the (D, C, band) operand is not sent from the host for every block."""
     d = np.asarray(delays_block, dtype=np.int64)
     base = d.min(axis=0)
-    resid = d - base[None, :]
-    onehot = (
-        resid[:, :, None] == np.arange(band, dtype=np.int64)[None, None, :]
-    ).astype(np.float32)
+    resid = torch.from_numpy(d - base[None, :]).to(device)
+    onehot = (resid[:, :, None] == torch.arange(band, dtype=torch.int64, device=device)
+              ).to(torch.float32)
     return base.astype(np.int32), onehot
 
 
@@ -400,10 +403,10 @@ def dedisperse_matmul(
         blk = delays[lo:hi]
         if hi - lo < block:  # repeat the last trial: one shape per band
             blk = np.concatenate([blk, np.repeat(blk[-1:], block - (hi - lo), axis=0)])
-        base, onehot = banded_onehot(blk, band)
+        base, onehot = banded_onehot(blk, band, fil_tc.device)
         xb = _rows_at(x_ct, base[:, None], out_nsamps + band - 1)[:, 0]
         xb = xb.to(torch.float32) * kill
-        res = banded_conv(xb, torch.from_numpy(onehot).to(fil_tc.device))[: hi - lo]
+        res = banded_conv(xb, onehot)[: hi - lo]
         outs.append(_quantize(res, scale) if quantize else _scaled(res, scale))
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
@@ -615,6 +618,7 @@ def dedisperse_subband(
             del s1
             res = _quantize(res, scale) if quantize else _scaled(res, scale)
             if to_host:
+                # audit: ignore[PSA001] -- trials in host RAM: one copy a batch
                 res = res.cpu().numpy()
             outs.extend(res[bi, : hi - lo] for bi, (lo, hi) in enumerate(batch))
         i = j

@@ -238,6 +238,7 @@ def ffa_search_block(
         d_blk = max(1, min(Xd.shape[0], hbm_budget // per_trial))
         for s0 in range(0, Xd.shape[0], d_blk):
             res = ffa_octave(torch.from_numpy(Xd[s0 : s0 + d_blk]).to(dev), m_pad, widths)
+            # audit: ignore[PSA001] -- the host reads each block's octave
             snr, wid = res.snr.cpu().numpy(), res.width.cpu().numpy()
             for d in range(snr.shape[0]):
                 _extract_octave(snr[d], wid[d], Xd.shape[1], tcur, p_start, p_end,

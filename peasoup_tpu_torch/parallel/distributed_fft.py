@@ -53,7 +53,9 @@ def _fft_local_steps(cols: list[torch.Tensor], n1: int, n2: int, devs) -> list:
     out = []
     for me, x in enumerate(cols):
         w = torch.fft.fft(x, dim=0)  # rows now k1
+        # audit: ignore[PSA003] -- parity code (no caller): twiddles in f64, then the data's dtype
         k1 = torch.arange(n1, device=x.device, dtype=torch.float64)[:, None]
+        # audit: ignore[PSA003] -- parity code (no caller): twiddles in f64, then the data's dtype
         n2g = (me * width + torch.arange(width, device=x.device, dtype=torch.float64))[None, :]
         tw = torch.exp((-2j * math.pi / (n1 * n2)) * (k1 * n2g))
         out.append(w * tw.to(w.dtype))
@@ -115,6 +117,7 @@ def rfft_sharded(z_cols: list[torch.Tensor], n: int, devs) -> list[torch.Tensor]
         first = z_nat[(p - me) % p][:1].to(dev)
         zmc = torch.conj(torch.cat([first, torch.flip(mirror, dims=[0])[: length - 1]]))
         z = z_nat[me]
+        # audit: ignore[PSA003] -- parity code (no caller): twiddles in f64, then the data's dtype
         k = (me * length + torch.arange(length, device=dev, dtype=torch.float64))
         wk = torch.exp((-2j * math.pi / n) * k).to(z.dtype)
         out.append(0.5 * (z + zmc) + wk * (-0.5j * (z - zmc)))

@@ -149,12 +149,35 @@ def initialize(
     log.info("process %d of %d joined at %s", process_id, num_processes, init)
 
 
+# (world size, rank) of a group torn down after a failed collective: the
+# process stays one of that many, and every later exchange fails
+_torn_down: tuple[int, int] | None = None
+
+
 def process_count() -> int:
+    if _torn_down is not None:
+        return _torn_down[0]
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
 def process_index() -> int:
+    if _torn_down is not None:
+        return _torn_down[1]
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _tear_down_group(context: str) -> None:
+    """Destroy the process group after a failed collective, before the
+    error propagates: left to the interpreter's exit, the group's
+    destructor can meet the dead peer's socket and abort the process."""
+    global _torn_down
+    if not dist.is_initialized():
+        return
+    _torn_down = (dist.get_world_size(), dist.get_rank())
+    try:
+        dist.destroy_process_group()
+    except Exception as exc:  # the collective's own error is the one to raise
+        log.warning("destroying the process group after %s failed: %s", context, exc)
 
 
 def process_device(device: str | torch.device, nprocs: int, rank: int) -> torch.device:
@@ -217,10 +240,17 @@ def _allgather_pickled(payload: bytes, context: str = "") -> list[bytes]:
     n = process_count()
     if n == 1:
         return [payload]
+    if _torn_down is not None:
+        raise TransientIOError(
+            _errno.ECONNRESET,
+            f"multihost collective failed ({context or 'allgather'}): the process "
+            "group was torn down after an earlier exchange failed",
+        )
     out: list = [None] * n
     try:
         dist.all_gather_object(out, payload)
     except Exception as exc:
+        _tear_down_group(context or "allgather")
         _classify_collective_error(exc, context or "allgather")
     return out
 

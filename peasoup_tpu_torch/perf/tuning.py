@@ -163,6 +163,7 @@ def cache_lookup(doc: dict, fingerprint: str, key: str) -> dict | None:
 
 def cache_store(doc: dict, fingerprint: str, key: str, plan_doc: dict) -> None:
     # stamped, so that `tune --list/--prune` can report and prune by age
+    # audit: ignore[PSA006] -- an epoch stamp for tune --list/--prune, not a duration
     plan_doc = dict(plan_doc, stored_unix=round(time.time(), 3))
     doc.setdefault("devices", {}).setdefault(fingerprint, {})[key] = plan_doc
 

@@ -140,6 +140,11 @@ class ShapeCtx:
     subband_matmul: bool = False
     dedisp_engine: str = ""
     fold_nsamps: int = 0  # the survey fold's power-of-two series length
+    stream_chunk: int = 0  # the stream's dedispersed samples a chunk
+    fdas_templates: int = 0  # the FDAS template bank: rows, width in bins
+    fdas_width: int = 0
+    fdas_segment: int = 0  # and its overlap-save segment
+    ladder_rows: int = 4  # rows an audit build takes at most (0: the bucket's own)
 
 
 def _filtered_config(cls, overrides: dict):

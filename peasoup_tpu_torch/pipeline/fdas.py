@@ -401,6 +401,7 @@ class FdasSearch:
                     # one copy to the host a field, the template batches
                     # joined along the template axis
                     idxs, snrs, ccounts = (
+                        # audit: ignore[PSA001] -- host distil: a copy a field
                         torch.cat([getattr(p, f) for p in parts], dim=2).cpu().numpy()
                         for f in ("idxs", "snrs", "ccounts")
                     )

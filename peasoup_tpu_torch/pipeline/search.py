@@ -759,6 +759,7 @@ class PeasoupSearch:
     def _sync(self) -> None:
         for dev in set(self.devices):
             if dev.type == "cuda":
+                # audit: ignore[PSA001] -- one sync a device at a stage's end, for the stage timers
                 torch.cuda.synchronize(dev)
 
     def resolve_knobs(self, fil: Filterbank, plan: SearchPlan) -> DedispKnobs:

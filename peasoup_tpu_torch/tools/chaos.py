@@ -506,6 +506,14 @@ def run_campaign_soak(
 DEFAULT_FLEET_WORKER_FAULTS = "fil.read:n=2"
 
 
+def _read_lines(path: str) -> list[str]:
+    try:
+        with open(path) as f:
+            return f.readlines()
+    except OSError:
+        return []
+
+
 def _fleet_roles(
     seed: int,
     n_workers: int,
@@ -893,7 +901,12 @@ def run_fleet_soak(
         # marker, clear it and announce the outcome in its metrics stream.
         # A marker that vanished unanswered is asked again of a live
         # stayer: a clock-skewed peer's registry reap takes a live
-        # worker's marker with its entry (campaign/registry.py:reap).
+        # worker's marker with its entry (campaign/registry.py:reap), so
+        # the drill asks only once the skewed peer has left.
+        skew_live = any(
+            "clock.skew" in p["role"].get("faults", "") and p["proc"].poll() is None
+            for p in procs.values()
+        )
         if (
             profile_drilled is not None
             and not profile_announced
@@ -914,7 +927,7 @@ def run_fleet_soak(
                     "asking again", profile_drilled["worker_id"],
                 )
                 profile_drilled = None
-        if profile_drilled is None and os.listdir(done_dir):
+        if profile_drilled is None and not skew_live and os.listdir(done_dir):
             for ent in soak_registry.live():
                 wid = ent.get("worker_id")
                 if not wid or wid in pending_victims:
@@ -1232,6 +1245,21 @@ def run_fleet_soak(
     # captured on a device backend, skipped on the CPU guard, either
     # way a profile_captures_total sample with an outcome label
     if profile_requests and profile_drilled is None:
+        # an answer that came after the soak asked another worker (on the
+        # card a capture's start and export take seconds) still proves
+        # the protocol: the requested worker observed, cleared, announced
+        late = [
+            wid for wid in profile_requests
+            if any('"profile_captures_total"' in line
+                   for line in _read_lines(soak_registry.metrics_path(wid)))
+        ]
+        if late:
+            profile_drilled = {"worker_id": late[-1], "seconds": 0.2}
+    if not profile_requests:
+        violations.append(
+            "profile drill never ran: no live stayer was asked for a capture"
+        )
+    if profile_requests and profile_drilled is None:
         violations.append(
             f"profile drill requested on {profile_requests} but the last "
             "request vanished unanswered with no live worker left to ask"
@@ -1246,6 +1274,8 @@ def run_fleet_soak(
                 for r in pcaps
             }
         )
+        wid = profile_drilled["worker_id"]
+        cleared = soak_registry.profile_requested(wid) is None
         obs_section["profile"] = {
             "drilled": {
                 k: v for k, v in profile_drilled.items() if k != "t"
@@ -1253,6 +1283,7 @@ def run_fleet_soak(
             "requests": profile_requests,
             "samples": len(pcaps),
             "outcomes": outcomes,
+            "marker_cleared": cleared,
         }
         if not pcaps:
             violations.append(
@@ -1260,8 +1291,7 @@ def run_fleet_soak(
                 f"{profile_drilled['worker_id']} but no "
                 "profile_captures_total metric was announced"
             )
-        wid = profile_drilled["worker_id"]
-        if soak_registry.profile_requested(wid) is not None:
+        if not cleared:
             violations.append(
                 f"profile drill: request marker for {wid} never "
                 "cleared (worker did not observe it)"

@@ -67,7 +67,12 @@ def test_importing_every_module_loads_no_jax():
                  "obs.alerts", "obs.health", "obs.portal", "tools.watch",
                  "cli.campaign", "utils", "utils.progress", "utils.trace",
                  "utils.debug", "tools.chaos", "tools.plotting", "tools.report",
-                 "tools.as_text", "tools.recall", "tools.divergence", "tools.tie_mc"):
+                 "tools.as_text", "tools.recall", "tools.divergence", "tools.tie_mc",
+                 "analysis", "analysis.findings", "analysis.astlint", "analysis.rules",
+                 "analysis.protocol", "analysis.contracts", "analysis.kernels",
+                 "analysis.runner", "analysis.mc", "analysis.mc.vfs",
+                 "analysis.mc.scheduler", "analysis.mc.explorer", "analysis.mc.invariants",
+                 "analysis.mc.crash", "analysis.mc.scenarios", "tools.audit"):
         assert f"peasoup_tpu_torch.{name}" in mods
     # the JAX package's utils/cache.py has no counterpart: it wires XLA's
     # persistent compilation cache, and the port compiles nothing per
@@ -202,6 +207,9 @@ def test_no_data_path_into_the_jax_package():
         "from peasoup_tpu_torch.sift import report\n"
         "from peasoup_tpu_torch.obs.schema import SchemaError\n"
         "from peasoup_tpu_torch.perf import microbench, ratchet, tuning\n"
+        "from peasoup_tpu_torch.analysis import findings, runner\n"
+        "findings.Baseline.load(runner.AUDIT_SCHEMA_PATH.replace('audit.schema.json', "
+        "'audit_baseline.json')); open(runner.AUDIT_SCHEMA_PATH).close()\n"
 
         "load_catalogue(); RankModel.from_file()\n"
         "tuning.validate_cache(tuning._empty_cache()); ratchet.load_baseline(ratchet.BASELINE_PATH)\n"
@@ -221,7 +229,8 @@ def test_no_data_path_into_the_jax_package():
     assert {p.name for p in opened} >= {"known_pulsars.json", "model.json",
                                         "model.schema.json", "report.schema.json",
                                         "tuning_cache.schema.json", "perf.schema.json",
-                                        "perf_baseline.json"}
+                                        "perf_baseline.json", "audit.schema.json",
+                                        "audit_baseline.json"}
     for p in opened:
         assert PORT.resolve() in p.parents, p
 

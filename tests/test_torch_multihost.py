@@ -314,3 +314,38 @@ def test_a_dead_peer_fails_the_exchange_fast(tmp_path):
     rank0, _ = _launch("dead_peer", tmp_path, {"timeout_s": 30.0})
     assert rank0["raised"] == "TransientIOError", rank0
     assert rank0["waited"] < 30.0
+
+
+def test_a_failed_exchange_destroys_its_group_first(monkeypatch):
+    # the group is destroyed before the error propagates (left to the
+    # interpreter's exit, its destructor could meet the dead peer's socket
+    # and abort the process), the process stays one of two, and a later
+    # exchange fails at once
+    import torch.distributed as dist
+
+    from peasoup_tpu_torch.parallel import multihost
+    from peasoup_tpu_torch.resilience.errors import TransientIOError
+
+    state = {"up": True, "destroyed": 0, "gathers": 0}
+
+    def gather(out, payload):
+        state["gathers"] += 1
+        raise RuntimeError("Connection closed by peer [127.0.0.1]:1234")
+
+    def destroy():
+        state["destroyed"] += 1
+        state["up"] = False
+
+    monkeypatch.setattr(multihost, "_torn_down", None)
+    monkeypatch.setattr(dist, "is_initialized", lambda: state["up"])
+    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+    monkeypatch.setattr(dist, "all_gather_object", gather)
+    monkeypatch.setattr(dist, "destroy_process_group", destroy)
+    with pytest.raises(TransientIOError, match="Connection closed"):
+        multihost._allgather_pickled(b"x", context="test")
+    assert state == {"up": False, "destroyed": 1, "gathers": 1}
+    assert (multihost.process_count(), multihost.process_index()) == (2, 0)
+    with pytest.raises(TransientIOError, match="torn down"):
+        multihost._allgather_pickled(b"x", context="test")
+    assert state["gathers"] == 1

@@ -18,6 +18,7 @@ same); and "python", the JAX package with its native library turned off
 against the port under ``PEASOUP_NO_NATIVE=1``, both sorting stably.
 """
 
+import hashlib
 import os
 from contextlib import contextmanager
 import xml.etree.ElementTree as ET
@@ -54,6 +55,58 @@ def host_path(host):
         yield
 
 
+# each port result's record of its FFTs (fft_digests), by id(result)
+FFT_LOGS = {}
+
+
+def _rows(t) -> frozenset:
+    """Digests of a tensor's rows (a run of other dispatch options holds the
+    same rows in another number and order)."""
+    a = t.detach().contiguous().numpy()
+    return frozenset(hashlib.sha1(r.tobytes()).hexdigest()[:12] for r in a.reshape(-1, a.shape[-1]))
+
+
+@contextmanager
+def fft_digests():
+    """Record each torch.fft call of a run as (name, shape, its input
+    rows' digests, its output rows' digests), after the torch threads and
+    the load average. A search's stages between its FFTs (pad, running
+    median, specchain, resample, interbin, sums, peaks) are elementwise or
+    fixed in order, so where two runs' candidates differ, the first call
+    whose rows differ names the stage that rounded otherwise (ROADMAP §C
+    open item 1)."""
+    log = [("threads", torch.get_num_threads(), "load", os.getloadavg())]
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("rfft", "irfft", "fft"):
+            def recorded(x, *a, _real=getattr(torch.fft, name), _name=name, **k):
+                y = _real(x, *a, **k)
+                log.append((_name, tuple(x.shape), _rows(x), _rows(y)))
+                return y
+
+            mp.setattr(torch.fft, name, recorded)
+        yield log
+
+
+def _first_divergence(want, got) -> str:
+    """Where two runs' FFT records first part, the k-th call of each name
+    against the k-th: the stage before a call whose input rows differ, or
+    the call itself where only its output rows do."""
+    for name in ("rfft", "irfft", "fft"):
+        for a, b in zip(*([r for r in log[1:] if r[0] == name] for log in (want, got))):
+            if a[2] != b[2]:
+                return f"the input rows of {name} {a[1]} / {b[1]} differ (the stage before it)"
+            if a[3] != b[3]:
+                return f"{name} {a[1]} / {b[1]} rounds otherwise on the same input rows"
+    return "every FFT's rows alike: the stages after the last FFT"
+
+
+def _port_run(cfg, path):
+    with fft_digests() as log:
+        res = PeasoupSearch(cfg, device="cpu").run(read_filterbank(path))
+    FFT_LOGS[id(res)] = log
+    return res
+
+
 def _runs(path, jax_kw, port_kw):
     """(JAX result, port result) on ``path`` for each host path, each
     searched once, when a test first asks for it."""
@@ -64,9 +117,7 @@ def _runs(path, jax_kw, port_kw):
             with host_path(host):
                 memo[host] = (
                     JaxSearch(JaxConfig(**jax_kw)).run(jax_read_filterbank(path)),
-                    PeasoupSearch(SearchConfig(**port_kw), device="cpu").run(
-                        read_filterbank(path)
-                    ),
+                    _port_run(SearchConfig(**port_kw), path),
                 )
         return memo[host]
 
@@ -171,12 +222,12 @@ def test_recovers_the_pulsar(synthetic, port_result):
 )
 def test_dispatch_options_give_the_same_candidates(synthetic, port_result, overrides):
     path, _, _ = synthetic
-    res = PeasoupSearch(SearchConfig(**KW, **overrides), device="cpu").run(
-        read_filterbank(path)
-    )
+    res = _port_run(SearchConfig(**KW, **overrides), path)
     assert [(_identity(c), c.snr) for c in res.candidates] == [
         (_identity(c), c.snr) for c in port_result.candidates
-    ]
+    ], _first_divergence(FFT_LOGS[id(port_result)], FFT_LOGS[id(res)]) + (
+        f"; the fixture's run {FFT_LOGS[id(port_result)][0]}, this run's "
+        f"{FFT_LOGS[id(res)][0]}")
 
 
 def test_small_blocks_give_the_same_candidates(synthetic, one_thread_result):

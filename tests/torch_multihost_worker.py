@@ -103,6 +103,9 @@ def main() -> int:
                        *CLI_FLAGS])
         got.update(rank=rank, nproc=nproc, cli_rc=rc)
     elif mode == "dead_peer":
+        # both ranks hold the full mesh before the peer dies: under load
+        # rank 1's init can return while rank 0 still connects to it
+        torch.distributed.barrier()
         if rank == 1:
             os._exit(0)  # a peer that dies after the rendezvous
         time.sleep(1.0)
