@@ -275,6 +275,22 @@ Phases, each fatal on failure:
      printed; (c) with the JAX package's `complete` order
      monkeypatched onto the port's JobQueue, complete_vs_claim reports a
      PSM301 whose schedule replays to the same trace twice.
+ 33. The wave fetch (pipeline/search.py:PeasoupSearch._fetch_wave): (a)
+     the first packed fetch of the big grid's round, compacted on the card
+     (ops/peaks.py:pack_chunk_results), against the plain host unpack of
+     the same full slot arrays (host_pack), bitwise, at the round's
+     speculative size and at the size of its whole stream; (b) the big
+     grid's CLI run under torch.cuda.set_sync_debug_mode("warn"): from a
+     round's first dispatch to its end the only host waits are the
+     fetches, one per round and shard plus one per re-dispatch or missed
+     speculation; the waits and the bytes fetched are printed; (c) that
+     run's candidates are phase 3's bytes, the three tutorial routes run
+     again give phase 5's bytes, and the tutorial grid's DM trials 27-33 on
+     the card agree with the CPU's (S/N >= 1.1 x the threshold, identity
+     exact, S/N within 1e-3); (d) the big grid's search_device,
+     search_host and total of a plain run and the device's busy share
+     (torch.profiler device time over that total) with the card's name
+     and power limit.
 The second-last line is a JSON object with one entry per kernel, the
 last `{"ok": true, "device": {...}}`.
 """
@@ -292,6 +308,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import xml.etree.ElementTree as ET
 
 import numpy as np
@@ -4215,12 +4232,14 @@ def chaos_tools_phase(tmp: str, smi: str) -> dict:
 
 def print_profile(prof, wall: float) -> None:
     """Device time by kernel (sums over the traced run) and the device's
-    busy share of the run's wall time."""
+    busy share of the run's wall time. The ranges of the pipelines'
+    record_function scopes, which the trace also holds on the device's
+    timeline, are not kernels and are left out."""
     from torch.autograd import DeviceType
 
     by_kernel: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             entry = by_kernel.setdefault(e.name, [0.0, 0])
             entry[0] += e.device_time_total / 1e3
             entry[1] += 1
@@ -4280,7 +4299,7 @@ def audit_phase(tmp: str, smi: str) -> dict:
                 f"geometry and {nrungs} rungs: {c}")
         launches[name] += c["launches"]
     cov = rep["ladder"]["coverage"]
-    require(len(rep["programs"]) == 40 and sorted(cov) == sorted(rep["programs"])
+    require(len(rep["programs"]) == 42 and sorted(cov) == sorted(rep["programs"])
             and all(len(r) >= 2 for r in cov.values()),
             "every registered program audited at its representative shape and 2+ rungs")
     mc = rep["mc"]
@@ -4352,6 +4371,205 @@ def audit_phase(tmp: str, smi: str) -> dict:
     say("phase 32 parts (s): " + json.dumps({k: round(v, 3) for k, v in times.items()})
         + f" ({smi})")
     return dict(launches=launches, times=times, peak_bytes=peak)
+
+
+def host_pack(idxs: np.ndarray, snrs: np.ndarray, counts: np.ndarray,
+              ccounts: np.ndarray, total_pad: int) -> np.ndarray:
+    """ops/peaks.py:pack_chunk_results' words made on the host from the
+    full slot arrays: [raw counts | cluster counts | the first
+    min(ccount, mp) (idx, snr) slots of each cell in C order, zero-padded
+    to ``total_pad``, idxs then the snrs' bits], int32."""
+    mp = idxs.shape[-1]
+    keep = np.arange(mp) < np.minimum(ccounts.reshape(-1), mp)[:, None]
+    stream = np.zeros((2, total_pad), np.int32)
+    vi = idxs.reshape(-1, mp)[keep].astype(np.int32)[:total_pad]
+    vs = snrs.reshape(-1, mp)[keep].astype(np.float32).view(np.int32)[:total_pad]
+    stream[0, : len(vi)], stream[1, : len(vs)] = vi, vs
+    return np.concatenate([counts.reshape(-1).astype(np.int32),
+                           ccounts.reshape(-1).astype(np.int32), stream.reshape(-1)])
+
+
+class _WaveWatch:
+    """The big grid's search under ``set_sync_debug_mode("warn")``, its
+    host waits told apart: each synchronising operation counted as a fetch's
+    (inside ``_fetch``), a window's (from a round's first dispatch to its
+    end, outside a fetch) or another's (dedispersion, a block's
+    preprocessing, the tables, the writers). Also keeps the first packed
+    fetch's slot arrays and words for (a), and counts the packs of rounds
+    and of re-dispatched batches (made inside an unpack) and the
+    compactions of missed speculations, each fetched once."""
+
+    def __init__(self, search_mod, sharded_mod):
+        self.mods = search_mod, sharded_mod
+        self.n = dict(rounds=0, fetch=0, window=0, other=0, fetches=0, wave_packs=0,
+                      redispatch_packs=0, compactions=0, fetch_bytes=0)
+        self.window = self.in_fetch = False
+        self.unpacking = 0
+        self.first_pack = None
+        self.real = {}
+
+    def _hook(self, message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message).lower():
+            key = "fetch" if self.in_fetch else "window" if self.window else "other"
+            self.n[key] += 1
+
+    def __enter__(self):
+        sm, sh = self.mods
+        cls = sm.PeasoupSearch
+        self.real = dict(round=cls._search_round, unpack=cls._unpack,
+                         fetch=sm._fetch, pack=sm.pack_chunk_results,
+                         compact=sm.compact_peaks_device, make=sh.make_sharded_search_fn)
+        real, w = self.real, self
+
+        def round_(obj, *a, **k):
+            w.window = False
+            try:
+                searched = real["round"](obj, *a, **k)
+            finally:
+                w.window = False
+            w.n["rounds"] += bool(searched)
+            return searched
+
+        def unpack(obj, *a, **k):
+            w.unpacking += 1
+            try:
+                return real["unpack"](obj, *a, **k)
+            finally:
+                w.unpacking -= 1
+
+        def fetch(t):
+            w.in_fetch = True
+            try:
+                words = real["fetch"](t)
+            finally:
+                w.in_fetch = False
+                w.n["fetches"] += 1
+            w.n["fetch_bytes"] += words.nbytes
+            return words
+
+        def pack(*a, **k):
+            out = real["pack"](*a, **k)
+            w.n["redispatch_packs" if w.unpacking else "wave_packs"] += 1
+            if w.first_pack is None:
+                w.first_pack = ([t.clone() for t in a], k["total_pad"], out.clone())
+            return out
+
+        def compact(*a, **k):
+            w.n["compactions"] += 1
+            return real["compact"](*a, **k)
+
+        def make(*a, **k):
+            fn = real["make"](*a, **k)
+
+            def dispatch(*b, **kw):
+                w.window = True
+                return fn(*b, **kw)
+            return dispatch
+
+        cls._search_round, cls._unpack = round_, unpack
+        sm._fetch, sm.pack_chunk_results, sm.compact_peaks_device = fetch, pack, compact
+        sh.make_sharded_search_fn = make
+        torch.cuda.synchronize()
+        self._warn = warnings.catch_warnings()
+        self._warn.__enter__()
+        warnings.simplefilter("always")
+        warnings.showwarning = self._hook
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._warn.__exit__(*exc)
+        sm, sh = self.mods
+        cls = sm.PeasoupSearch
+        cls._search_round, cls._unpack = self.real["round"], self.real["unpack"]
+        sm._fetch, sm.pack_chunk_results = self.real["fetch"], self.real["pack"]
+        sm.compact_peaks_device = self.real["compact"]
+        sh.make_sharded_search_fn = self.real["make"]
+        return False
+
+
+def wave_phase(tmp: str, dev: torch.device, paths: dict, runs: dict, smi: str) -> dict:
+    """Phase 33 (the module docstring): the wave fetch on the card."""
+    from peasoup_tpu_torch.cli.peasoup import main as ps_main
+    from peasoup_tpu_torch.parallel import sharded_search as sharded_mod
+    from peasoup_tpu_torch.perf.measure import device_busy_seconds
+    from peasoup_tpu_torch.pipeline import search as search_mod
+    from peasoup_tpu_torch.tools.scope_trace import absorb_start_loss
+
+    out = {}
+    # (b) the big grid's CLI run under the sync debug mode
+    outdir = os.path.join(tmp, "wave_big_grid")
+    t0 = time.perf_counter()
+    with _WaveWatch(search_mod, sharded_mod) as watch:
+        run = cli_phase(ps_main, ["-i", paths["big"], "-o", outdir, *GRID_FLAGS], outdir,
+                        ("candidates.peasoup", "overview.xml"), PEASOUP_KERNELS)
+    n = watch.n
+    say(f"33b big grid under set_sync_debug_mode('warn') ({time.perf_counter() - t0:.1f} s): "
+        f"{n['rounds']} round(s) of 1 shard, host waits {n['fetch']} in fetches and "
+        f"{n['window']} elsewhere between a round's first dispatch and its end "
+        f"({n['other']} outside the rounds); fetches {n['fetches']} = {n['wave_packs']} "
+        f"rounds' packs + {n['redispatch_packs']} packs of re-dispatched batches + "
+        f"{n['compactions']} compactions of missed speculations; {n['fetch_bytes']} bytes "
+        f"fetched; kernel launches {json.dumps(run['launches'], sort_keys=True)} ({smi})")
+    require(n["rounds"] >= 1 and n["wave_packs"] == n["rounds"],
+            "one packed fetch per round and shard")
+    require(n["fetches"] == n["wave_packs"] + n["redispatch_packs"] + n["compactions"],
+            "each pack and each compaction fetched once")
+    require(n["window"] == 0 and n["fetch"] == n["fetches"],
+            "between a round's first dispatch and its end the host waits only in its "
+            "fetches, one each")
+    out.update(watch.n, launches=run["launches"])
+
+    # (a) the first packed fetch against the host unpack of its slot arrays
+    slots, spec, words = watch.first_pack
+    full = [t.cpu().numpy() for t in slots]
+    total = int(np.minimum(full[3], full[0].shape[-1]).sum())
+    whole = search_mod._pow2(total)
+    require(np.array_equal(words.cpu().numpy(), host_pack(*full, spec)),
+            "the card's pack at the speculative size is the host unpack's, bitwise")
+    require(np.array_equal(
+        search_mod.pack_chunk_results(*slots, total_pad=whole).cpu().numpy(),
+        host_pack(*full, whole)), "the card's pack of the whole stream is the host unpack's")
+    say(f"33a the round's compaction on the card: slots {tuple(slots[0].shape)}, "
+        f"{total} entries of {slots[0].numel()} slots, bitwise the host unpack at "
+        f"total_pad {spec} and {whole}")
+    del slots, full, words, watch
+
+    # (c) the same candidates as phase 3's run, the tutorial routes as phase
+    # 5's, and the tutorial grid's DM trials 27-33 on the card as on the CPU
+    require(compare_periodicity(dict(outdir=outdir, root=run["root"]),
+                                os.path.join(tmp, "big_grid"), "33c big grid"),
+            "the big grid's candidates are phase 3's bytes")
+    tut = tutorial_phase(os.path.join(tmp, "tut.fil"), os.path.join(tmp, "wave_tut"))
+    for label, again in tut.items():
+        require(again["cands_file"] == runs[label]["cands_file"],
+                f"{label}: phase 5's candidate bytes")
+    cfg = dataclasses.replace(TUT_CONFIG, dm_start=27.0, dm_end=33.0)
+    fil = read_filterbank(os.path.join(tmp, "tut.fil"))
+    gpu, cpu = (PeasoupSearch(cfg, device=d).run(fil).candidates for d in (dev, "cpu"))
+    strong = [(c, g) for c, g in zip(cpu, gpu) if c.snr >= 1.1 * cfg.min_snr]
+    require(len(strong) > 0 and sum(g.snr >= 1.1 * cfg.min_snr for g in gpu) == len(strong),
+            "the tutorial slice's strong candidates, as many on the card as on the CPU")
+    for c, g in strong:
+        require((c.dm_idx, c.acc, c.nh, c.freq) == (g.dm_idx, g.acc, g.nh, g.freq)
+                and abs(c.snr - g.snr) <= 1e-3 * c.snr, f"cpu {c} against cuda {g}")
+    say(f"33c big grid and tutorial routes: the earlier phases' bytes; tutorial DM "
+        f"27-33: {len(strong)} strong candidates agree between the card and the CPU")
+
+    # (d) a plain run's timers and the device's busy share: the kernels'
+    # device time of a library run of the grid under the profiler (after
+    # warm-up kernels that take the records a late session drops, C.4)
+    plain = cli_phase(ps_main, ["-i", paths["big"], "-o", outdir, *GRID_FLAGS], outdir,
+                      ("candidates.peasoup", "overview.xml"), PEASOUP_KERNELS)["timers"]
+    big = read_filterbank(paths["big"])
+    busy = device_busy_seconds(
+        lambda: (absorb_start_loss(), PeasoupSearch(GRID_CONFIG, device=dev).run(big)), dev)
+    out.update(timers=plain, device_busy_s=busy, busy_share=busy / plain["total"])
+    say(f"33d big grid: search_device {plain['search_device']!r} s, search_host "
+        f"{plain['search_host']!r} s, total {plain['total']!r} s; device busy {busy:.6f} s "
+        f"(torch.profiler), {100 * busy / plain['total']:.1f}% of that total ({smi})")
+    return out
 
 
 def main() -> int:
@@ -4592,6 +4810,8 @@ def main() -> int:
              lambda: runs.setdefault("chaos", chaos_tools_phase(tmp, smi))),
             ("32, the static-analysis gate on the card",
              lambda: runs.setdefault("audit", audit_phase(tmp, smi))),
+            ("33, the wave fetch on the card",
+             lambda: runs.setdefault("wave", wave_phase(tmp, dev, paths, runs, smi))),
         ):
             t0 = time.perf_counter()
             fn()

@@ -17,6 +17,9 @@ find_peaks_device + cluster_peaks_device) for CPU tensors.
 apart (the search's ``PEASOUP_MEGA_HARM=0`` route): the peaks kernel
 (csrc/peaks.cu: a crossing mask over the whole card, then harmpeaks' walk)
 for CUDA tensors, :func:`find_cluster_peaks_multi_plain` for CPU tensors.
+:func:`compact_peaks_device` and :func:`pack_chunk_results` gather the
+valid cluster slots of many cells into one ragged stream on the device, so
+the search reads a round's results back in one transfer.
 """
 
 from __future__ import annotations
@@ -121,6 +124,55 @@ def cluster_peaks_device(
         lastidx = torch.where(take, idx, lastidx)
         open_ = (open_ & valid) | start
     return cidx[:, :k], csnr[:, :k], cursor
+
+
+def compact_peaks_device(
+    idxs: torch.Tensor,  # (..., mp) cluster slots
+    snrs: torch.Tensor,  # (..., mp) f32
+    ccounts: torch.Tensor,  # (...) valid slots per cell (may exceed mp)
+    *,
+    total_pad: int,
+) -> torch.Tensor:
+    """The valid (idx, snr) slots of every cell in one ragged stream, for
+    one device-to-host transfer: a flat (2*total_pad,) int32, the first
+    total_pad words the idxs and the rest the snrs' bits, each cell's first
+    min(ccount, mp) slots in order, cells in C order, zeros past the total
+    (the JAX package's ops/peaks.py:compact_peaks_device, word for word).
+    The gather map is made on the device from the counts, so nothing is
+    read back to size it."""
+    mp = idxs.shape[-1]
+    dev = idxs.device
+    cc = torch.clamp(ccounts.reshape(-1).to(torch.int64), max=mp)
+    if cc.numel() == 0:
+        return torch.zeros(2 * total_pad, dtype=torch.int32, device=dev)
+    ends = torch.cumsum(cc, 0)
+    pos = torch.arange(total_pad, device=dev)
+    cell = torch.searchsorted(ends, pos, right=True).clamp_(max=cc.numel() - 1)
+    within = (pos - (ends - cc)[cell]).clamp_(0, mp - 1)
+    stacked = torch.stack([
+        idxs.reshape(-1).to(torch.int32),
+        snrs.reshape(-1).to(torch.float32).view(torch.int32),
+    ])
+    out = torch.where(pos < ends[-1], stacked[:, cell * mp + within], 0)
+    return out.reshape(-1)
+
+
+def pack_chunk_results(
+    idxs: torch.Tensor,
+    snrs: torch.Tensor,
+    counts: torch.Tensor,
+    ccounts: torch.Tensor,
+    *,
+    total_pad: int,
+) -> torch.Tensor:
+    """One transfer's payload, int32: [raw counts | cluster counts | the
+    ragged stream of :func:`compact_peaks_device` at ``total_pad``] (the JAX
+    package's ops/peaks.py:pack_chunk_results)."""
+    return torch.cat([
+        counts.reshape(-1).to(torch.int32),
+        ccounts.reshape(-1).to(torch.int32),
+        compact_peaks_device(idxs, snrs, ccounts, total_pad=total_pad),
+    ])
 
 
 def _clamped_windows(windows, nbins: int, nlev: int) -> np.ndarray:

@@ -84,13 +84,9 @@ JAX_COUNTERPARTS = {
     "ops.fold_optimise.optimise_device": "ops.fold_optimise.optimise_device",
     "ops.harmonics.harmonic_sums": "ops.harmonics.harmonic_sums",
     "ops.peaks.cluster_peaks_device": "ops.peaks.cluster_peaks_device",
-    "ops.peaks.compact_peaks_device": (
-        "the peaks and harmpeaks kernels compact the clusters in their walk "
-        "(kernels.peaks, kernels.harmpeaks)"),
+    "ops.peaks.compact_peaks_device": "ops.peaks.compact_peaks_device",
     "ops.peaks.find_peaks_device": "ops.peaks.find_peaks_device",
-    "ops.peaks.pack_chunk_results": (
-        "the port unpacks each DM trial's cluster slots on the host "
-        "(pipeline/search.py:PeasoupSearch._collect); nothing packs them on the card"),
+    "ops.peaks.pack_chunk_results": "ops.peaks.pack_chunk_results",
     "ops.rednoise.running_median": "ops.rednoise.running_median",
     "ops.rednoise.whiten_fseries": "ops.rednoise.whiten_fseries",
     "ops.resample.resample_accel": "kernels.resample",
@@ -560,6 +556,41 @@ def _cluster_peaks_device(dev, rows=4, nbins=8193):
     return cluster_peaks_device, fn(*args, **kw), dict(nbins=nbins)
 
 
+def _peak_slots(dev, seed: int, dm_block=4, nlev=5, accel_pad=8, max_peaks=16):
+    """(idxs, snrs, counts, cluster counts) of (dm_block, nlev, accel_pad)
+    cells of ``max_peaks`` slots, as a round's row batches leave them: some
+    cells empty, some past their slots."""
+    g = _gen(seed)
+    cells = (dm_block, nlev, accel_pad)
+    idxs = torch.randint(0, 1 << 20, (*cells, max_peaks), generator=g, dtype=torch.int32)
+    cc = torch.randint(0, max_peaks + 3, cells, generator=g, dtype=torch.int32)
+    return (idxs.to(dev), _rand(g, dev, *cells, max_peaks),
+            (cc + torch.randint(0, 8, cells, generator=g, dtype=torch.int32)).to(dev), cc.to(dev))
+
+
+def _compact_peaks_device(dev, total_pad=4096, **sizes):
+    from .peaks import compact_peaks_device
+
+    idxs, snrs, _, cc = _peak_slots(dev, 46, **sizes)
+    return compact_peaks_device, (idxs, snrs, cc), dict(total_pad=total_pad)
+
+
+def _pack_chunk_results(dev, total_pad=4096, **sizes):
+    from .peaks import pack_chunk_results
+
+    return pack_chunk_results, _peak_slots(dev, 47, **sizes), dict(total_pad=total_pad)
+
+
+def _h_peak_slots(ctx):
+    """The JAX package's ops/peaks.py:_param_compact_peaks: the cells of a
+    DM block, (dm_block, nharms+1, accel_pad), its slots, a 4096-entry
+    stream."""
+    if ctx.fft_size <= 0 or ctx.accel_pad <= 0:
+        return None
+    return dict(dm_block=_rows(ctx), nlev=ctx.nharms + 1, accel_pad=ctx.accel_pad,
+                max_peaks=ctx.max_peaks)
+
+
 def _h_bins(ctx):
     return None if ctx.fft_size <= 0 else dict(rows=_rows(ctx), nbins=_nbins(ctx))
 
@@ -704,6 +735,8 @@ _OP_BUILDS = {
     "ops.harmonics.harmonic_sums": (_harmonic_sums, lambda c: None if c.fft_size <= 0 else dict(
         rows=_rows(c), nbins=_nbins(c), nharms=c.nharms)),
     "ops.peaks.cluster_peaks_device": (_cluster_peaks_device, _h_bins),
+    "ops.peaks.compact_peaks_device": (_compact_peaks_device, _h_peak_slots),
+    "ops.peaks.pack_chunk_results": (_pack_chunk_results, _h_peak_slots),
     "ops.peaks.find_peaks_device": (_find_peaks_device, _h_bins),
     "ops.rednoise.running_median": (_running_median, lambda c: _h_whiten(c, "nbins")),
     "ops.rednoise.whiten_fseries": (_whiten_fseries, lambda c: _h_whiten(c, "n")),

@@ -92,11 +92,15 @@ def resample_rows_plain(
 
 
 def resample_rows(
-    x: torch.Tensor, row_dm: torch.Tensor, afs: torch.Tensor
+    x: torch.Tensor, row_dm: torch.Tensor, afs: torch.Tensor,
+    bounds: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """:func:`resample_rows_plain`'s function: the resample kernel for
     CUDA tensors (bitwise equal to the plain version), the plain version
-    for CPU tensors."""
+    for CPU tensors. ``bounds`` is row_dm's (min, max) where the caller
+    knows them on the host: the kernel gathers with row_dm, so its bounds
+    are checked before the launch, and read from the card only where none
+    are given."""
     if on_cpu(x, row_dm, afs):
         return resample_rows_plain(x, row_dm, afs)
     check(x, "x", torch.float32, 2)
@@ -109,7 +113,9 @@ def resample_rows(
         raise ValueError(f"N = {n}: the f32 index arithmetic needs N < 2^24")
     rows = row_dm.shape[0]
     if rows:
-        lo, hi = torch.stack(torch.aminmax(row_dm)).tolist()  # one host sync
+        if bounds is None:
+            bounds = torch.stack(torch.aminmax(row_dm)).tolist()  # one host sync
+        lo, hi = bounds
         if lo < 0 or hi >= d:
             raise IndexError(f"row_dm must lie in [0, {d})")
     out = torch.empty((rows, n), dtype=torch.float32, device=x.device)

@@ -6,10 +6,11 @@ The reference runs one share-nothing worker per GPU over a dealt DM list
 axis holds its own DM trials' preprocessed series on its own device, and
 a row batch of the search is split by shard: every shard's rows run the
 port's batched chain (pipeline/accel_search.py:search_rows, its kernels
-launched on that shard's device), all shards are dispatched before any
-result is read back, and the cluster peaks come back to the host in
-shard order, which is row order. There is no communication between
-shards in the search itself.
+launched on that shard's device), and each shard's cluster peaks stay on
+its device: the search (pipeline/search.py:PeasoupSearch._fetch_wave)
+packs a round's batches of each shard and reads them back in one
+transfer, every shard queued before the first waits. There is no
+communication between shards in the search itself.
 """
 
 from __future__ import annotations
@@ -32,32 +33,33 @@ def make_sharded_search_fn(
     mega_harm: bool = True,
 ):
     """A function ``(jobs, windows, *, nharms, max_peaks) ->
-    AccelSearchPeaks`` over the shards of ``axis``. ``jobs`` holds one
-    entry per shard: None for a shard with no rows in this batch, else the
-    arguments of :func:`search_rows` before ``windows``, (xd, row_dm,
-    afs, mean, std), on the shard's device. The result is numpy, the rows
-    of every shard concatenated in shard order. ``fused_dft`` and
-    ``mega_harm`` are the chain's routes
-    (pipeline/search.py:choose_routes)."""
+    list[AccelSearchPeaks | None]`` over the shards of ``axis``. ``jobs``
+    holds one entry per shard: None for a shard with no rows in this batch,
+    else (xd, row_dm, afs, mean, std, row_bounds): the arguments of
+    :func:`search_rows` before ``windows``, on the shard's device, and its
+    ``row_bounds`` (row_dm's bounds known on the host, or None). The result
+    holds each shard's peaks on its device (None where its job is None),
+    nothing read back. ``fused_dft`` and ``mega_harm`` are the chain's
+    routes (pipeline/search.py:choose_routes)."""
     devices = mesh.axis_devices(axis)
 
-    def sharded_search(jobs, windows, *, nharms: int, max_peaks: int) -> AccelSearchPeaks:
+    def sharded_search(jobs, windows, *, nharms: int,
+                       max_peaks: int) -> list[AccelSearchPeaks | None]:
         if len(jobs) != len(devices):
             raise ValueError(f"{len(jobs)} jobs for {len(devices)} shards")
         out = []
         for dev, job in zip(devices, jobs):
             if job is None:
+                out.append(None)
                 continue
+            *args, row_bounds = job
             with device_context(dev):
                 out.append(search_rows(
-                    *job, windows, threshold=threshold, nharms=nharms,
+                    *args, windows, threshold=threshold, nharms=nharms,
                     max_peaks=max_peaks, fused_dft=fused_dft, mega_harm=mega_harm,
+                    row_bounds=row_bounds,
                 ))
-        # every shard is queued before the first copy back waits
-        return AccelSearchPeaks(*(
-            np.concatenate([getattr(p, f).cpu().numpy() for p in out])
-            for f in AccelSearchPeaks._fields
-        ))
+        return out
 
     return sharded_search
 

@@ -134,7 +134,9 @@ def summarize(samples: list[float]) -> dict:
 
 def device_busy_seconds(run, device) -> float:
     """Seconds of CUDA kernels that one ``run()`` put on the device, from a
-    ``torch.profiler`` trace of it. Raises RuntimeError where the trace
+    ``torch.profiler`` trace of it (the ranges of ``record_function``
+    scopes, which the trace also holds on the device's timeline, are not
+    device work and are left out). Raises RuntimeError where the trace
     holds no device time (the profiler could not trace the card), and
     ValueError for a device that is not a CUDA device."""
     from torch.autograd import DeviceType
@@ -148,7 +150,8 @@ def device_busy_seconds(run, device) -> float:
         run()
         torch.cuda.synchronize(device)
     busy_us = sum(
-        e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA
+        e.device_time_total for e in prof.events()
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
     )
     if busy_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the run")

@@ -145,6 +145,7 @@ class ShapeCtx:
     fdas_width: int = 0
     fdas_segment: int = 0  # and its overlap-save segment
     ladder_rows: int = 4  # rows an audit build takes at most (0: the bucket's own)
+    max_peaks: int = 128  # cluster slots a (trial, level) of the search dispatches
 
 
 def _filtered_config(cls, overrides: dict):
@@ -209,6 +210,7 @@ def shape_ctx_for_bucket(bucket, pipeline: str, overrides: dict) -> ShapeCtx:
             pos25=int(cfg.boundary_25_freq / bin_width),
             subbands=cfg.subbands, subband_smear=cfg.subband_smear,
             subband_matmul=cfg.subband_matmul, dedisp_engine=cfg.dedisp_engine,
+            max_peaks=cfg.max_peaks,
         )
     fold_size = int(fold_geometry(plan.out_nsamps, float(tsamp))[0])
     return ShapeCtx(

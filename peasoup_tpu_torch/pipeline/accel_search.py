@@ -115,19 +115,21 @@ def search_rows(
     max_peaks: int,
     fused_dft: bool,
     mega_harm: bool,
+    row_bounds: tuple[int, int] | None = None,
 ) -> AccelSearchPeaks:
     """Resample, spectrum, harmonic sums and cluster peaks for R (DM,
     accel) rows of one DM block. ``fused_dft`` takes the dftspec kernel
     for the spectrum, else cuFFT + the interbin kernel; ``mega_harm`` the
     harmpeaks kernel for sums and peaks, else torch sums + the peaks
-    kernel. The stages run under the JAX package's named scopes
+    kernel. ``row_bounds``, row_dm's (min, max) where the caller knows them
+    on the host, spares the resample wrapper its read. The stages run under the JAX package's named scopes
     (torch.profiler.record_function), which tools/scope_trace.py reads."""
     size = xd.shape[-1]
     nbins = size // 2 + 1
     npad = padded_bins(size)
     with record_function("Acceleration-Loop"):
         with record_function("Resample"):
-            x = resample_rows(xd, row_dm, afs)
+            x = resample_rows(xd, row_dm, afs, bounds=row_bounds)
         with record_function("Spectrum-Chain"):
             if fused_dft:
                 s = dft_untwist_interbin(x, mean, std, npad=npad)

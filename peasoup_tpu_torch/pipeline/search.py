@@ -5,11 +5,16 @@ devices.
 The DM trials are dedispersed on the device and stay there (or in host
 RAM, below). Blocks of DM trials are preprocessed together, and their
 (DM, accel) trials run as row batches of the acceleration chain
-(pipeline/accel_search.py), sized from the device's free memory. Cluster
-peaks come back to the host, where candidate building, distilling and
-scoring run on small arrays, as in the reference: the per-DM distil in
-the native library (peasoup_tpu_torch/native, built with g++ at first
-use), or in Python where ``PEASOUP_NO_NATIVE=1`` asks for it.
+(pipeline/accel_search.py), sized from the device's free memory. Each
+round of DM blocks runs as one wave, the JAX package's host-to-device
+protocol: every row batch is dispatched with nothing read back, and each
+shard's cluster peaks are compacted on its device and fetched in one
+transfer at the round's end (ops/peaks.py:pack_chunk_results; the
+batches whose clusters overflowed their slots are dispatched again). On
+the host, candidate building, distilling and scoring run on small
+arrays, as in the reference: the per-DM distil in the native library
+(peasoup_tpu_torch/native, built with g++ at first use), or in Python
+where ``PEASOUP_NO_NATIVE=1`` asks for it.
 
 With npdmp > 0 the top candidates are folded and optimised
 (pipeline/folder.py) from the dedispersed trials the search kept.
@@ -96,6 +101,7 @@ from ..ops.dedisperse import (
     fil_to_device, output_scale,
 )
 from ..ops.dftspec import dftspec_supported
+from ..ops.peaks import compact_peaks_device, pack_chunk_results
 from ..ops.resample import accel_factor, choose_block, select_span
 from ..ops.zap import birdie_mask
 from ..parallel.mesh import local_devices, make_mesh
@@ -106,7 +112,7 @@ from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
 from ..resilience import DegradationLadder, check_revoke, faults, is_resource_exhausted
 from ..utils import ProgressBar, trace_span
-from .accel_search import padded_bins, preprocess_block
+from .accel_search import AccelSearchPeaks, padded_bins, preprocess_block
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .folder import MultiFolder
@@ -666,6 +672,44 @@ def _trial_rows(trials, lo: int, hi: int, size: int, device: torch.device):
     return trials[lo:hi, :size].to(device)
 
 
+# the speculative size of a fetched stream: where a round starts, and the
+# cap on what it learns (the JAX package's pipeline/search.py:432, :1983)
+TOTAL_PAD_START = 4096
+TOTAL_PAD_CAP = 1 << 16
+
+
+def _pow2(n: int) -> int:
+    """The power of two at or above ``n``, at least 64 (a stream's size)."""
+    return 1 << max(6, int(np.ceil(np.log2(max(1, n)))))
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host table on ``dev`` with no wait for the host: on a card through
+    pinned memory, non-blocking (the allocator keeps the pinned block until
+    the copy has run)."""
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _fetch(packed: torch.Tensor) -> np.ndarray:
+    """One device-to-host transfer of a packed result: the search's only
+    read of its peaks."""
+    return packed.cpu().numpy()
+
+
+def _level_major(vi: np.ndarray, vs: np.ndarray, cc: np.ndarray):
+    """A ragged stream of (row, level) cells in C order, ``cc`` (rows, nlev)
+    their entry counts, put in (level, row) C order."""
+    flat = cc.reshape(-1).astype(np.int64)
+    starts = np.cumsum(flat) - flat
+    order = np.arange(flat.size).reshape(cc.shape).T.reshape(-1)
+    n = flat[order]
+    src = np.repeat(starts[order] - (np.cumsum(n) - n), n) + np.arange(int(n.sum()))
+    return vi[src], vs[src]
+
+
 class PeasoupSearch:
     # bytes of device memory one (DM, accel) row of the acceleration
     # chain holds at its peak, and one DM trial of the preprocessing
@@ -676,6 +720,10 @@ class PeasoupSearch:
     # trial blocks larger than this stay in host RAM (the JAX package's
     # limit: a third of the device memory, 4 GB where none is known)
     TRIALS_DEVICE_LIMIT = 4_000_000_000
+    # the cluster slots a round's row batches may hold on the card before
+    # they are fetched (the JAX package's WAVE_BUDGET: a twelfth of the
+    # device memory, at least 250 MB; 1 GB where none is known)
+    WAVE_BUDGET = 1_000_000_000
 
     def __init__(self, config: SearchConfig, device: str | torch.device = "cuda",
                  devices=None):
@@ -687,14 +735,17 @@ class PeasoupSearch:
         self._share = max(self.devices.count(d) for d in self.devices)
         if native.enabled():
             native.load()  # the distil library builds here or the search raises
-        # cluster slots learned from overflowing chunks, so later chunks
-        # dispatch once
+        # cluster slots learned from overflowing batches, so later rounds
+        # dispatch once, and the size of the stream each fetch speculates
+        # on, learned from the totals fetched (both carry over to later runs)
         self._learned_max_peaks = 0
+        self._learned_total_pad = TOTAL_PAD_START
         limit = config.hbm_bytes
         if not limit and self.device.type == "cuda":
             limit = torch.cuda.mem_get_info(self.device)[1]
         if limit:
             self.TRIALS_DEVICE_LIMIT = int(limit) // 3
+            self.WAVE_BUDGET = max(int(limit) // 12, 250_000_000)
         # DM trials the last run searched (the rest were restored)
         self.n_searched = 0
         # the tuned dedispersion plan of the last run (None without tune)
@@ -1119,9 +1170,9 @@ class PeasoupSearch:
         JAX package packs and checkpoints them. Each shard owns a
         contiguous 1/n of the DM trials (:func:`shard_bounds`, the sharded
         dedispersion's split) and searches them in blocks on its own
-        device; the shards' k-th blocks run together, a row batch of each
-        at a time (parallel/sharded_search.py). DM blocks keep their places
-        whatever was restored; a block with restored trials is preprocessed
+        device; the shards' k-th blocks run together as one wave
+        (:meth:`_search_round`, parallel/sharded_search.py). DM blocks keep
+        their places whatever was restored; a block with restored trials is preprocessed
         whole and only its missing trials' rows are searched. ``trials``
         elsewhere than a block's device (host RAM, another shard) move
         there a block at a time. ``ckpt`` saves after each round of
@@ -1167,9 +1218,15 @@ class PeasoupSearch:
 
     def _search_round(self, trials, plan, dispatch_lists, expand, tsamp, geometry,
                       per_dm, bounds, k, d_blk, row_blk, zaps, search) -> bool:
-        """The k-th DM block of every shard, searched together a row batch
-        of each at a time, each searched DM trial's results into
+        """The k-th DM block of every shard, searched as one wave (the JAX
+        package's pipeline/search.py:_search_wave): every row batch of every
+        shard's block is dispatched with nothing read back, its cluster
+        slots kept on its device, and at the round's end each shard's
+        batches are packed and fetched in one transfer (:meth:`_fetch_wave`),
+        or earlier where the pending batches' slots would pass
+        ``WAVE_BUDGET`` bytes. Each searched DM trial's results go into
         ``per_dm``. False where every trial of the round was restored."""
+        cfg = self.config
         size = geometry["size"]
         blocks = []
         for (lo, hi), dev in zip(bounds, self.devices):
@@ -1182,25 +1239,31 @@ class PeasoupSearch:
                 tims = _trial_rows(trials, lo, hi, size, dev)
                 xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
                 del tims
+            # the round's row tables, uploaded once and sliced per batch
+            row_dm = np.concatenate(
+                [np.full(len(dispatch_lists[d]), d - lo, np.int32) for d in todo])
+            afs = np.concatenate(
+                [accel_factor(dispatch_lists[d], tsamp).astype(np.float32) for d in todo])
             blocks.append(dict(
-                lo=lo, todo=todo, dev=dev, xd=xd, mean=mean, std=std,
-                rows=[(d - lo, a) for d in todo for a in range(len(dispatch_lists[d]))],
-                afs={d: accel_factor(dispatch_lists[d], tsamp).astype(np.float32)
-                     for d in todo},
-                results=[],
+                todo=todo, dev=dev, xd=xd, mean=mean, std=std, row_dm=row_dm,
+                row_dm_dev=_upload(row_dm, dev), afs=_upload(afs, dev), results=[],
             ))
         if not any(blocks):
             return False
-        nrows = max(len(b["rows"]) for b in blocks if b)
-        for r0 in range(0, nrows, row_blk):
+        nlev = cfg.nharmonics + 1
+        wave, wave_bytes = [], 0
+        for r0 in range(0, max(len(b["row_dm"]) for b in blocks if b), row_blk):
+            max_peaks = max(cfg.max_peaks, self._learned_max_peaks)
             jobs = [self._job(b, r0, row_blk) if b else None for b in blocks]
-            idxs, snrs, cc = self._search_batch(search, jobs, plan.windows)
-            at = 0
-            for b, job in zip(blocks, jobs):
-                if job is not None:
-                    n = len(job[1])
-                    b["results"].append((idxs[at:at + n], snrs[at:at + n], cc[at:at + n]))
-                    at += n
+            # the batch's slots (idxs and snrs) while they wait on the card
+            nbytes = sum(len(j[1]) for j in jobs if j) * nlev * max_peaks * 8
+            if wave and wave_bytes + nbytes > self.WAVE_BUDGET:
+                self._fetch_wave(blocks, wave, search, plan.windows)
+                wave, wave_bytes = [], 0
+            peaks = search(jobs, plan.windows, nharms=cfg.nharmonics, max_peaks=max_peaks)
+            wave.append((jobs, peaks, max_peaks))
+            wave_bytes += nbytes
+        self._fetch_wave(blocks, wave, search, plan.windows)
         for b in blocks:
             if b:
                 self._collect(b, plan, dispatch_lists, expand, per_dm)
@@ -1210,75 +1273,143 @@ class PeasoupSearch:
     @staticmethod
     def _job(block: dict, r0: int, row_blk: int):
         """The search_rows arguments of rows [r0, r0 + row_blk) of one
-        shard's block, on its device, or None past its last row."""
-        batch = block["rows"][r0 : r0 + row_blk]
-        if not batch:
+        shard's block on its device, slices of the round's tables, and the
+        bounds of their DM trials from the host's copy; None past its last
+        row."""
+        host = block["row_dm"][r0 : r0 + row_blk]
+        if not len(host):
             return None
-        dev, lo = block["dev"], block["lo"]
-        row_dm = torch.tensor([d for d, _ in batch], dtype=torch.int32, device=dev)
-        afs = torch.from_numpy(
-            np.asarray([block["afs"][lo + d][a] for d, a in batch], np.float32)
-        ).to(dev)
-        return block["xd"], row_dm, afs, block["mean"][row_dm], block["std"][row_dm]
+        r1 = r0 + len(host)
+        row_dm = block["row_dm_dev"][r0:r1]
+        return (block["xd"], row_dm, block["afs"][r0:r1], block["mean"][row_dm],
+                block["std"][row_dm], (int(host.min()), int(host.max())))
+
+    def _learn_total(self, total: int) -> None:
+        """Raise the speculative stream size to cover ``total`` entries,
+        capped so that one busy round does not inflate every later fetch
+        (the JAX package's rule)."""
+        self._learned_total_pad = min(max(self._learned_total_pad, _pow2(total)),
+                                      TOTAL_PAD_CAP)
+
+    def _fetch_wave(self, blocks: list, wave: list, search, windows) -> None:
+        """Read back the pending row batches ``wave`` ([(jobs, peaks of each
+        shard, max_peaks)], in row order): each shard's batches packed on its
+        device (:meth:`_pack`) and fetched in one transfer, every shard
+        packed before the first fetch waits (:meth:`_unpack`). Each batch's
+        (cluster counts (rows, nlev), idxs, snrs) goes to its block's
+        results, in row order, and the speculation learns each shard's
+        total."""
+        packs = [None if b is None else self._pack(
+            b["dev"], [(jobs[s], peaks[s], mp) for jobs, peaks, mp in wave
+                       if peaks[s] is not None])
+            for s, b in enumerate(blocks)]
+        for s, (b, pack) in enumerate(zip(blocks, packs)):
+            if pack is not None:
+                got = self._unpack(search, windows, s, len(blocks), b["dev"], *pack)
+                self._learn_total(sum(len(g[1]) for g in got))
+                b["results"].extend(got)
+
+    def _pack(self, dev, batches: list) -> tuple:
+        """(batches, their slot arrays concatenated, the packed payload at
+        the learned speculative size) of one shard's ``batches`` [(job,
+        peaks, max_peaks)], all dispatched at one max_peaks, or None where
+        there are none."""
+        if not batches:
+            return None
+        with device_context(dev):
+            slots = [torch.cat([p[f] for _, p, _ in batches])
+                     for f in range(len(AccelSearchPeaks._fields))]
+            return batches, slots, pack_chunk_results(
+                *slots, total_pad=self._learned_total_pad)
+
+    def _unpack(self, search, windows, s: int, nshards: int, dev, batches: list,
+                slots: list, packed: torch.Tensor) -> list:
+        """Fetch one shard's packed batches in one transfer and return each
+        batch's (cluster counts, idxs, snrs). Where the entries the batches
+        that fit their slots need lie past the speculation, the stream is
+        compacted again at their size (one transfer more). The batches
+        whose clusters overflowed their slots are dispatched again together
+        at the next power of two of the largest count (the reference sizes
+        for 100000 up front, peakfinder.hpp:61), in groups within
+        ``WAVE_BUDGET``, each group packed and fetched as one."""
+        cfg = self.config
+        nlev = cfg.nharmonics + 1
+        max_peaks = batches[0][2]
+        words = _fetch(packed)
+        n = slots[3].numel()
+        cc = words[n : 2 * n].reshape(-1, nlev)
+        cc0 = np.minimum(cc, np.int32(max_peaks))
+        ends = np.concatenate([[0], np.cumsum(cc0.sum(axis=1))])
+        rows = np.concatenate([[0], np.cumsum([len(job[1]) for job, _, _ in batches])])
+        worst = [int(cc[rows[i] : rows[i + 1]].max()) for i in range(len(batches))]
+        need = max((int(ends[rows[i + 1]]) for i, w in enumerate(worst) if w <= max_peaks),
+                   default=0)
+        stream = words[2 * n :]
+        if need > len(stream) // 2:  # the speculation missed: compact at the size needed
+            with device_context(dev):
+                stream = _fetch(compact_peaks_device(
+                    slots[0], slots[1], slots[3], total_pad=_pow2(need)))
+        self._learn_total(need)
+        half = len(stream) // 2
+        vi, vs = stream[:half], stream[half:].view(np.float32)
+        out = [(cc0[rows[i] : rows[i + 1]], vi[ends[rows[i]] : ends[rows[i + 1]]],
+                vs[ends[rows[i]] : ends[rows[i + 1]]]) for i in range(len(batches))]
+        over = [i for i, w in enumerate(worst) if w > max_peaks]
+        if not over:
+            return out
+        new = 1 << int(np.ceil(np.log2(max(worst[i] for i in over))))
+        self._learned_max_peaks = max(self._learned_max_peaks, new)
+        current_telemetry().event("max_peaks_escalated", old=int(max_peaks), new=int(new),
+                                  observed=max(worst[i] for i in over))
+        log.debug("cluster overflow: escalating max_peaks %d -> %d (observed %d), "
+                  "%d of %d row batches again", max_peaks, new, max(worst), len(over),
+                  len(batches))
+        groups, nbytes = [[]], 0
+        for i in over:
+            b = (rows[i + 1] - rows[i]) * nlev * new * 8
+            if groups[-1] and nbytes + b > self.WAVE_BUDGET:
+                groups.append([])
+                nbytes = 0
+            groups[-1].append(i)
+            nbytes += b
+        for group in groups:
+            again = []
+            for i in group:
+                jobs = [None] * nshards
+                jobs[s] = batches[i][0]
+                peaks = search(jobs, windows, nharms=cfg.nharmonics, max_peaks=new)[s]
+                again.append((batches[i][0], peaks, new))
+            for i, got in zip(group, self._unpack(search, windows, s, nshards, dev,
+                                                  *self._pack(dev, again))):
+                out[i] = got
+        return out
 
     def _collect(self, block: dict, plan, dispatch_lists, expand, per_dm) -> None:
         """Each searched DM trial of one shard's block into ``per_dm``, as
-        its ragged cluster stream over its full accel list."""
+        its ragged cluster stream over its full accel list: the block's
+        entries, fetched in (row, level) order, put in each DM trial's
+        (level, accel) C order, as the JAX package's device pack streams and
+        checkpoints them."""
         results = block["results"]
-        # batches dispatched before an overflow escalation have fewer
-        # slots; only the first cc slots of a cell are ever read
-        mx = max(r[0].shape[-1] for r in results)
-        idxs, snrs = (
-            np.concatenate([
-                np.pad(r[k], ((0, 0), (0, 0), (0, mx - r[k].shape[-1])))
-                for r in results
-            ])
-            for k in (0, 1)
-        )
-        cc = np.concatenate([r[2] for r in results])
+        cc = np.concatenate([r[0] for r in results])
+        vi = np.concatenate([r[1] for r in results])
+        vs = np.concatenate([r[2] for r in results])
+        ends = np.concatenate([[0], np.cumsum(cc.sum(axis=1))])
         r0 = 0
         for d in block["todo"]:
             r1 = r0 + len(dispatch_lists[d])
-            # (level, accel) cells in C order, as the JAX package's
-            # device pack streams them
+            e0, e1 = ends[r0], ends[r1]
+            di, ds = _level_major(vi[e0:e1], vs[e0:e1], cc[r0:r1])
             cells = cc[r0:r1].T
-            keep = np.arange(mx) < cells[..., None]
-            vi = idxs[r0:r1].transpose(1, 0, 2)[keep]
-            vs = snrs[r0:r1].transpose(1, 0, 2)[keep]
             if expand[d] is not None:
                 # deduped dispatch: replicate the representative's
                 # results onto every accel trial of its class
-                vi, vs, cells = _expand_accel_results(
-                    vi, vs, cells, expand[d],
+                di, ds, cells = _expand_accel_results(
+                    di, ds, cells, expand[d],
                     _accel_pad(len(plan.accel_lists[d]), self.knobs.accel_bucket),
                 )
-            per_dm[d] = (vi, vs, cells)
+            per_dm[d] = (di, ds, cells)
             r0 = r1
-
-    def _search_batch(self, search, jobs, windows):
-        """One row batch of every shard (``jobs``, one per shard or None),
-        through the sharded search ``search``, re-dispatched at the next
-        power of two while a cluster count overflows the slots (the
-        reference sizes for 100000 up front, peakfinder.hpp:61). Returns
-        numpy (idxs, snrs, cluster counts) of the batch's rows, shard by
-        shard."""
-        cfg = self.config
-        max_peaks = max(cfg.max_peaks, self._learned_max_peaks)
-        while True:
-            peaks = search(jobs, windows, nharms=cfg.nharmonics, max_peaks=max_peaks)
-            cc = peaks.ccounts
-            worst = int(cc.max()) if cc.size else 0
-            if worst <= max_peaks:
-                break
-            old, max_peaks = max_peaks, 1 << int(np.ceil(np.log2(worst)))
-            self._learned_max_peaks = max(self._learned_max_peaks, max_peaks)
-            current_telemetry().event("max_peaks_escalated", old=int(old),
-                                      new=int(max_peaks), observed=worst)
-            log.debug(
-                "cluster overflow: escalating max_peaks %d -> %d (observed %d)",
-                old, max_peaks, worst,
-            )
-        return peaks.idxs, peaks.snrs, cc
 
     def finalize(self, fil: Filterbank, part: PartialSearchResult,
                  fold_exchange=None) -> SearchResult:

@@ -320,7 +320,7 @@ def test_ladder_coverage_and_rung_tags():
 
 def test_every_registered_program_has_a_hook_at_every_default_rung():
     specs = registered_programs()
-    assert len(specs) == 40 and sum(bool(s.kernel) for s in specs) == 9
+    assert len(specs) == 42 and sum(bool(s.kernel) for s in specs) == 9
     rungs = contracts.ladder_rungs()
     for spec in specs:
         assert [r for r, _ in contracts.ladder_builds(spec.param, rungs)] == rungs, spec.name

@@ -109,6 +109,18 @@ def test_resample(dev):
     assert torch.equal(got, want)
 
 
+def test_resample_checks_the_bounds_it_is_given(dev):
+    # the search passes row_dm's bounds from the host: the wrapper checks
+    # them as it checks the ones it reads, and raises where they fall off
+    x, row_dm, afs = _on(dev, np.ones((4, 64), np.float32),
+                         np.asarray([1, 3, 2], np.int32), np.zeros(3, np.float32))
+    want = resample.resample_rows(x, row_dm, afs)
+    assert torch.equal(resample.resample_rows(x, row_dm, afs, bounds=(1, 3)), want)
+    for bad in ((1, 4), (-1, 3)):
+        with pytest.raises(IndexError, match="row_dm must lie in"):
+            resample.resample_rows(x, row_dm, afs, bounds=bad)
+
+
 def test_resample_offsets_past_2_31(dev):
     # 1,100 rows of 2^21 samples: r*N passes 2^31 from row 1,024 on
     rows, n = 1100, 1 << 21

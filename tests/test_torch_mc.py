@@ -68,7 +68,7 @@ def test_the_whole_tree_is_clean_against_the_port_baseline(whole_tree):
 
 def test_every_program_is_audited_at_two_rungs_and_no_kernel_claims_the_card(whole_tree):
     _, _, report = whole_tree
-    assert len(report["programs"]) == 40
+    assert len(report["programs"]) == 42
     cov = report["ladder"]["coverage"]
     assert set(cov) == set(report["programs"])
     assert all(len(r) >= 2 for r in cov.values()), cov

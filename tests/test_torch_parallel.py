@@ -41,7 +41,7 @@ from peasoup_tpu_torch.parallel import mesh as tmesh
 from peasoup_tpu_torch.parallel import multihost as tmh
 from peasoup_tpu_torch.parallel.sharded_dedisperse import ShardedRows, dedisperse_sharded
 from peasoup_tpu_torch.parallel.sharded_search import make_sharded_search_fn, place_trials
-from peasoup_tpu_torch.pipeline.accel_search import preprocess_block, search_rows
+from peasoup_tpu_torch.pipeline.accel_search import AccelSearchPeaks, preprocess_block, search_rows
 from peasoup_tpu_torch.pipeline.search import (
     PartialSearchResult, PeasoupSearch, SearchConfig, _level_windows, _pick_devices,
 )
@@ -194,8 +194,11 @@ def test_sharded_search_matches_the_unsharded_block(nshards, mega_harm):
         lo, hi = s * shards.per, min((s + 1) * shards.per, ndm)
         xs, ms, ss = preprocess_block(shards.parts[s][: hi - lo], zap_t, **geo)
         r = torch.arange(hi - lo, dtype=torch.int32).repeat_interleave(na)
-        jobs.append((xs, r, torch.from_numpy(afs[lo:hi].reshape(-1)), ms[r], ss[r]))
-    got = make_sharded_search_fn(mesh, 6.0, **routes)(jobs, windows, **kw)
+        jobs.append((xs, r, torch.from_numpy(afs[lo:hi].reshape(-1)), ms[r], ss[r], None))
+    # each shard's peaks stay on its device; the search packs and reads them
+    parts = make_sharded_search_fn(mesh, 6.0, **routes)(jobs, windows, **kw)
+    assert len(parts) == nshards and all(p is not None for p in parts)
+    got = AccelSearchPeaks(*(torch.cat([p[f] for p in parts]).numpy() for f in range(4)))
     np.testing.assert_array_equal(got.ccounts, want.ccounts.numpy())
     np.testing.assert_array_equal(got.counts, want.counts.numpy())
     np.testing.assert_array_equal(got.idxs, want.idxs.numpy())

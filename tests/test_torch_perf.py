@@ -50,7 +50,6 @@ def test_every_jax_program_has_a_counterpart_or_a_reason(capsys):
     for jax_name, why in without:
         print(f"  {jax_name}: {why}")
     assert [n for n, _ in without] == [
-        "ops.peaks.compact_peaks_device", "ops.peaks.pack_chunk_results",
         "ops.resample.resample_select", "ops.resample.resample_select_packed",
         "ops.resample.resample_select_packed_planes",
     ]
