@@ -1,0 +1,7 @@
+"""``peak_mem_gib`` (GiB): the most memory PyTorch's allocator held for
+the program during the window (``torch.cuda.max_memory_allocated`` after
+a reset at the window's start)."""
+
+
+def read(ctx):
+    return None if ctx.peak_mem_bytes is None else ctx.peak_mem_bytes / 2**30
