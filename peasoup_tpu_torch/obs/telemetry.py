@@ -256,7 +256,10 @@ class RunTelemetry:
         """Opt-in profiler capture: run the block under ``torch.profiler``
         and fold the per-scope device-time attribution
         (tools/scope_trace.py) into the manifest: CUDA kernels on a card,
-        CPU operators' own time where ``device`` is the CPU. No-op unless
+        CPU operators' own time where ``device`` is the CPU; and each search
+        run's span table (``spans``), with the device's idle seconds inside
+        the runs by the innermost span open then (``idle_gaps``, beside the
+        runs' ``window_s`` and the device's ``busy_s`` in them). No-op unless
         ``capture_device_trace`` was requested (tracing costs wall time and
         memory); raises where the profiler recorded no kernel of a run
         that launched some."""
@@ -278,6 +281,13 @@ class RunTelemetry:
             "kernels": res.kernel_table(),
             "launches": res.launched,
             "lost_launches": res.lost,
+            "spans": res.spans,
+            "window_s": res.window_s,
+            "busy_s": res.busy_s,
+            "idle_gaps": [
+                {"scope": k, "seconds": v}
+                for k, v in sorted(res.idle_gaps.items(), key=lambda kv: -kv[1])
+            ],
         }
 
     # --- serialisation ------------------------------------------------

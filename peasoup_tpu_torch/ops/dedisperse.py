@@ -28,6 +28,7 @@ import torch
 
 from .. import kernels
 from ..device import check, stream_ptr
+from ..utils.trace import trace_count
 
 # the kernel's block (csrc/dedisp_map.cuh): output samples, DM trials, the
 # widest channel chunk as a power of two, and the shared memory it may take
@@ -56,10 +57,12 @@ def fil_to_device(fil, device: torch.device) -> torch.Tensor:
     samples."""
     raw = getattr(fil, "raw", None)
     if raw is not None and fil.nbits in (1, 2, 4):
+        trace_count("upload.bytes", raw.nbytes)
         return unpack_fil_device(
             torch.from_numpy(raw).to(device), nbits=fil.nbits,
             nsamps=fil.nsamps, nchans=fil.nchans,
         )
+    trace_count("upload.bytes", fil.data.nbytes)
     return torch.tensor(fil.data, device=device)
 
 

@@ -30,8 +30,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
+from ..utils.trace import trace_span
 from .harmonics import harmonic_sums
 from .peaks import cluster_peaks_device, find_peaks_device
 from .rednoise import whiten_fseries
@@ -138,17 +138,17 @@ def fdas_spectrum_peaks(
     floor and the z = 0 row is the plain periodicity spectrum), sum
     harmonics, and per level keep the first ``max_peaks`` crossings of
     each (trial, template) row and cluster them."""
-    with record_function("FDAS-Correlate"):
+    with trace_span("FDAS-Correlate"):
         mean, _, std = spectrum_stats(form_interpolated(fser))
         corr = correlate_bank(fser, tmpl, segment=segment)  # (D, T, nbins)
         s = normalise(form_interpolated(corr), mean[:, None], std[:, None])
         del corr
     d, t, nbins = s.shape
-    with record_function("Harmonic summing"):
+    with trace_span("Harmonic summing"):
         levels = [s, *harmonic_sums(s, nharms=nharms, scaled=True)]
     dev = s.device
     idxs, snrs, counts, ccounts = [], [], [], []
-    with record_function("Peaks"):
+    with trace_span("Peaks"):
         for lvl, spec in enumerate(levels):
             lo = torch.full((d * t,), int(windows[lvl][0]), dtype=torch.int64, device=dev)
             hi = torch.full((d * t,), int(windows[lvl][1]), dtype=torch.int64, device=dev)

@@ -13,9 +13,11 @@ the one path by which the tuner (perf/tuning.py) and the microbenchmarks
 * :func:`event_run_samples` - k device-anchored samples, each one event
   pair around a run of back-to-back calls after a warm-up, reported per
   call (the microbenchmarks' timer);
-* :func:`device_busy_seconds` - the device time of the CUDA kernels one
-  ``run()`` launched, from ``torch.profiler``. Where the JAX version logs
-  and returns 0.0 when its trace fails, this one raises.
+* :func:`device_busy_seconds` - the seconds in which the device ran the
+  kernels and copies of one ``run()``, from ``torch.profiler``: the union
+  of their intervals (:func:`busy_us`), where the JAX version sums
+  durations. Where the JAX version logs and returns 0.0 when its trace
+  fails, this one raises.
 """
 
 from __future__ import annotations
@@ -132,14 +134,28 @@ def summarize(samples: list[float]) -> dict:
     }
 
 
-def device_busy_seconds(run, device) -> float:
-    """Seconds of CUDA kernels that one ``run()`` put on the device, from a
-    ``torch.profiler`` trace of it (the ranges of ``record_function``
+def busy_us(events) -> float:
+    """Microseconds in which the device ran a kernel or a copy, from a
+    ``torch.profiler`` trace's FunctionEvents: the union of their
+    intervals, so work that overlaps (kernels on other streams, a copy
+    beside a kernel) counts once. The ranges of ``record_function``
     scopes, which the trace also holds on the device's timeline, are not
-    device work and are left out). Raises RuntimeError where the trace
-    holds no device time (the profiler could not trace the card), and
-    ValueError for a device that is not a CUDA device."""
+    device work and are left out."""
     from torch.autograd import DeviceType
+
+    from ..utils.trace import union_length
+
+    return float(union_length(
+        (e.time_range.start, e.time_range.end) for e in events
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation))
+
+
+def device_busy_seconds(run, device) -> float:
+    """Seconds in which the device ran a kernel or a copy during one
+    ``run()`` (:func:`busy_us` of a ``torch.profiler`` trace of it).
+    Raises RuntimeError where the trace holds no device time (the
+    profiler could not trace the card), and ValueError for a device that
+    is not a CUDA device."""
     from torch.profiler import ProfilerActivity, profile
 
     device = torch.device(device)
@@ -149,10 +165,7 @@ def device_busy_seconds(run, device) -> float:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize(device)
-    busy_us = sum(
-        e.device_time_total for e in prof.events()
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-    )
-    if busy_us <= 0:
+    busy = busy_us(prof.events())
+    if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the run")
-    return busy_us / 1e6
+    return busy / 1e6

@@ -30,7 +30,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..ops.dftspec import dft_untwist_interbin
 from ..ops.fft import packed_dft_z, untwist_interbin_normalise
@@ -39,6 +38,7 @@ from ..ops.peaks import find_cluster_peaks_multi, find_harmonic_cluster_peaks
 from ..ops.rednoise import running_median
 from ..ops.resample import resample_rows
 from ..ops.spectrum import form_power, row_sum, specchain, spectrum_stats
+from ..utils.trace import trace_span
 
 # spectrum rows are padded to a multiple of this many bins, as the JAX
 # package pads them to its peaks kernel's block (ops/pallas/peaks.py)
@@ -92,7 +92,7 @@ def preprocess_block(tims, zapmask, *, size, nsamps_valid, pos5, pos25):
     """Once-per-DM-trial stage for a (D, >=size) block: returns the
     whitened, zapped time series xd (D, size) and the per-trial spectrum
     (mean, std) that normalise every accel trial's spectrum."""
-    with record_function("Spectrum-Chain"):
+    with trace_span("Spectrum-Chain"):
         re, im, med = _pre_spectrum_parts(
             tims, size=size, nsamps_valid=nsamps_valid, pos5=pos5, pos25=pos25
         )
@@ -123,14 +123,14 @@ def search_rows(
     harmpeaks kernel for sums and peaks, else torch sums + the peaks
     kernel. ``row_bounds``, row_dm's (min, max) where the caller knows them
     on the host, spares the resample wrapper its read. The stages run under the JAX package's named scopes
-    (torch.profiler.record_function), which tools/scope_trace.py reads."""
+    (utils/trace.py:trace_span), which tools/scope_trace.py reads."""
     size = xd.shape[-1]
     nbins = size // 2 + 1
     npad = padded_bins(size)
-    with record_function("Acceleration-Loop"):
-        with record_function("Resample"):
+    with trace_span("Acceleration-Loop"):
+        with trace_span("Resample"):
             x = resample_rows(xd, row_dm, afs, bounds=row_bounds)
-        with record_function("Spectrum-Chain"):
+        with trace_span("Spectrum-Chain"):
             if fused_dft:
                 s = dft_untwist_interbin(x, mean, std, npad=npad)
             else:
@@ -141,13 +141,13 @@ def search_rows(
             nbins=nbins,
         )
         if mega_harm:
-            with record_function("Harmonic summing"), record_function("Peaks"):
+            with trace_span("Harmonic summing"), trace_span("Peaks"):
                 peaks = find_harmonic_cluster_peaks(s, windows, nharms=nharms, **kw)
         else:
             # s is padded to SPEC_ALIGN, so its sums are the JAX package's
             # block-aligned levels
-            with record_function("Harmonic summing"):
+            with trace_span("Harmonic summing"):
                 sums = harmonic_sums(s, nharms=nharms, scaled=False)
-            with record_function("Peaks"):
+            with trace_span("Peaks"):
                 peaks = find_cluster_peaks_multi([s, *sums], windows, **kw)
     return AccelSearchPeaks(*peaks)

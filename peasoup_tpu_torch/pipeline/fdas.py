@@ -31,7 +31,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import native
 from ..core.candidates import CandidateCollection, FdasCandidate
@@ -47,7 +46,7 @@ from ..ops.zap import birdie_mask
 from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..resilience import DegradationLadder, faults
-from ..utils import ProgressBar
+from ..utils import ProgressBar, trace_span
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
 from .score import CandidateScorer
@@ -254,7 +253,7 @@ class FdasSearch:
         tel.set_stage("dedispersion")
         trials = np.zeros((0, dm_plan.out_nsamps), dtype=np.uint8)
         if len(per_dm) < dm_plan.ndm:
-            with record_function("Dedisperse"):
+            with trace_span("Dedisperse"):
                 trials = dedisperse_host(
                     fil_to_device(fil, self.device), dm_plan.delay_samples(),
                     dm_plan.killmask, dm_plan.out_nsamps,

@@ -9,7 +9,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import resolve_device
 from ..io.masks import read_killfile
@@ -19,6 +18,7 @@ from ..obs.telemetry import current as current_telemetry
 from ..ops.dedisperse import dedisperse_host, fil_to_device, output_scale
 from ..ops.ffa import ffa_search_block
 from ..plan.dm_plan import DMPlan
+from ..utils.trace import trace_span
 
 log = get_logger("ffa")
 
@@ -95,7 +95,7 @@ class FFASearch:
         # a segment at a time
         t0 = time.perf_counter()
         tel.set_stage("dedispersion")
-        with record_function("Dedisperse"):
+        with trace_span("Dedisperse"):
             trials = dedisperse_host(
                 fil_to_device(fil, self.device), plan.delay_samples(), plan.killmask,
                 plan.out_nsamps, scale=output_scale(fil.nbits, int(plan.killmask.sum())),

@@ -47,10 +47,15 @@ The run records the JAX package's telemetry through the ambient
 RunTelemetry (obs/telemetry.py; a no-op unless a CLI activated one): its
 stages, gauges and events (``device_plan``, ``accel_dedupe``,
 ``wave_plan``, ``max_peaks_escalated``, ``checkpoint_resume``, ...), and
-its stages run under the JAX package's named scopes as
-``torch.profiler.record_function`` scopes (utils/trace.py:trace_span,
-tools/scope_trace.py). ``progress_bar`` draws a ProgressBar on stderr over
-the DM waves.
+its stages run under the JAX package's named scopes as spans
+(utils/trace.py:trace_span; ``torch.profiler.record_function`` scopes
+while a profiler records, tools/scope_trace.py). Under a profiler the run
+is the root span ``Search``, whose table also holds the port's own spans
+(``Upload``, ``Whitening``, ``Wave-Fetch``, ``Fetch``, ``Search-Host``,
+its three ``Distil-*`` parts, ``Distilling``, ``Scoring``) and counters
+(``upload.bytes``, ``whitening.trials``, ``wave.*``, ``rows.*``,
+``distil.*``), apart from the telemetry. ``progress_bar`` draws a
+ProgressBar on stderr over the DM waves.
 
 The DM trials are sharded over the devices :func:`_pick_devices` picks
 (every local card up to ``max_num_threads``, as the reference runs one
@@ -111,7 +116,7 @@ from ..plan.dm_plan import DMPlan
 from ..plan.fft_plan import choose_fft_size
 from ..plan.search_plan import SearchPlan, from_arrays
 from ..resilience import DegradationLadder, check_revoke, faults, is_resource_exhausted
-from ..utils import ProgressBar, trace_span
+from ..utils import ProgressBar, trace_count, trace_span
 from .accel_search import AccelSearchPeaks, padded_bins, preprocess_block
 from .checkpoint import SearchCheckpoint
 from .distill import AccelerationDistiller, DMDistiller, HarmonicDistiller
@@ -213,6 +218,9 @@ class SearchResult:
     nsamps: int
     size: int
     n_accel_trials: int = 0  # DM x accel trials, deduped ones included
+    # the run's span table (utils/trace.py:RunTable), None where no
+    # profiler recorded
+    trace: object = None
 
 
 @dataclass
@@ -365,7 +373,24 @@ def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> li
     Candidate objects are made for those rows only, with the winner ->
     absorbed edges building the assoc trees. Same arguments and result as
     :func:`_distill_per_trial`. With ``PEASOUP_TIE_CAPTURE`` set, the rows
-    and segments are first written to that .npz for tools/tie_mc.py."""
+    and segments are first written to that .npz for tools/tie_mc.py. The
+    three parts run as the spans ``Distil-Rows``, ``Distil-Native`` and
+    ``Distil-Objects`` (utils/trace.py)."""
+    with trace_span("Distil-Rows"):
+        rows = _distil_rows(plan, accel_lists, results, harm_finder, acc_still)
+        trace_count("distil.rows_in", len(rows[1]))
+    with trace_span("Distil-Native"):
+        picked = _distil_native(*rows, harm_finder, acc_still)
+    with trace_span("Distil-Objects"):
+        out = _distil_objects(plan, *picked)
+        trace_count("distil.candidates_out", len(out))
+    return out
+
+
+def _distil_rows(plan, accel_lists, results, harm_finder, acc_still) -> tuple:
+    """The rows of :func:`_distill_segmented`: (freqs, S/N, level, accel
+    index and DM index of each row, the accel trials' segment offsets, the
+    accel table (DM, accel index) -> m/s^2)."""
     nlev = plan.nharms + 1
     factors = np.asarray(plan.factors, dtype=np.float32)
     ndm = len(results)
@@ -424,7 +449,15 @@ def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> li
             acc_tobs_over_c=acc_still.tobs_over_c, acc_tol=acc_still.tolerance,
             freq_tol=harm_finder.tolerance, max_harm=harm_finder.max_harm,
         )
+    return freqs_all, snr_all, lvl_all, a_all, dm_all, seg_off, acc_tab
 
+
+def _distil_native(freqs_all, snr_all, lvl_all, a_all, dm_all, seg_off, acc_tab,
+                   harm_finder, acc_still) -> tuple:
+    """The two segmented native calls of :func:`_distill_segmented`: the
+    acceleration-distilled rows (DM index, accel, level, S/N, freq), which
+    of them survive, and the winner -> absorbed edges."""
+    ndm = acc_tab.shape[0]
     # the harmonic distil of every accel trial (segment), rows S/N-sorted
     # by the reference's std::sort within each
     order = native.snr_sort_perm_seg(snr_all.astype(np.float32), seg_off)
@@ -433,6 +466,7 @@ def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> li
         harm_finder.max_harm, harm_finder.fractional_harms,
     )
     surv = order[unique]  # row ids, in (segment, S/N desc) order
+    trace_count("distil.harmonic_survivors", len(surv))
     s_dm = dm_all[surv]
     s_snr = snr_all[surv]
 
@@ -445,13 +479,19 @@ def _distill_segmented(plan, accel_lists, results, harm_finder, acc_still) -> li
     unique2, esrc, edst = native.accel_distill_seg(
         d_freq, d_acc, seg_dm, acc_still.tobs_over_c, acc_still.tolerance
     )
+    return d_dm, d_acc, d_lvl, d_snr, d_freq, unique2, esrc, edst
+
+
+def _distil_objects(plan, d_dm, d_acc, d_lvl, d_snr, d_freq, unique2, esrc, edst) -> list:
+    """The Candidate objects of :func:`_distill_segmented`'s rows, the
+    absorbed ones appended to their winners, the survivors returned."""
     dm_vals = plan.dm_list
     rows = [
         Candidate(
             dm=float(dm_vals[d_dm[r]]), dm_idx=int(d_dm[r]), acc=float(d_acc[r]),
             nh=int(d_lvl[r]), snr=float(d_snr[r]), freq=float(d_freq[r]),
         )
-        for r in range(len(order2))
+        for r in range(len(d_dm))
     ]
     for s_, t_ in zip(esrc, edst):
         rows[s_].append(rows[t_])
@@ -695,7 +735,10 @@ def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def _fetch(packed: torch.Tensor) -> np.ndarray:
     """One device-to-host transfer of a packed result: the search's only
-    read of its peaks."""
+    read of its peaks (its callers open the span ``Fetch`` round it: the
+    host blocked on the card, then the copy)."""
+    trace_count("wave.fetches")
+    trace_count("wave.fetch_bytes", packed.numel() * packed.element_size())
     return packed.cpu().numpy()
 
 
@@ -883,7 +926,16 @@ class PeasoupSearch:
         DM-trial list is dedispersed and searched (candidates carry global
         dm_idx); with ``finalize=False`` the run stops after the per-DM
         distils and returns the PartialSearchResult a multi-process merge
-        takes (parallel/multihost.py:run_search)."""
+        takes (parallel/multihost.py:run_search). The run is the root span
+        ``Search`` (utils/trace.py): where a profiler records, the result
+        carries the run's span table as ``trace``."""
+        with trace_span("Search", root=True) as table:
+            res = self._run(fil, plan, dm_slice, finalize)
+        if table is not None and isinstance(res, SearchResult):
+            res.trace = table
+        return res
+
+    def _run(self, fil, plan, dm_slice, finalize):
         cfg = self.config
         tel = current_telemetry()
         timers: dict[str, float] = {}
@@ -1013,14 +1065,15 @@ class PeasoupSearch:
 
         t_host = time.perf_counter()
         tel.set_stage("search_host")
-        harm_finder = HarmonicDistiller(cfg.freq_tol, cfg.max_harm, keep_related=False)
-        acc_still = AccelerationDistiller(tobs, cfg.freq_tol, keep_related=True)
-        results = [per_dm.pop(dm_idx) for dm_idx in range(plan.ndm)]
-        distil = _distill_segmented if native.enabled() else _distill_per_trial
-        log.info("distil: %s", distil.__name__.lstrip("_"))
-        cands = distil(plan, accel_lists, results, harm_finder, acc_still)
-        if dm_lo:
-            _offset_dm_idx(cands, dm_lo)
+        with trace_span("Search-Host"):
+            harm_finder = HarmonicDistiller(cfg.freq_tol, cfg.max_harm, keep_related=False)
+            acc_still = AccelerationDistiller(tobs, cfg.freq_tol, keep_related=True)
+            results = [per_dm.pop(dm_idx) for dm_idx in range(plan.ndm)]
+            distil = _distill_segmented if native.enabled() else _distill_per_trial
+            log.info("distil: %s", distil.__name__.lstrip("_"))
+            cands = distil(plan, accel_lists, results, harm_finder, acc_still)
+            if dm_lo:
+                _offset_dm_idx(cands, dm_lo)
         timers["search_host"] = time.perf_counter() - t_host
         timers["searching"] = time.perf_counter() - t0
         tel.gauge("candidates.per_dm_distill", len(cands))
@@ -1045,7 +1098,8 @@ class PeasoupSearch:
         the devices where there are several (the direct sum only), on the
         device, or in host RAM (numpy) where ``spill``."""
         knobs = self.knobs
-        x = fil_to_device(fil, self.device)
+        with trace_span("Upload", device=self.device):
+            x = fil_to_device(fil, self.device)
         args = (x, plan.delays, plan.killmask, plan.out_nsamps)
         if len(self.devices) > 1 and knobs.subbands == 0 and not spill:
             log.info("dedispersion: dedisperse kernel on %d shards", len(self.devices))
@@ -1142,8 +1196,10 @@ class PeasoupSearch:
             trials = None
             _release(*self.devices)
             with trace_span("Dedisperse"):
+                with trace_span("Upload", device=self.device):
+                    x = fil_to_device(fil, self.device)
                 trials = dedisperse_host(
-                    fil_to_device(fil, self.device), plan.delays, plan.killmask,
+                    x, plan.delays, plan.killmask,
                     plan.out_nsamps, scale=scale, block=self.knobs.dedisp_block,
                 )
 
@@ -1237,7 +1293,9 @@ class PeasoupSearch:
                 continue
             with device_context(dev):
                 tims = _trial_rows(trials, lo, hi, size, dev)
-                xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
+                with trace_span("Whitening", device=dev):
+                    trace_count("whitening.trials", hi - lo)
+                    xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
                 del tims
             # the round's row tables, uploaded once and sliced per batch
             row_dm = np.concatenate(
@@ -1260,6 +1318,7 @@ class PeasoupSearch:
             if wave and wave_bytes + nbytes > self.WAVE_BUDGET:
                 self._fetch_wave(blocks, wave, search, plan.windows)
                 wave, wave_bytes = [], 0
+            trace_count("rows.dispatched", sum(len(j[1]) for j in jobs if j))
             peaks = search(jobs, plan.windows, nharms=cfg.nharmonics, max_peaks=max_peaks)
             wave.append((jobs, peaks, max_peaks))
             wave_bytes += nbytes
@@ -1298,16 +1357,18 @@ class PeasoupSearch:
         packed before the first fetch waits (:meth:`_unpack`). Each batch's
         (cluster counts (rows, nlev), idxs, snrs) goes to its block's
         results, in row order, and the speculation learns each shard's
-        total."""
-        packs = [None if b is None else self._pack(
-            b["dev"], [(jobs[s], peaks[s], mp) for jobs, peaks, mp in wave
-                       if peaks[s] is not None])
-            for s, b in enumerate(blocks)]
-        for s, (b, pack) in enumerate(zip(blocks, packs)):
-            if pack is not None:
-                got = self._unpack(search, windows, s, len(blocks), b["dev"], *pack)
-                self._learn_total(sum(len(g[1]) for g in got))
-                b["results"].extend(got)
+        total. Runs as the span ``Wave-Fetch``."""
+        with trace_span("Wave-Fetch"):
+            trace_count("wave.rounds")
+            packs = [None if b is None else self._pack(
+                b["dev"], [(jobs[s], peaks[s], mp) for jobs, peaks, mp in wave
+                           if peaks[s] is not None])
+                for s, b in enumerate(blocks)]
+            for s, (b, pack) in enumerate(zip(blocks, packs)):
+                if pack is not None:
+                    got = self._unpack(search, windows, s, len(blocks), b["dev"], *pack)
+                    self._learn_total(sum(len(g[1]) for g in got))
+                    b["results"].extend(got)
 
     def _pack(self, dev, batches: list) -> tuple:
         """(batches, their slot arrays concatenated, the packed payload at
@@ -1335,7 +1396,8 @@ class PeasoupSearch:
         cfg = self.config
         nlev = cfg.nharmonics + 1
         max_peaks = batches[0][2]
-        words = _fetch(packed)
+        with trace_span("Fetch"):
+            words = _fetch(packed)
         n = slots[3].numel()
         cc = words[n : 2 * n].reshape(-1, nlev)
         cc0 = np.minimum(cc, np.int32(max_peaks))
@@ -1346,7 +1408,8 @@ class PeasoupSearch:
                    default=0)
         stream = words[2 * n :]
         if need > len(stream) // 2:  # the speculation missed: compact at the size needed
-            with device_context(dev):
+            with device_context(dev), trace_span("Fetch"):
+                trace_count("wave.recompactions")
                 stream = _fetch(compact_peaks_device(
                     slots[0], slots[1], slots[3], total_pad=_pow2(need)))
         self._learn_total(need)
@@ -1377,6 +1440,8 @@ class PeasoupSearch:
             for i in group:
                 jobs = [None] * nshards
                 jobs[s] = batches[i][0]
+                trace_count("rows.dispatched", len(jobs[s][1]))
+                trace_count("rows.redispatched", len(jobs[s][1]))
                 peaks = search(jobs, windows, nharms=cfg.nharmonics, max_peaks=new)[s]
                 again.append((batches[i][0], peaks, new))
             for i, got in zip(group, self._unpack(search, windows, s, nshards, dev,
@@ -1424,23 +1489,25 @@ class PeasoupSearch:
         timers = part.timers
         t0 = time.perf_counter()
         tel.set_stage("distilling")
-        dm_still = DMDistiller(cfg.freq_tol, keep_related=True)
-        harm_still = HarmonicDistiller(
-            cfg.freq_tol, cfg.max_harm, keep_related=True, fractional_harms=False
-        )
-        tel.gauge("candidates.per_dm_total", len(part.cands))
-        cands = dm_still.distill(part.cands)
-        tel.gauge("candidates.post_dm_distill", len(cands))
-        cands = harm_still.distill(cands)
-        tel.gauge("candidates.post_harmonic_distill", len(cands))
+        with trace_span("Distilling"):
+            dm_still = DMDistiller(cfg.freq_tol, keep_related=True)
+            harm_still = HarmonicDistiller(
+                cfg.freq_tol, cfg.max_harm, keep_related=True, fractional_harms=False
+            )
+            tel.gauge("candidates.per_dm_total", len(part.cands))
+            cands = dm_still.distill(part.cands)
+            tel.gauge("candidates.post_dm_distill", len(cands))
+            cands = harm_still.distill(cands)
+            tel.gauge("candidates.post_harmonic_distill", len(cands))
         timers["distilling"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         tel.set_stage("scoring")
-        scorer = CandidateScorer(
-            fil.tsamp, fil.cfreq, fil.foff, abs(fil.foff) * fil.nchans
-        )
-        scorer.score_all(cands)
+        with trace_span("Scoring"):
+            scorer = CandidateScorer(
+                fil.tsamp, fil.cfreq, fil.foff, abs(fil.foff) * fil.nchans
+            )
+            scorer.score_all(cands)
         timers["scoring"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

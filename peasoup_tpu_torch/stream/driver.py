@@ -57,6 +57,7 @@ from ..ops.singlepulse import default_widths
 from ..ops.streaming import make_stream_chunk_fn, stream_geometry
 from ..pipeline.single_pulse import _EVENT_DTYPE, candidates_from_clusters, cluster_events_fof
 from ..plan.dm_plan import DMPlan
+from ..utils.trace import trace_span
 from .queue import BoundedBlockQueue
 from .triggers import TriggerSink
 
@@ -408,14 +409,14 @@ class StreamingSearch:
                 )
             t0 = time.perf_counter()
             # the dispatch only: the card's time lands in "searching"
-            with torch.profiler.record_function("Dedisperse"):
+            with trace_span("Dedisperse"):
                 new = dedisperse(torch.from_numpy(window_in).to(dev), delays,
                                  plan.killmask, chunk, scale=scale)
             t1 = time.perf_counter()
             timers["dedispersion"] += t1 - t0
             emit_lo = valid_lo // dec
             emit_hi = (w // dec) if final else (chunk // dec)
-            with torch.profiler.record_function("SP-Chunk"):
+            with trace_span("SP-Chunk"):
                 ss, sw, ssn, sc = (
                     a.cpu().numpy()
                     for a in chunk_fn(tail, new, valid_lo, nvalid, emit_lo, emit_hi)

@@ -1,16 +1,24 @@
 """Per-scope device-time attribution from ``torch.profiler`` (the port's
 counterpart of the JAX package's tools/scope_trace.py).
 
-The drivers open ``torch.profiler.record_function`` scopes named like the
-JAX package's named scopes ("Dedisperse", "DM-Loop", "Spectrum-Chain",
+The drivers open spans (utils/trace.py:trace_span, ``record_function``
+scopes under a profiler) named like the JAX package's named scopes
+(:data:`JAX_SCOPES`: "Dedisperse", "DM-Loop", "Spectrum-Chain",
 "Acceleration-Loop", "Resample", "Harmonic summing", "Peaks", "SP-Chunk",
-"FDAS-Correlate"). Each CUDA kernel the profiler records is linked to the
-operator that launched it, and that operator's chain of enclosing scopes
+"FDAS-Correlate"), and the search's own parts (:data:`PORT_SPANS`).
+Each CUDA kernel the profiler records is linked to the operator that
+launched it, and that operator's chain of enclosing JAX-named scopes
 gives the kernel's scope path; summing device time by path gives a
 (time, launches) breakdown per stage, and :meth:`ScopeResult.kernel_table`
 names the kernels themselves, the port's hand-written ones under their
 own names (:data:`KERNEL_SYMBOLS`). On the CPU, where there is no device
 track, the operators' own CPU time stands in for device time.
+
+Each search run traced (a root span ``Search``) leaves its span table
+(utils/trace.py:RunTable) in :attr:`ScopeResult.spans`, and the device's
+idle gaps inside it, each part named by the innermost span open then, in
+:attr:`ScopeResult.idle_gaps`: the parts of the run that no kernel or copy
+covers (the union of their intervals; on the CPU, of the operators').
 
 On a card, Kineto drops the first kernel records of a profiler session
 as lying outside its capture window, once the process has run for a while
@@ -35,11 +43,19 @@ from __future__ import annotations
 
 import contextlib
 
-# the scopes the drivers open, as the JAX package names them
-SCOPES = (
+# the scopes the drivers open, as the JAX package names them: a kernel's
+# scope path is made of these
+JAX_SCOPES = (
     "Dedisperse", "DM-Loop", "Spectrum-Chain", "Acceleration-Loop", "Resample",
     "Harmonic summing", "Peaks", "SP-Chunk", "FDAS-Correlate", "Fold",
 )
+# the search's own spans (pipeline/search.py), read from its span tables
+PORT_SPANS = (
+    "Search", "Upload", "Whitening", "Wave-Fetch", "Fetch", "Search-Host",
+    "Distil-Rows", "Distil-Native", "Distil-Objects", "Distilling", "Scoring",
+)
+# every scope name the port opens
+SCOPES = JAX_SCOPES + PORT_SPANS
 
 # the one-element kernels that open a trace on a card
 WARMUP_SCOPE = "Profiler-Warmup"
@@ -101,6 +117,10 @@ class ScopeResult:
         self.events: list[tuple[str, float, str]] = []  # (scope path, us, kernel)
         self.launched: dict[str, int] = {}  # wrapper launches in the block
         self.lost: dict[str, int] = {}  # of those, launches the trace lacks
+        self.spans: list[dict] = []  # the traced runs' span tables (RunTable.as_dict)
+        self.window_s = 0.0  # the traced runs' wall seconds
+        self.busy_s = 0.0  # of those, the device's (union of its intervals)
+        self.idle_gaps: dict[str, float] = {}  # innermost span -> idle seconds
 
     @property
     def device_s(self) -> float:
@@ -182,11 +202,11 @@ def _in_warmup(evt) -> bool:
 
 
 def _scope_path(evt) -> str:
-    """The '/'-joined driver scopes enclosing ``evt``, outermost first."""
+    """The '/'-joined JAX-named scopes enclosing ``evt``, outermost first."""
     names = []
     e = evt
     while e is not None:
-        if e.name in SCOPES:
+        if e.name in JAX_SCOPES:
             names.append(e.name)
         e = e.cpu_parent
     return "/".join(reversed(names))
@@ -220,6 +240,48 @@ def parse_events(events, device: str) -> list[tuple[str, float, str]]:
     return rows
 
 
+def busy_intervals(events, device: str, t0_ns: int) -> list[tuple[int, int]]:
+    """The device's work in a profiler's FunctionEvents as [start, end)
+    unix nanoseconds (``t0_ns``: the trace's start): on a card its kernels
+    and copies (the ranges of ``record_function`` scopes, which the trace
+    also holds on the device's timeline, left out, and the warm-up's
+    launches); on the CPU its operators."""
+    from torch.autograd import DeviceType
+
+    out = []
+    if device == "cuda":
+        by_id = {e.id: e for e in events if e.device_type == DeviceType.CPU}
+        for e in events:
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+                continue
+            if _in_warmup(by_id.get(getattr(e, "linked_correlation_id", 0) or e.id)):
+                continue
+            out.append((e.time_range.start, e.time_range.end))
+    else:
+        out = [(e.time_range.start, e.time_range.end) for e in events
+               if e.device_type == DeviceType.CPU and e.name.startswith("aten::")]
+    return [(t0_ns + round(s * 1e3), t0_ns + round(t * 1e3)) for s, t in out]
+
+
+def fold_tables(res: ScopeResult, tables, busy: list[tuple[int, int]]) -> None:
+    """Fold the runs' span tables into ``res``: each table, and the device's
+    idle gaps inside each run, each part of a gap named by the innermost
+    span open then."""
+    from ..utils.trace import Innermost, gaps, union_length
+
+    for tab in tables:
+        lo, hi = tab.start_ns, tab.end_ns
+        clipped = [(max(s, lo), min(t, hi)) for s, t in busy if t > lo and s < hi]
+        host = Innermost(tab.intervals())
+        res.spans.append(tab.as_dict())
+        res.window_s += (hi - lo) / 1e9
+        res.busy_s += union_length(clipped) / 1e9
+        for gap in gaps(clipped, lo, hi):
+            for s, t, name in host.split(*gap):
+                name = name or "between spans"
+                res.idle_gaps[name] = res.idle_gaps.get(name, 0.0) + (t - s) / 1e9
+
+
 @contextlib.contextmanager
 def scope_trace(device: str = "cuda"):
     """Trace the with-block with ``torch.profiler`` and fill a
@@ -234,6 +296,7 @@ def scope_trace(device: str = "cuda"):
     from torch.profiler import ProfilerActivity, profile
 
     from .. import kernels
+    from ..utils.trace import recorded_runs, run_tables
 
     device = str(torch.device(device).type)
     res = ScopeResult(device)
@@ -244,11 +307,17 @@ def scope_trace(device: str = "cuda"):
         if device == "cuda":
             absorb_start_loss()
         before = dict(kernels.launches)
+        runs0 = recorded_runs()
         yield res
         if device == "cuda":
             torch.cuda.synchronize()
     res.launched = {k: n - before[k] for k, n in kernels.launches.items() if n > before[k]}
-    res.events = parse_events(prof.events(), device)
+    events = prof.events()
+    res.events = parse_events(events, device)
+    new = recorded_runs() - runs0
+    if new:
+        t0_ns = prof.profiler.kineto_results.trace_start_ns()
+        fold_tables(res, run_tables()[-new:], busy_intervals(events, device, t0_ns))
     if device == "cuda" and res.launched and not res.events:
         raise RuntimeError(
             "torch.profiler recorded no CUDA kernel of a run that launched "

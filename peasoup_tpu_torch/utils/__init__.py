@@ -4,6 +4,6 @@ wires XLA's persistent compilation cache, and the port compiles nothing
 per shape (each kernel library is built once per source hash, kernels.py).
 """
 
-from .trace import Stopwatch, trace_span
+from .trace import Stopwatch, trace_count, trace_span
 from .progress import ProgressBar
 from .debug import dump_buffer

@@ -1,0 +1,10 @@
+"""``distil_objects_s`` (s): the host wall seconds of the program's
+``Distil-Objects`` span (the per-DM distil's ``Candidate`` objects made
+for every harmonic survivor, ``pipeline/search.py:_distill_segmented``),
+mean over the window's observations."""
+
+from .upload_s import window_mean
+
+
+def read(ctx):
+    return window_mean(ctx, lambda t: t.wall_s("Distil-Objects"))

@@ -222,6 +222,24 @@ def test_measure_primitives():
         measure.device_busy_seconds(lambda: None, "cpu")
 
 
+def test_device_busy_counts_overlapping_work_once():
+    # made-up trace events: two kernels on two streams that overlap, a copy
+    # inside one of them, a later kernel, a scope's range on the device's
+    # timeline (an annotation, not work) and a host operator
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def ev(start, end, device=DeviceType.CUDA, note=False):
+        return SimpleNamespace(device_type=device, is_user_annotation=note,
+                               time_range=SimpleNamespace(start=start, end=end))
+
+    events = [ev(0.0, 10.0), ev(5.0, 15.0), ev(6.0, 7.0), ev(20.0, 22.5),
+              ev(0.0, 100.0, note=True), ev(30.0, 90.0, device=DeviceType.CPU)]
+    assert measure.busy_us(events) == 17.5  # durations summed would read 23.5
+    assert measure.busy_us([]) == 0.0
+
+
 def test_shape_ctx_and_dry_run():
     bucket = (16, 8, 1 << 15, 0.000256, 1400.0, -8.0)
     from peasoup_tpu.perf.warmup import shape_ctx_for_bucket as jax_shape_ctx
