@@ -26,7 +26,6 @@ come first, one JSON object per measurement after.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import statistics
@@ -62,27 +61,13 @@ def say(obj) -> None:
 def build(tmp: str) -> dict:
     """One shared library a variant, built at once; each one's resources
     printed."""
-    nvcc = kernels._nvcc()
-    procs = {
-        name: subprocess.Popen(
-            [nvcc, *kernels.NVCC_FLAGS, *(f"-D{m}" for m in macros),
-             "-o", os.path.join(tmp, f"{name}.so"), str(kernels.source("boxcar"))],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for name, macros in VARIANTS.items()
-    }
-    entries = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
-        lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
+    libs = kernels.build_variants(
+        "boxcar", {name: (kernels.source("boxcar"), macros) for name, macros in VARIANTS.items()},
+        tmp,
+    )
+    for name, lib in libs.items():
         say({"variant": name, "resources": kernels.boxcar_resources(lib)})
-        fn = lib.boxcar_best
-        fn.argtypes = kernels._ENTRIES["boxcar"][1]
-        fn.restype = ctypes.c_int
-        entries[name] = fn
-    return entries
+    return {name: lib.boxcar_best for name, lib in libs.items()}
 
 
 def time_variants(entries: dict) -> None:

@@ -51,7 +51,11 @@ Phases, each fatal on failure:
      allocates beside its output (no T or Z scratch); resample and
      harmpeaks also at the tutorial grid's shapes (``other_shapes`` in
      the kernels line), dedisperse also at the single-pulse grid's
-     179-trial shape and spchain also with `spsearch --n_widths 16`'s
+     179-trial shape and at the benchmark surveys' channel layouts
+     (DEDISP_BANDS: 64 channels; HTRU-South's 1024 with the top 154
+     killed, so the first chunk sums 6 channels; GBNCC's 4096; each on
+     fewer DM trials and samples than a survey's, with every chunk staged
+     by 16-byte loads as the launch's counters say) and spchain also with `spsearch --n_widths 16`'s
      bank (widths to 32,768, a ring whose windows wrap; both
      ``other_shapes``). Kernels whose plain version is bitwise are held
      bit for bit (a zero's sign included). peaks and harmpeaks also print
@@ -818,6 +822,57 @@ def dedisperse_check(x, nbits: int, delays, kill, out_n: int) -> tuple:
                     2.0 * ndm * out_n * nchans),
         shape=f"({x.shape[0]}, {nchans}) u8 -> ({ndm}, {out_n}) u8",
     )
+
+
+# dedisperse at the benchmark surveys' channel layouts (portbench/configs):
+# label, header, channels killed from the top of the band, DM end, the
+# plan's last DM trials taken (0: all), samples
+DEDISP_BANDS = (
+    ("64 channels", dict(nchans=64, fch1=1581.8, foff=-6.25, tsamp=6.4e-5, nbits=2),
+     0, 60.0, 0, 300_000),
+    ("htru_hilat, 870 of 1024 channels",
+     dict(nchans=1024, fch1=1581.8046875, foff=-0.390625, tsamp=6.4e-5, nbits=2),
+     154, 1000.0, 40, 120_000),
+    ("gbncc, 4096 channels",
+     dict(nchans=4096, fch1=399.98779296875, foff=-0.0244140625, tsamp=8.192e-5, nbits=8),
+     0, 100.0, 24, 60_000),
+)
+
+
+def dedisperse_bands_phase(dev: torch.device) -> dict:
+    """dedisperse at each of DEDISP_BANDS on random samples: every chunk
+    of the launch staged by 16-byte loads (its counters, under a
+    profiler), and the trials bitwise its plain version's
+    (:func:`dedisperse_check`). Returns each band's check record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from peasoup_tpu_torch.utils.trace import trace_span
+
+    out = {}
+    for label, h, nkill, dm_end, ndm, nsamps in DEDISP_BANDS:
+        keep = (np.arange(h["nchans"]) >= nkill).astype(np.int32)
+        plan = DMPlan.create(nsamps=nsamps, nchans=h["nchans"], tsamp=h["tsamp"],
+                             fch1=h["fch1"], foff=h["foff"], dm_start=0.0, dm_end=dm_end,
+                             killmask=keep)
+        delays = plan.delay_samples()
+        if ndm:  # the plan's last trials: its largest delays, in the search's tiles
+            delays = delays[-ndm:]
+        g = torch.Generator(device=dev).manual_seed(11)
+        x = torch.randint(0, 1 << h["nbits"], (nsamps, h["nchans"]), generator=g,
+                          dtype=torch.uint8, device=dev)
+        with profile(activities=[ProfilerActivity.CPU]):
+            with trace_span("Search", root=True) as table:
+                dedisperse(x, delays, plan.killmask, plan.out_nsamps)
+        chunks = table.count("dedisp.chunks")
+        require(chunks > 0 and table.count("dedisp.chunks_wide") == chunks,
+                f"dedisperse at {label}: every chunk staged by 16-byte loads")
+        _, rec = dedisperse_check(x, h["nbits"], delays, plan.killmask, plan.out_nsamps)
+        out[label] = dict(rec, path=label)
+        say(f"dedisperse ({label}): {rec['shape']}, {int(plan.killmask.sum())} channels "
+            f"kept, {chunks} chunks staged by 16-byte loads: {rec['ms']:.4f} ms kernel, "
+            f"{rec['plain_ms']:.4f} ms plain, max |err| {rec['max_abs_err']}")
+        del x
+    return out
 
 
 def kernel_phase(dev: torch.device, fil, cfg: SearchConfig, shapes: dict) -> dict:
@@ -4640,6 +4695,9 @@ def main() -> int:
             if label == "big grid":
                 for name, c in kernel_phase(dev, fil, cfg, run["shapes"]).items():
                     checks[name] = dict(c, path=label)
+                checks["dedisperse"]["other_shapes"] = [
+                    other_shape(c) for c in dedisperse_bands_phase(dev).values()
+                ]
             else:
                 binary_checks(run, plan, fil.tsamp, outdir)
                 checks["resample"] = dict(

@@ -5,17 +5,20 @@
 // reads x[t + delay, c]) compile this one copy.
 //
 // A block owns kTrials DM trials and kTile output samples t0 .. t0+kTile-1.
-// The kept channels go in chunks of 2^log_chunk (at most 16). For a chunk
-// the host gives lo, the least delay of the block's trials over the chunk's
-// channels, and spread, the largest less lo; each trial's delay on each
-// channel of the chunk arrives as rel = delay - lo, 16 bits. The block
-// stages the input rows t0 + lo .. t0 + lo + window_rows(spread) - 1 of the
-// chunk's channels channel-major in shared memory (one row of bytes a
-// channel, pitch_words 32-bit words apart), so the samples t .. t+3 of one
-// channel for one trial are the four bytes at window offset (t - t0) + rel.
-// Thread tid sums the samples group_sample(tid, g) .. + 3 of each group g:
-// consecutive lanes read consecutive words, and a warp's rel, hence its
-// byte shift, is one value.
+// The channels go in chunks of 2^log_chunk (at most 16) neighbouring
+// channels of the row, each starting on a multiple of its width; only the
+// chunks that hold a kept channel are walked, and each carries the mask of
+// its kept channels. For a chunk the host gives lo, the least delay of the
+// block's trials over the chunk's kept channels, and spread, the largest
+// less lo; each trial's delay on each kept channel of the chunk arrives as
+// rel = delay - lo, 16 bits. The block stages the input rows t0 + lo .. t0
+// + lo + window_rows(spread) - 1 of the chunk's channels channel-major in
+// shared memory (one row of bytes a channel, pitch_words 32-bit words
+// apart; a killed channel's row is staged where that costs nothing and is
+// never read), so the samples t .. t+3 of one channel for one trial are the
+// four bytes at window offset (t - t0) + rel. Thread tid sums the samples
+// group_sample(tid, g) .. + 3 of each group g: consecutive lanes read
+// consecutive words, and a warp's rel, hence its byte shift, is one value.
 
 #pragma once
 
@@ -97,8 +100,8 @@ PEASOUP_HD uint32_t byte_perm(uint32_t x, uint32_t y, uint32_t s) {
 #endif
 }
 
-// A dense chunk (16 neighbouring channels, 16-byte aligned in the row) is
-// staged a quad of rows at a time: one 16-byte load per row, then the 4x4
+// A chunk staged by 16-byte loads (wide_staging) is staged a quad of rows
+// at a time: one 16-byte load per row, then the 4x4
 // byte transpose of each 4-channel word of the four rows gives, per
 // channel, one window word of four consecutive samples. a_u holds channels
 // 4g..4g+3 of row u; out[i] the rows 0..3 of channel 4g+i.
@@ -131,11 +134,20 @@ constexpr int kTileWords = kTile / 4;
 PEASOUP_HD int out_word(int tid, int g) { return group_sample(tid, g) / 4; }
 PEASOUP_HD int head_bytes(int64_t g_addr) { return static_cast<int>((4 - (g_addr & 3)) & 3); }
 
-// a chunk whose 16 kept channels are neighbours starting on a 16-byte
-// boundary of a row of nchans (a multiple of 16) bytes
-PEASOUP_HD bool dense_chunk(const int* chans, int c0, int kc, int log_chunk, int nchans) {
-  return log_chunk == 4 && kc == 16 && nchans % 16 == 0 && chans[c0] % 16 == 0 &&
-         chans[c0 + 15] == chans[c0] + 15;
+// a chunk staged by 16-byte loads: 16 channels wide, each row of nchans
+// (a multiple of 16) bytes starting on a 16-byte boundary of the input at
+// x; any other chunk is staged a byte at a time
+PEASOUP_HD bool wide_staging(int log_chunk, int nchans, uintptr_t x) {
+  return log_chunk == kMaxLogChunk && nchans % 16 == 0 && (x & 15u) == 0;
+}
+
+// the lowest set bit of a non-zero mask: the next kept channel of a chunk
+PEASOUP_HD int low_bit(uint32_t m) {
+#if defined(__CUDA_ARCH__)
+  return __ffs(m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
 }
 
 }  // namespace ddmap

@@ -9,14 +9,19 @@
 //
 // Design (dedisp_map.cuh has the maps). The filterbank is read as it lies,
 // time-major (T, C) u8: no transposed copy. A block owns 16 DM trials and
-// 2,048 output samples and walks the kept channels in chunks of up to 16.
-// For each chunk it stages the input rows its trials reach (the time window
-// plus the chunk's delay spread) channel-major in shared memory, one byte
-// per sample, together with each trial's delay on each channel, 16 bits
-// relative to the chunk's least delay. A chunk of 16 neighbouring channels
-// on a 16-byte boundary (every chunk of a filterbank with nothing killed
-// and a multiple of 16 channels) is staged with one 16-byte load a row and
-// a 4x4 byte transpose in registers; any other chunk a byte at a time.
+// 2,048 output samples and walks the band in chunks of up to 16
+// neighbouring channels, cut on multiples of the chunk's width, skipping
+// the chunks that hold no kept channel. For each chunk it stages the input
+// rows its trials reach (the time window plus the spread of the chunk's
+// kept channels' delays) channel-major in shared memory, one byte per
+// sample, together with each trial's delay on each channel, 16 bits
+// relative to the chunk's least delay. Where rows are 16-byte aligned (a
+// multiple of 16 channels and an aligned input: every chunk of the main
+// path's filterbanks, whatever the kill mask) a 16-channel chunk is staged
+// with one 16-byte load a row and a 4x4 byte transpose in registers, its
+// killed channels with the rest; any other chunk a byte at a time, its kept
+// channels only. The sums walk the chunk's kept channels only (a mask, the
+// same for the whole block, so no warp diverges).
 // Each thread then sums 8 samples (two groups of 4) for each of the 16
 // trials: per trial and channel it reads two neighbouring words, shifts
 // the four samples it needs out of them and adds them as two pairs of
@@ -47,15 +52,35 @@ constexpr int kStageLoads = 8;
 
 struct Args {
   const uint8_t* x;        // (t_in, nchans) u8
-  const int32_t* chans;    // (nkept,) kept channels, ascending
+  const int2* chunks;      // (nchunks,) a chunk's first channel, mask of its kept channels
   const uint4* rel;        // (ntiles, nchunks, 2^log_chunk) records of 8 u16
   const int2* lo_spread;   // (ntiles, nchunks) least delay, spread
   uint8_t* out;            // (ndm, out_n) u8
   int64_t t_in, out_n;
-  int nchans, nkept, ndm, log_chunk, nchunks, pitch, ntime;
+  int nchans, ndm, log_chunk, nchunks, pitch, ntime;
   float scale;
   int apply_scale;
+  bool wide;               // ddmap::wide_staging
 };
+
+#ifdef DEDISP_STAMPS
+// A measuring build (dedisp_probe.py): each warp's clock64() cycles by
+// phase (staging, waiting at a barrier, summing, the output tile), summed
+// over the launch's warps, and the number of warps. Not the main path's
+// build.
+enum { kStage, kBarrier, kSums, kOut, kWarps, kStamps };
+__device__ unsigned long long* g_stamps;
+#define STAMP(k)                               \
+  do {                                         \
+    const long long now = clock64();           \
+    cyc[k] += static_cast<unsigned long long>(now - t_mark); \
+    t_mark = now;                              \
+  } while (0)
+#else
+#define STAMP(k) \
+  do {           \
+  } while (0)
+#endif
 
 __device__ __forceinline__ uint32_t word(const uint4& v, int g) {
   return g == 0 ? v.x : g == 1 ? v.y : g == 2 ? v.z : v.w;
@@ -72,7 +97,10 @@ __global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
   const int d0 = tile * kTrials;
   const int nd = min(kTrials, a.ndm - d0);
   const int chunk = 1 << a.log_chunk;
-  const bool x_aligned = (reinterpret_cast<uintptr_t>(a.x) & 15u) == 0;
+#ifdef DEDISP_STAMPS
+  unsigned long long cyc[kStamps] = {};
+  long long t_mark = clock64();
+#endif
 
   for (int tt = blockIdx.y; tt < a.ntime; tt += gridDim.y) {
     const int64_t t0 = static_cast<int64_t>(tt) * kTile;
@@ -89,18 +117,18 @@ __global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
     }
     int in_lanes = 0;  // channels summed into the 16-bit lanes
     for (int ck = 0; ck < a.nchunks; ++ck) {
-      const int c0 = ck << a.log_chunk;
-      const int kc = min(chunk, a.nkept - c0);
+      const int2 cm = a.chunks[ck];  // first channel, kept mask
+      const uint32_t kept = static_cast<uint32_t>(cm.y);
       const int2 ls = a.lo_spread[tile * a.nchunks + ck];
       const int rows = ddmap::window_rows(ls.y);
       if (tid < chunk * kRecs) {
         srel[tid] = a.rel[(static_cast<int64_t>(tile) * a.nchunks + ck) * chunk * kRecs + tid];
       }
       const int64_t row0 = t0 + ls.x;  // the window's first input row
-      if (x_aligned && ddmap::dense_chunk(a.chans, c0, kc, a.log_chunk, a.nchans)) {
+      if (a.wide) {
         // a quad of rows a thread: four 16-byte loads, a byte transpose,
         // one word a channel
-        const uint8_t* src = a.x + row0 * a.nchans + a.chans[c0];
+        const uint8_t* src = a.x + row0 * a.nchans + cm.x;
         for (int q = tid; 4 * q < rows; q += kThreads) {
           uint4 v[4];
 #pragma unroll
@@ -124,15 +152,15 @@ __global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
         int cl, r;
         ddmap::stage_coords(tid, a.log_chunk, cl, r);
         const int step = kThreads >> a.log_chunk;
-        const int64_t chan = cl < kc ? a.chans[c0 + cl] : 0;
-        const uint8_t* src = a.x + row0 * a.nchans + chan;
+        const bool live = (kept >> cl) & 1u;
+        const uint8_t* src = a.x + row0 * a.nchans + (live ? cm.x + cl : 0);
         uint8_t* dst = winb + static_cast<int64_t>(cl) * a.pitch * 4;
-        for (; r < rows; r += kStageLoads * step) {
+        for (; live && r < rows; r += kStageLoads * step) {
           uint8_t v[kStageLoads];
 #pragma unroll
           for (int u = 0; u < kStageLoads; ++u) {
             const int ru = r + u * step;
-            const bool ok = cl < kc && ru < rows && row0 + ru < a.t_in;
+            const bool ok = ru < rows && row0 + ru < a.t_in;
             v[u] = ok ? __ldg(src + static_cast<int64_t>(ru) * a.nchans) : uint8_t{0};
           }
 #pragma unroll
@@ -141,8 +169,11 @@ __global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
           }
         }
       }
+      STAMP(kStage);
       __syncthreads();
-      for (int c = 0; c < kc; ++c) {
+      STAMP(kBarrier);
+      for (uint32_t m = kept; m != 0u; m &= m - 1u) {
+        const int c = ddmap::low_bit(m);
         uint32_t rec[kTrials / 2];
 #pragma unroll
         for (int e = 0; e < kRecs; ++e) {
@@ -166,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
           }
         }
       }
-      in_lanes += kc;
+      in_lanes += popcount32(kept);
       if (kWide && (in_lanes + chunk > ddmap::kLaneChannels || ck + 1 == a.nchunks)) {
 #pragma unroll
         for (int i = 0; i < kTrials; ++i) {
@@ -181,7 +212,9 @@ __global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
         }
         in_lanes = 0;
       }
+      STAMP(kSums);
       __syncthreads();
+      STAMP(kBarrier);
     }
     // the output tile through shared memory (the window is free after the
     // last chunk's barrier), so a row goes out in aligned 32-bit words
@@ -225,7 +258,14 @@ __global__ void __launch_bounds__(kThreads) dedisperse_kernel(const Args a) {
       }
     }
     __syncthreads();
+    STAMP(kOut);
   }
+#ifdef DEDISP_STAMPS
+  if ((tid & 31) == 0) {
+    cyc[kWarps] = 1;
+    for (int k = 0; k < kStamps; ++k) atomicAdd(g_stamps + k, cyc[k]);
+  }
+#endif
 }
 
 template <bool kWide>
@@ -247,23 +287,22 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// The tables (rel, lo_spread, chans) come from ops/dedisperse.py:_tables.
+// The tables (chunks, rel, lo_spread) come from ops/dedisperse.py:_tables.
 extern "C" int dedisperse_u8(const void* x, long long t_in, int nchans,
-                             const void* chans, int nkept, const void* rel,
+                             const void* chunks, int nkept, const void* rel,
                              const void* lo_spread, int log_chunk, int nchunks,
                              int pitch, void* out, int ndm, long long out_nsamps,
                              float scale, int apply_scale, void* stream) {
   if (out_nsamps <= 0 || ndm <= 0) return static_cast<int>(cudaSuccess);
   Args a;
   a.x = static_cast<const uint8_t*>(x);
-  a.chans = static_cast<const int32_t*>(chans);
+  a.chunks = static_cast<const int2*>(chunks);
   a.rel = static_cast<const uint4*>(rel);
   a.lo_spread = static_cast<const int2*>(lo_spread);
   a.out = static_cast<uint8_t*>(out);
   a.t_in = t_in;
   a.out_n = out_nsamps;
   a.nchans = nchans;
-  a.nkept = nkept;
   a.ndm = ndm;
   a.log_chunk = log_chunk;
   a.nchunks = nchunks;
@@ -271,6 +310,35 @@ extern "C" int dedisperse_u8(const void* x, long long t_in, int nchans,
   a.ntime = static_cast<int>((out_nsamps + kTile - 1) / kTile);
   a.scale = scale;
   a.apply_scale = apply_scale;
+  a.wide = ddmap::wide_staging(log_chunk, nchans, reinterpret_cast<uintptr_t>(x));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return nkept > ddmap::kLaneChannels ? launch<true>(a, s) : launch<false>(a, s);
 }
+
+// Whether dedisperse_u8 stages the chunks of an input at x with 16-byte
+// loads (ddmap::wide_staging), for the wrapper's counters: 1 or 0.
+extern "C" int dedisperse_wide_staging(int log_chunk, int nchans, const void* x) {
+  return ddmap::wide_staging(log_chunk, nchans, reinterpret_cast<uintptr_t>(x)) ? 1 : 0;
+}
+
+// The kernel's resources as the runtime reports them for the loaded binary
+// (cudaFuncGetAttributes), for the variant past 256 kept channels (wide 1)
+// and the one below (wide 0): registers a thread, local memory a thread
+// (spills), static shared memory a block. Returns a CUDA error.
+extern "C" int dedisperse_attributes(int wide, int* regs, int* local_bytes, int* shared_bytes) {
+  cudaFuncAttributes f;
+  const cudaError_t err = wide ? cudaFuncGetAttributes(&f, dedisperse_kernel<true>)
+                               : cudaFuncGetAttributes(&f, dedisperse_kernel<false>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = f.numRegs;
+  *local_bytes = static_cast<int>(f.localSizeBytes);
+  *shared_bytes = static_cast<int>(f.sharedSizeBytes);
+  return 0;
+}
+
+#ifdef DEDISP_STAMPS
+// Where the measuring build sums its cycles: kStamps u64 counters on the card.
+extern "C" int dedisperse_stamps_to(void* counters) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_stamps, &counters, sizeof(counters)));
+}
+#endif

@@ -151,25 +151,78 @@ def build(names=KERNELS) -> dict[str, float]:
     return times
 
 
-def boxcar_resources(lib: ctypes.CDLL | None = None) -> dict[str, dict[str, int]]:
-    """The boxcar kernel's registers a thread, local memory a thread
-    (spills) and static shared memory a block, as the runtime reports them
-    for the loaded binary (``cudaFuncGetAttributes``, through the
-    library's ``boxcar_attributes``), for its contiguous ring and its
-    wrapping one. ``lib``: another build of ``boxcar.cu`` (default: the
-    port's)."""
-    fn = (lib or _load("boxcar")).boxcar_attributes
+def _resources(fn, variants) -> dict[str, dict[str, int]]:
+    """Registers a thread, local memory a thread (spills) and static shared
+    memory a block of each of a kernel's template variants, as the runtime
+    reports them for the loaded binary (``cudaFuncGetAttributes``, through
+    the library's ``<kernel>_attributes(variant, ...)``)."""
     fn.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = _I
     out = {}
-    for wrap, ring in ((0, "contiguous ring"), (1, "wrapping ring")):
+    for variant, label in variants:
         vals = [ctypes.c_int(0) for _ in range(3)]
-        rc = fn(wrap, *(ctypes.byref(v) for v in vals))
+        rc = fn(variant, *(ctypes.byref(v) for v in vals))
         if rc != 0:
-            raise RuntimeError(f"boxcar_attributes returned CUDA error {rc}")
-        out[ring] = dict(zip(("registers", "local_bytes", "static_shared_bytes"),
-                             (v.value for v in vals)))
+            raise RuntimeError(f"{fn.__name__} returned CUDA error {rc}")
+        out[label] = dict(zip(("registers", "local_bytes", "static_shared_bytes"),
+                              (v.value for v in vals)))
     return out
+
+
+def boxcar_resources(lib: ctypes.CDLL | None = None) -> dict[str, dict[str, int]]:
+    """:func:`_resources` of the boxcar kernel, for its contiguous ring and
+    its wrapping one. ``lib``: another build of ``boxcar.cu`` (default: the
+    port's)."""
+    return _resources((lib or _load("boxcar")).boxcar_attributes,
+                      ((0, "contiguous ring"), (1, "wrapping ring")))
+
+
+def dedisperse_resources(lib: ctypes.CDLL | None = None) -> dict[str, dict[str, int]]:
+    """:func:`_resources` of the dedisperse kernel, for its variant past 256
+    kept channels (32-bit sums beside the 16-bit lanes) and the one below.
+    ``lib``: another build of ``dedisperse.cu`` (default: the port's)."""
+    return _resources((lib or _load("dedisperse")).dedisperse_attributes,
+                      ((1, "past 256 channels"), (0, "to 256 channels")))
+
+
+def dedisperse_wide_staging(log_chunk: int, nchans: int, x_ptr: int) -> bool:
+    """Whether the dedisperse kernel stages the chunks of an input at
+    address ``x_ptr`` with 16-byte loads, as its C entry decides it
+    (``dedisp_map.cuh:wide_staging``, through ``dedisperse_wide_staging``)."""
+    fn = _load("dedisperse").dedisperse_wide_staging
+    fn.argtypes = [_I, _I, _P]
+    fn.restype = _I
+    return bool(fn(log_chunk, nchans, x_ptr))
+
+
+def build_variants(name: str, builds: dict, tmp: str) -> dict[str, ctypes.CDLL]:
+    """Builds of kernel ``name`` outside the port's own (for probes that
+    measure variants): ``builds`` maps a label to (source, macros), a
+    ``.cu`` file compiled against ``csrc/``'s headers and the macros nvcc
+    defines for it. One nvcc a build, all started together, each library
+    written into the directory ``tmp``. Returns the loaded libraries by
+    label, each with the kernel's C entry typed as :func:`launch` types it."""
+    nvcc = _nvcc()
+    procs = {
+        label: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(f"-D{m}" for m in macros), "-I", str(CSRC),
+             "-o", os.path.join(tmp, f"{label}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for label, (src, macros) in builds.items()
+    }
+    symbol, argtypes = _ENTRIES[name]
+    libs = {}
+    for label, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on build {label} of {name}:\n{out}")
+        lib = ctypes.CDLL(os.path.join(tmp, f"{label}.so"))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        libs[label] = lib
+    return libs
 
 
 def _load(name: str) -> ctypes.CDLL:

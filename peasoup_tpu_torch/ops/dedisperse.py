@@ -125,47 +125,65 @@ def _pitch_words(max_spread: int) -> int:
     return ((TILE + max_spread + 4 + 3) // 4) | 1
 
 
-def _tables(delays: np.ndarray, chans: np.ndarray) -> dict:
-    """The kernel's per-block tables (csrc/dedisp_map.cuh): for each tile of
-    TRIALS DM trials and each chunk of 2^log_chunk kept channels, the least
-    delay ``lo`` and the spread of the rest above it, and each trial's
-    delay on each channel less ``lo`` as 16 bits, a record of TRIALS per
-    channel. Chunks are as wide as shared memory allows, up to 16 channels."""
+def _tables(delays: np.ndarray, chans: np.ndarray, nchans: int) -> dict:
+    """The kernel's per-block tables (csrc/dedisp_map.cuh). The band is cut
+    into chunks of 2^log_chunk neighbouring channels from multiples of that
+    width, and the chunks that hold a kept channel are the kernel's:
+    ``chunks`` gives each one's first channel and the mask of its kept
+    channels. For each tile of TRIALS DM trials and each chunk, the least
+    delay ``lo`` over the chunk's kept channels and the spread of the rest
+    above it, and each trial's delay on each channel less ``lo`` as 16 bits
+    (0 on a killed channel, which the kernel never reads), a record of
+    TRIALS per channel. Chunks are as wide as shared memory allows, up to
+    16 channels."""
     ndm = delays.shape[0]
-    nkept = len(chans)
     ntiles = -(-ndm // TRIALS)
-    dk = delays[:, chans].astype(np.int64)
+    kept = np.zeros(nchans, bool)
+    kept[chans] = True
     # padding trials repeat the last one, which moves no tile's least or
     # largest delay; the kernel writes no padding trial
-    dk = np.concatenate([dk, np.repeat(dk[-1:], ntiles * TRIALS - ndm, axis=0)])
+    d = delays.astype(np.int32, copy=False)
+    d = np.concatenate([d, np.repeat(d[-1:], ntiles * TRIALS - ndm, axis=0)])
     for log_chunk in range(MAX_LOG_CHUNK, -1, -1):
         chunk = 1 << log_chunk
-        nchunks = -(-nkept // chunk)
-        if nchunks == 0:
-            lo = spread = np.zeros((ntiles, 0), np.int64)
-            rel = np.zeros((ntiles, 0, chunk, TRIALS), np.uint16)
-        else:
-            kp = np.concatenate(
-                [dk, np.repeat(dk[:, -1:], nchunks * chunk - nkept, axis=1)], axis=1
-            ).reshape(ntiles, TRIALS, nchunks, chunk)
-            lo = kp.min(axis=(1, 3))
-            spread = kp.max(axis=(1, 3)) - lo
-            rel = (kp - lo[:, None, :, None]).transpose(0, 2, 3, 1)
+        nraw = -(-nchans // chunk)
+        pad = nraw * chunk - nchans
+        keep = np.pad(kept, (0, pad)).reshape(nraw, chunk)
+        live = np.flatnonzero(keep.any(axis=1))
+        keep = keep[live]
+        nchunks = len(live)
+        dk = np.pad(d, ((0, 0), (0, pad))).reshape(ntiles, TRIALS, nraw, chunk)[:, :, live]
+        on = keep[None, None]
+        lo = dk.min(axis=(1, 3), where=on, initial=np.iinfo(np.int32).max)
+        spread = dk.max(axis=(1, 3), where=on, initial=0) - lo
+        rel = np.where(on, dk - lo[:, None, :, None], 0).transpose(0, 2, 3, 1)
         max_spread = int(spread.max()) if spread.size else 0
         pitch = _pitch_words(max_spread)
         # the kernel's shared memory: the records, then the larger of the
         # window and the output tile
         smem = (2 << MAX_LOG_CHUNK) * TRIALS + max(chunk * pitch * 4, TRIALS * TILE + 4)
         if max_spread <= 0xFFFF and smem <= SMEM_BYTES:
+            mask = (keep << np.arange(chunk)).sum(axis=1)
             return dict(
+                chunks=np.stack([live * chunk, mask], axis=-1).astype(np.int32, order="C"),
                 rel=np.ascontiguousarray(rel, dtype=np.uint16),
-                lo_spread=np.stack([lo, spread], axis=-1).astype(np.int32),
+                lo_spread=np.stack([lo, spread], axis=-1).astype(np.int32, order="C"),
                 log_chunk=log_chunk, nchunks=nchunks, pitch=pitch,
             )
     raise ValueError(
         f"the delays of one DM tile spread over {max_spread} samples on one "
         "channel: past what the dedisperse kernel stages"
     )
+
+
+def _count_chunks(tab: dict, ndm: int, out_nsamps: int, wide: bool) -> None:
+    """Counters ``dedisp.chunks``, the (DM tile, chunk, time tile) windows
+    a launch on tables ``tab`` stages, and ``dedisp.chunks_wide``, those
+    staged with 16-byte loads (all where ``wide``, as the kernel's entry
+    decides it, else none)."""
+    n = -(-ndm // TRIALS) * tab["nchunks"] * -(-out_nsamps // TILE)
+    trace_count("dedisp.chunks", n)
+    trace_count("dedisp.chunks_wide", n if wide else 0)
 
 
 def dedisperse(
@@ -180,7 +198,8 @@ def dedisperse(
     ``delays`` (D, C) and ``killmask`` (C,) are host arrays (the plan's),
     checked and turned into the kernel's tables on the host. A CUDA
     ``fil_tc`` goes through the dedisperse kernel, a CPU one through the
-    plain version."""
+    plain version. Under a profiler a launch counts the chunks it stages
+    (:func:`_count_chunks`)."""
     delays = _host(delays, "delays")
     killmask = _host(killmask, "killmask")
     if fil_tc.device.type == "cpu":
@@ -205,15 +224,17 @@ def dedisperse(
     out = torch.empty((ndm, out_nsamps), dtype=torch.uint8, device=fil_tc.device)
     if ndm == 0 or out_nsamps <= 0:
         return out
-    buf, geom = _device_tables(
+    tab, buf, geom = _device_tables(
         delays.astype(np.int32, copy=False).tobytes(), delays.shape, chans.tobytes(),
         fil_tc.device,
     )
+    _count_chunks(tab, ndm, out_nsamps,
+                  kernels.dedisperse_wide_staging(tab["log_chunk"], nchans, fil_tc.data_ptr()))
     base = buf.data_ptr()
     kernels.launch(
-        "dedisperse", fil_tc.data_ptr(), t_in, nchans, base + geom["chans_at"],
-        len(chans), base, base + geom["lo_spread_at"], geom["log_chunk"],
-        geom["nchunks"], geom["pitch"], out.data_ptr(), ndm, out_nsamps,
+        "dedisperse", fil_tc.data_ptr(), t_in, nchans, base + geom["chunks_at"],
+        len(chans), base, base + geom["lo_spread_at"], tab["log_chunk"],
+        tab["nchunks"], tab["pitch"], out.data_ptr(), ndm, out_nsamps,
         float(scale), int(scale != 1.0), stream_ptr(fil_tc.device),
         shape=(t_in, nchans, ndm, out_nsamps),
     )
@@ -223,20 +244,16 @@ def dedisperse(
 @lru_cache(maxsize=4)
 def _device_tables(delay_bytes: bytes, shape: tuple, chan_bytes: bytes, device):
     """:func:`_tables` of the delays and kept channels (given as bytes, so
-    a plan's tables are built and uploaded once a process), as one device
-    buffer: the records (16-byte aligned), then lo/spread, then the kept
-    channels; and the byte offsets and geometry the kernel takes."""
+    a plan's tables are built and uploaded once a process), and one device
+    buffer of them: the records (16-byte aligned), then lo/spread, then the
+    chunks; and the byte offsets of the last two."""
     delays = np.frombuffer(delay_bytes, dtype=np.int32).reshape(shape)
-    chans = np.frombuffer(chan_bytes, dtype=np.int32)
-    tab = _tables(delays, chans)
+    tab = _tables(delays, np.frombuffer(chan_bytes, dtype=np.int32), shape[1])
     rel32 = tab["rel"].reshape(-1).view(np.int32)
     lo_spread = tab["lo_spread"].reshape(-1)
-    buf = torch.from_numpy(np.concatenate([rel32, lo_spread, chans])).to(device)
-    geom = dict(
-        lo_spread_at=4 * rel32.size, chans_at=4 * (rel32.size + lo_spread.size),
-        log_chunk=tab["log_chunk"], nchunks=tab["nchunks"], pitch=tab["pitch"],
-    )
-    return buf, geom
+    buf = torch.from_numpy(np.concatenate([rel32, lo_spread, tab["chunks"].reshape(-1)])).to(device)
+    geom = dict(lo_spread_at=4 * rel32.size, chunks_at=4 * (rel32.size + lo_spread.size))
+    return tab, buf, geom
 
 
 def dedisperse_host(

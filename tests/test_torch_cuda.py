@@ -94,6 +94,39 @@ def test_dedisperse(dev, c, d, t, spread, scale, full):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("case", ["htru_band", "scattered", "nchans_1000", "unaligned"])
+def test_dedisperse_staging(dev, case):
+    # htru_hilat's band (channels 154-1023 kept) and a scattered kill mask:
+    # every chunk staged by 16-byte loads, as the wrapper counts under a
+    # profiler; 1000 channels, and an aligned band's view one byte on, by
+    # byte loads; each bitwise the plain version
+    from torch.profiler import ProfilerActivity, profile
+
+    from peasoup_tpu_torch.utils.trace import trace_span
+
+    rng = np.random.default_rng(len(case))
+    c = 1000 if case == "nchans_1000" else 1024
+    t, d = 9000, 37
+    k = np.linspace(1.0, 0.0, c) ** 2
+    delays = np.rint(np.sort(rng.uniform(0, 1, d))[:, None] * k * 700).astype(np.int32)
+    kill = (np.arange(c) >= 154 if case in ("htru_band", "unaligned")
+            else rng.random(c) >= 0.3).astype(np.int32)
+    fil = rng.integers(0, 4, size=(t + 1, c)).astype(np.uint8)
+    flat = torch.from_numpy(fil).to(dev).reshape(-1)
+    at = 1 if case == "unaligned" else 0
+    x = flat[at : at + t * c].view(t, c)
+    out_nsamps = t - int(delays.max())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with trace_span("Search", root=True) as table:
+            got = dedisperse.dedisperse(x, delays, kill, out_nsamps, scale=0.25)
+    want = dedisperse.dedisperse_block(x, delays, kill, out_nsamps=out_nsamps, scale=0.25)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    n = table.count("dedisp.chunks")
+    assert n > 0
+    assert table.count("dedisp.chunks_wide") == (n if case in ("htru_band", "scattered") else 0)
+
+
 def test_resample(dev):
     rng = np.random.default_rng(4)
     d, n = 4, 100003  # odd N

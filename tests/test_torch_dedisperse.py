@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from peasoup_tpu.ops.dedisperse import (
     dedisperse_block as jax_dedisperse_block,
@@ -18,6 +19,7 @@ from peasoup_tpu.ops.dedisperse import (
 from peasoup_tpu.ops.pallas.dedisperse import dedisperse_pallas
 from peasoup_tpu.plan.dm_plan import delay_table
 from peasoup_tpu_torch.ops import dedisperse as tdd
+from peasoup_tpu_torch.utils.trace import trace_span
 
 
 def _case(seed, d, c, t):
@@ -94,3 +96,100 @@ def test_rejects_mixed_devices():
             torch.from_numpy(kill).to("meta"), out_nsamps,
         )
 
+
+# (nchans, kill mask, 16-channel chunks walked)
+_COUNT_CASES = {
+    "htru_band": (1024, np.arange(1024) >= 154, 55),
+    "scattered": (1024, np.random.default_rng(3).random(1024) >= 0.4, 64),
+    "nchans_1000": (1000, np.arange(1000) % 7 != 3, 63),
+}
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("case", sorted(_COUNT_CASES))
+def test_chunk_counters(case, wide):
+    # the tables walk every 16-channel chunk of the row that holds a kept
+    # channel, its mask naming the chunk's kept channels; a launch stages
+    # each (DM tile, chunk, time tile) once, all by 16-byte loads where the
+    # kernel's entry says so and none elsewhere, and the counts land on the
+    # innermost span of the run's table under a profiler
+    nchans, keep, nchunks = _COUNT_CASES[case]
+    rng = np.random.default_rng(5)
+    k = np.abs(delay_table(1581.8, -0.390625, nchans, 0.000064))
+    delays = np.rint(np.sort(rng.uniform(0.0, 30.0, 20))[:, None] * k).astype(np.int32)
+    chans = np.flatnonzero(keep).astype(np.int32)
+    tab = tdd._tables(delays, chans, nchans)
+    assert tab["log_chunk"] == 4 and tab["nchunks"] == nchunks
+    first, mask = tab["chunks"].T
+    named = [f + b for f, m in zip(first, mask) for b in range(16) if m >> b & 1]
+    np.testing.assert_array_equal(named, chans)
+    out_n = 5000 - int(delays.max())
+    staged = -(-delays.shape[0] // tdd.TRIALS) * nchunks * -(-out_n // tdd.TILE)
+    tdd._count_chunks(tab, delays.shape[0], out_n, wide)  # no profiler: nothing kept
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace_span("Search", root=True) as table:
+            with trace_span("Dedisperse"):
+                tdd._count_chunks(tab, delays.shape[0], out_n, wide)
+    assert table.count("dedisp.chunks") == staged
+    assert table.count("dedisp.chunks_wide") == (staged if wide else 0)
+    assert "dedisp.chunks_wide" in table.spans["Dedisperse", "Search"].counters
+
+
+def test_dedisp_probe_stamps_apply():
+    # dedisp_probe.py's measuring build defines one macro that dedisperse.cu
+    # tests; the port's own build defines it nowhere, and the probe reads
+    # every phase the build counts and the warps
+    import sys
+    from pathlib import Path
+
+    from peasoup_tpu_torch import kernels
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import dedisp_probe
+
+    text = kernels.source("dedisperse").read_text()
+    assert f"#ifdef {dedisp_probe.STAMPS_MACRO}" in text
+    assert not any(dedisp_probe.STAMPS_MACRO in flag for flag in kernels.NVCC_FLAGS)
+    enum = text.split("enum {", 1)[1].split("}", 1)[0].replace(" ", "").split(",")
+    assert enum[-2:] == ["kWarps", "kStamps"] and len(enum) - 2 == len(dedisp_probe.STAMPS)
+
+
+@pytest.mark.parametrize("config", ["htru_hilat", "gbncc"])
+def test_smoke_bands_are_the_benchmark_surveys(config):
+    # chip_smoke.py holds the kernel bitwise at each benchmark survey's
+    # band on the card: its header and kill ranges are the configuration's
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    cfg = json.loads((root / "portbench" / "configs" / f"{config}.json").read_text())
+    (h, nkill), = [(h, n) for label, h, n, *_ in chip_smoke.DEDISP_BANDS
+                   if label.startswith(config)]
+    assert h == {k: cfg["header"][k] for k in ("nchans", "fch1", "foff", "tsamp", "nbits")}
+    assert (cfg.get("killed") or [[0, 0]]) == [[0, nkill]]
+
+
+@pytest.mark.parametrize("band", range(3))
+def test_smoke_bands_stage_16_channel_chunks(band):
+    # the trials chip_smoke.py takes at each band keep 16-channel chunks,
+    # so on the card every chunk is staged by 16-byte loads
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from peasoup_tpu_torch.plan.dm_plan import DMPlan
+
+    _, h, nkill, dm_end, ndm, nsamps = chip_smoke.DEDISP_BANDS[band]
+    keep = (np.arange(h["nchans"]) >= nkill).astype(np.int32)
+    plan = DMPlan.create(nsamps=nsamps, nchans=h["nchans"], tsamp=h["tsamp"], fch1=h["fch1"],
+                         foff=h["foff"], dm_start=0.0, dm_end=dm_end, killmask=keep)
+    delays = plan.delay_samples()[-ndm:] if ndm else plan.delay_samples()
+    tab = tdd._tables(delays.astype(np.int32), np.flatnonzero(keep).astype(np.int32),
+                      h["nchans"])
+    assert tab["log_chunk"] == 4 and h["nchans"] % 16 == 0
+    assert plan.out_nsamps > 0 and tab["chunks"][0, 0] == nkill // 16 * 16

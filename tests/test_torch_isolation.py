@@ -97,7 +97,7 @@ def test_importing_every_module_loads_no_jax():
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "ab_grids.py",
-                                  ROOT / "boxcar_probe.py"],
+                                  ROOT / "boxcar_probe.py", ROOT / "dedisp_probe.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_import_in_source(path):

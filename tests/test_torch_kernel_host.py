@@ -33,9 +33,11 @@ holds:
 - dedisperse's windows (csrc/dedisp_map.cuh): the kernel's blocks
   emulated on the wrapper's tables (staging, reads, 16-bit lane sums and
   their flushes), every read inside the window its chunk staged and equal
-  to x[t + delay, c], the sums the plain channel sums, with one channel,
-  past 256 channels of 255s, 4,096 channels and a spread past a
-  16-channel window;
+  to x[t + delay, c], the sums the plain channel sums, each chunk staged
+  by 16-byte loads exactly where its rows are 16-byte aligned, with one
+  channel, past 256 channels of 255s, 4,096 channels, a spread past a
+  16-channel window, htru_hilat's band (channels 154-1023 kept), a
+  scattered kill mask, 1,000 channels and an unaligned view;
 - spchain's blocks emulated through csrc/spchain_map.cuh (each block's
   loads into a poisoned ring as its loading warp issues them, every read
   checked to lie in its tile's chunks and to come from the load that
@@ -750,15 +752,18 @@ int interbin_map(int m, int npad, int* pair_writes, int* pad_writes, int* zk, in
 }
 
 // dedisperse.cu's blocks run on the host through dedisp_map.cuh: each
-// chunk's window staged as the kernel's threads stage it, each thread's
-// reads taken through read_word / read_shift / funnel and added in 16-bit
-// lanes, flushed every kLaneChannels as the kernel flushes them, then the
-// output tile packed and copied out as the kernel does. Writes the channel
-// sums (ndm, out_n), the u8 output and the number of chunks staged by the
-// dense path; returns 1 if a staged row falls outside the window's pitch,
-// 2 if a read word does, 3 if a byte a sum takes was not staged by this
-// chunk, 4 if it is not x[t + delay, c], 5 if a word store is unaligned.
-int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chans,
+// chunk's window staged as the kernel's threads stage it (16 bytes a row
+// where wide_staging holds for x, else a byte a kept channel), each
+// thread's reads of the chunk's kept channels taken through read_word /
+// read_shift / funnel and added in 16-bit lanes, flushed every
+// kLaneChannels as the kernel flushes them, then the output tile packed
+// and copied out as the kernel does. Writes the channel sums (ndm, out_n),
+// the u8 output and the number of chunks staged by 16-byte loads; returns
+// 1 if a staged row falls outside the window's pitch, 2 if a read word
+// does, 3 if a byte a sum takes was not staged by this chunk, 4 if it is
+// not x[t + delay, c], 5 if a word store is unaligned, 6 if a chunk's mask
+// names a channel past the row.
+int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chunks,
                    int nkept, const uint16_t* rel, const int* lo_spread, int log_chunk,
                    int nchunks, int pitch, int ndm, long long out_n, uint32_t* sums,
                    long long* dense_out, float scale, int apply_scale, uint8_t* out) {
@@ -768,6 +773,7 @@ int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chan
   const int ntiles = (ndm + kTrials - 1) / kTrials;
   const long long ntime = (out_n + kTile - 1) / kTile;
   const bool wide = nkept > kLaneChannels;
+  const bool wide_rows = wide_staging(log_chunk, nchans, reinterpret_cast<uintptr_t>(x));
   std::vector<uint32_t> win(std::size_t(chunk) * pitch);
   std::vector<int> stamp(std::size_t(chunk) * pitch * 4);
   std::vector<uint32_t> lanes(std::size_t(kThreads) * kTrials * kGroups * 2);
@@ -781,12 +787,15 @@ int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chan
       int in_lanes = 0;
       for (int ck = 0; ck < nchunks; ++ck) {
         ++stage_no;
-        const int c0 = ck << log_chunk;
-        const int kc = chunk < nkept - c0 ? chunk : nkept - c0;
+        const int first = chunks[2 * ck];
+        const uint32_t kept = static_cast<uint32_t>(chunks[2 * ck + 1]);
+        for (int cl = 0; cl < chunk; ++cl) {
+          if (((kept >> cl) & 1u) && first + cl >= nchans) return 6;
+        }
         const int lo = lo_spread[2 * (tile * nchunks + ck)];
         const int rows = window_rows(lo_spread[2 * (tile * nchunks + ck) + 1]);
         uint8_t* winb = reinterpret_cast<uint8_t*>(win.data());
-        if (dense_chunk(chans, c0, kc, log_chunk, nchans)) {
+        if (wide_rows) {
           ++dense;
           for (int q = 0; 4 * q < rows; ++q) {
             if (q >= pitch) return 1;
@@ -795,7 +804,7 @@ int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chan
               const long long row = t0 + lo + 4 * q + u;
               for (int g = 0; g < 4; ++g) {
                 a[u][g] = 0u;
-                if (row < t_in) std::memcpy(&a[u][g], x + row * nchans + chans[c0] + 4 * g, 4);
+                if (row < t_in) std::memcpy(&a[u][g], x + row * nchans + first + 4 * g, 4);
               }
             }
             for (int g = 0; g < 4; ++g) {
@@ -812,16 +821,18 @@ int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chan
           for (int tid = 0; tid < kThreads; ++tid) {
             int cl, r;
             stage_coords(tid, log_chunk, cl, r);
+            if (!((kept >> cl) & 1u)) continue;
             for (; r < rows; r += kThreads >> log_chunk) {
               if (r >= pitch * 4) return 1;
-              const bool ok = cl < kc && t0 + lo + r < t_in;
+              const bool ok = t0 + lo + r < t_in;
               const long long at = (long long)cl * pitch * 4 + r;
-              winb[at] = ok ? x[(t0 + lo + r) * nchans + chans[c0 + cl]] : 0;
+              winb[at] = ok ? x[(t0 + lo + r) * nchans + first + cl] : 0;
               stamp[at] = stage_no;
             }
           }
         }
-        for (int c = 0; c < kc; ++c) {
+        for (uint32_t m = kept; m != 0u; m &= m - 1u) {
+          const int c = low_bit(m);
           const uint16_t* rec16 = rel + (std::size_t(tile) * nchunks + ck) * chunk * kTrials
                                   + std::size_t(c) * kTrials;
           uint32_t rec[kTrials / 2];
@@ -843,7 +854,7 @@ int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chan
                   const int at = c * pitch * 4 + group_sample(tid, g) + rl + q;
                   if (stamp[at] != stage_no) return 3;
                   if (d < ndm && t < out_n &&
-                      ((b >> (8 * q)) & 0xFFu) != x[(t + lo + rl) * nchans + chans[c0 + c]])
+                      ((b >> (8 * q)) & 0xFFu) != x[(t + lo + rl) * nchans + first + c])
                     return 4;
                 }
                 uint32_t* ln = &lanes[((std::size_t(tid) * kTrials + i) * kGroups + g) * 2];
@@ -853,7 +864,7 @@ int dedisp_emulate(const uint8_t* x, long long t_in, int nchans, const int* chan
             }
           }
         }
-        in_lanes += kc;
+        in_lanes += popcount32(kept);
         if (wide && (in_lanes + chunk > kLaneChannels || ck + 1 == nchunks)) {
           for (std::size_t e = 0; e < std::size_t(kThreads) * kTrials * kGroups; ++e) {
             total[4 * e + 0] += lanes[2 * e] & 0xFFFFu;
@@ -1264,15 +1275,43 @@ def test_interbin_map_one_writer_per_bin(shim, m, npad):
     np.testing.assert_array_equal(zm, zmr.numpy().astype(np.int32))
 
 
+def _dedisp_case(c, d, t, spread, full, killed):
+    """Ascending delays, u8 samples, the kept channels and the filterbank
+    placed 16-byte aligned, or one byte past that where ``killed`` is
+    "unaligned" (a view into a larger buffer, as a stream chunk's is).
+    ``killed``: the share of channels killed at random (channel 0 kept),
+    or "band"/"unaligned", htru_hilat's kill file (channels 0-153)."""
+    rng = np.random.default_rng(c + d)
+    fil = (np.full((t, c), 255) if full else rng.integers(0, 256, size=(t, c))).astype(np.uint8)
+    k = np.linspace(1.0, 0.0, c) ** 2  # lowest frequency first: largest delay
+    dms = np.sort(rng.uniform(0, 1, d))
+    dms[-1] = 1.0
+    delays = np.rint(dms[:, None] * k * spread).astype(np.int32)
+    if isinstance(killed, str):
+        kill = (np.arange(c) >= 154).astype(np.int32)
+    else:
+        kill = (rng.random(c) >= killed).astype(np.int32)
+        kill[0] = 1
+    buf = np.empty(fil.nbytes + 32, np.uint8)
+    at = (-buf.ctypes.data) % 16 + (killed == "unaligned")
+    x = buf[at : at + fil.nbytes].reshape(fil.shape)
+    x[...] = fil
+    return x, delays, kill
+
+
 @pytest.mark.parametrize(
     "c,d,t,spread,full,killed",
     [
         (1, 5, 3000, 40, False, 0.15),  # one channel
-        (64, 77, 4500, 320, False, 0.0),  # the big grid's: every chunk dense
-        (64, 21, 4500, 320, False, 0.15),  # killed channels: byte staging
+        (64, 77, 4500, 320, False, 0.0),  # the big grid's: every chunk wide
+        (64, 21, 4500, 320, False, 0.15),  # killed channels inside wide chunks
         (300, 9, 2600, 90, True, 0.15),  # past one 16-bit lane, every sample 255
-        (4096, 10, 2300, 700, False, 0.002),  # many chunks, flushes, both stagings
+        (4096, 10, 2300, 700, False, 0.002),  # many chunks, flushes
         (16, 12, 26000, 20000, False, 0.0),  # a spread past 16-channel windows
+        (1024, 20, 2600, 700, False, "band"),  # htru_hilat's band: 6 channels in the first
+        (1024, 18, 2400, 500, False, 0.3),  # a scattered kill mask
+        (1000, 9, 2500, 300, False, 0.1),  # rows off 16-byte boundaries: byte staging
+        (1024, 7, 2500, 400, False, "unaligned"),  # an unaligned view: byte staging
     ],
 )
 def test_dedisperse_window_holds_every_read(shim, c, d, t, spread, full, killed):
@@ -1282,23 +1321,16 @@ def test_dedisperse_window_holds_every_read(shim, c, d, t, spread, full, killed)
     # packed, copied-out bytes are the plain version's output
     from peasoup_tpu_torch.ops import dedisperse as tdd
 
-    rng = np.random.default_rng(c + d)
-    fil = (np.full((t, c), 255) if full else rng.integers(0, 256, size=(t, c))).astype(np.uint8)
-    k = np.linspace(1.0, 0.0, c) ** 2  # lowest frequency first: largest delay
-    dms = np.sort(rng.uniform(0, 1, d))
-    dms[-1] = 1.0
-    delays = np.rint(dms[:, None] * k * spread).astype(np.int32)
-    kill = (rng.random(c) >= killed).astype(np.int32)
-    kill[0] = 1
+    fil, delays, kill = _dedisp_case(c, d, t, spread, full, killed)
     chans = np.flatnonzero(kill).astype(np.int32)
     out_n = t - int(delays.max())
-    tab = tdd._tables(delays, chans)
+    tab = tdd._tables(delays, chans, c)
     sums = np.zeros((d, out_n), np.uint32)
     dense = np.zeros(1, np.int64)
     out = np.full((d, out_n), 77, np.uint8)
     scale = tdd.output_scale(8, len(chans))
     rc = shim.dedisp_emulate(
-        _ptr(fil), t, c, _ptr(chans), len(chans), _ptr(tab["rel"]),
+        _ptr(fil), t, c, _ptr(tab["chunks"]), len(chans), _ptr(tab["rel"]),
         _ptr(tab["lo_spread"]), tab["log_chunk"], tab["nchunks"], tab["pitch"],
         d, out_n, _ptr(sums), _ptr(dense), scale, int(scale != 1.0), _ptr(out),
     )
@@ -1307,16 +1339,21 @@ def test_dedisperse_window_holds_every_read(shim, c, d, t, spread, full, killed)
         torch.from_numpy(fil), delays, kill, out_nsamps=out_n, scale=scale
     )
     np.testing.assert_array_equal(out, plain.numpy())
-    # the 16-byte staging runs exactly where a chunk's 16 kept channels are
-    # neighbours from a 16-byte boundary
+    # the chunks are cut on multiples of their width and their masks name
+    # the kept channels, each once
     w = 1 << tab["log_chunk"]
-    nd = sum(
-        w == 16 and c % 16 == 0 and len(g) == 16 and g[0] % 16 == 0 and g[-1] == g[0] + 15
-        for g in np.split(chans, range(w, len(chans), w))
-    )
-    ntime = -(-out_n // tdd.TILE)
-    assert dense[0] == nd * ntime * -(-d // tdd.TRIALS)
-    assert (dense[0] > 0) == (killed == 0.0 and c % 16 == 0 and w == 16 or c == 4096)
+    first, mask = tab["chunks"].T
+    assert (first % w == 0).all() and (mask > 0).all()
+    named = [f + b for f, m in zip(first, mask) for b in range(w) if m >> b & 1]
+    np.testing.assert_array_equal(named, chans)
+    if killed in ("band", "unaligned"):
+        assert first[0] == 144 and bin(mask[0]).count("1") == 6
+    # every chunk is staged by 16-byte loads where 16-channel chunks have
+    # rows on 16-byte boundaries, whatever the kill mask; none elsewhere
+    staged = tab["nchunks"] * -(-out_n // tdd.TILE) * -(-d // tdd.TRIALS)
+    aligned = w == 16 and c % 16 == 0 and fil.ctypes.data % 16 == 0
+    assert aligned == (c % 16 == 0 and spread <= 10000 and killed != "unaligned")
+    assert dense[0] == (staged if aligned else 0)
     want = np.zeros((d, out_n), np.int64)
     for ch in chans:
         for i in range(d):

@@ -163,6 +163,8 @@ def test_the_search_table_holds_its_spans_and_counters(synthetic, traced):  # no
     assert 0 <= table.count("rows.redispatched") <= table.count("rows.dispatched")
     assert table.count("upload.bytes") == fil.data.nbytes
     assert table.count("whitening.trials") == plan.ndm
+    # the CPU's plain dedispersion launches no kernel, so stages no chunk
+    assert table.count("dedisp.chunks") == table.count("dedisp.chunks_wide") == 0
     assert table.count("wave.fetches") >= table.count("wave.rounds") >= 1
     assert table.count("wave.fetch_bytes") > 0
     assert res.trace is run_tables()[-1]
