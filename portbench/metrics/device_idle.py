@@ -1,6 +1,7 @@
 """``device_idle`` (%): the share of the traced window in which no kernel
-or copy ran on the card: one less the union of the device's intervals over
-the window."""
+or copy ran, the mean over each card of the cell: one less the sum of
+each card's union of intervals over the window times the cards
+(``trace.py``'s card-seconds)."""
 
 
 def read(ctx):

@@ -9,6 +9,12 @@ byte written once, whatever the kernel reads again; where the work
 depends on the data, what these inputs need, and no more. The least time
 the card could take is the larger of operations over the peak FLOP/s and
 bytes over the peak bandwidth (``peaks.py``).
+
+A share is one card's roofline over card-time: the launches are counted
+over the process (``kernels.launch_shapes``) and a kernel's seconds are
+summed over every card it ran on (``trace.py``), so a cell on several
+cards reads its cards' least time together over their time together, as
+a cell on one reads that card's.
 """
 
 from __future__ import annotations

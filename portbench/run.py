@@ -2,25 +2,37 @@
 
     python3 -m portbench.run --workload NAME --seed N --seconds S --trace 0|1
 
-Set-up (``setup_s``): the port's kernels built or loaded, the cell's two
-observations made on the card from ``seed`` and ``seed + 1`` and copied to
-host RAM in the form ``io/sigproc.py:read_filterbank`` gives, the birdie
-list and the configuration's kill file written under ``TMPDIR``, and one
-whole observation searched as a warm-up. The window: observations
-searched back to back, the two taking turns, each
-``PeasoupSearch(cfg, device=cuda:0).run(fil)``, in pairs
-(one of each), until the first pair that ends at or after ``--seconds``;
-every window holds the same work. A closed loop with one client: a
-survey node searching its queue. ``obs_s`` is the window's wall time over
-the observations completed in it.
+A cell of ``chips`` N runs on the cards ``cuda:0`` to ``cuda:N-1``; for
+N > 1 its search shards the DM trials over them (``shard_devices`` N,
+the port's own ``_pick_devices``). Set-up (``setup_s``): the port's
+kernels built or loaded, a context made on each card of the cell, the
+cell's two observations made on the first card from ``seed`` and
+``seed + 1`` and copied to host RAM in the form
+``io/sigproc.py:read_filterbank`` gives, the birdie list and the
+configuration's kill file written under ``TMPDIR``, and one whole
+observation searched as a warm-up. The window: observations searched
+back to back, the two taking turns, each
+``PeasoupSearch(cfg, device=cuda:0).run(fil)`` and a wait on every card
+of the cell, in pairs (one of each), until the first pair that ends at
+or after ``--seconds``; every window holds the same work. A closed loop
+with one client: a survey node searching its queue. ``obs_s`` is the
+window's wall time over the observations completed in it.
+
+The cards used are measured, not assumed: after the window each visible
+card's allocator peak is read, and a card counts as used where it is
+above 0. ``device.count`` is the number used, ``memory_peak_bytes`` the
+fullest card's peak, ``power_limit_w`` the lowest limit among them and
+``info.cards`` each one; a run that used fewer cards than its cell's
+``chips`` prints why and no result, and exits 5.
 
 With ``--trace 1`` the window runs under ``torch.profiler`` and the line
 carries the per-layer metrics (``metrics/<name>.py``), the device's busy
-and window seconds and a breakdown. Once the window has closed the
-candidate lists are judged against the plain reference
-(``reference/check.py``) and every number compared is printed beside its
-limit, as the last lines of standard error and under ``checks``, the last
-key of the result line.
+seconds (the mean over the cell's cards) and the window's length, and a
+breakdown in card-seconds (summed over the cards). Once the window has
+closed the candidate lists are judged on the first card against the
+plain reference (``reference/check.py``) and every number compared is
+printed beside its limit, as the last lines of standard error and under
+``checks``, the last key of the result line.
 """
 
 from __future__ import annotations
@@ -60,8 +72,8 @@ class Context:
     timers: list  # each window observation's stage timers
     trace: object  # trace.Reduced, or None without --trace 1
     launches: dict  # kernel -> {launch shape: launches} in the window
-    peak: tuple | None  # the card's (FLOP/s, bytes/s)
-    peak_mem_bytes: int | None
+    peak: tuple | None  # one card's (FLOP/s, bytes/s)
+    peak_mem_bytes: int | None  # the fullest card's
     config: dict | None = None  # the cell's configuration (the counts read its kill mask)
 
     def mean_timer(self, name: str) -> float | None:
@@ -100,26 +112,75 @@ def _launch_delta(before: dict, kernels) -> dict:
     return out
 
 
-def _sync(device) -> None:
+def cell_cards(cell: Cell, device) -> list:
+    """The cards of ``cell``: ``chips`` cards from ``device`` on, or on the
+    CPU ``device`` alone."""
     import torch
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if device.type != "cuda":
+        return [device]
+    first = device.index or 0
+    return [torch.device("cuda", first + i) for i in range(cell.chips)]
+
+
+def _sync(cards) -> None:
+    import torch
+
+    for d in cards:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def search_config(cell: Cell, tmp: Path):
-    """The port's SearchConfig of the cell: the mix's flags, and the site's
-    birdie list and the configuration's kill file written under ``tmp``."""
+    """The port's SearchConfig of the cell: the mix's flags, the DM trials
+    sharded over the cell's ``chips`` cards where it has more than one,
+    and the site's birdie list and the configuration's kill file written
+    under ``tmp``."""
     from peasoup_tpu_torch.pipeline.search import SearchConfig
 
     from .gen import write_birdies, write_killfile
 
+    flags = dict(cell.traffic["search"])
+    if "shard_devices" in flags:
+        raise ValueError(f"traffic of {cell.name} sets shard_devices; the cell's chips set it")
+    if cell.chips > 1:
+        flags["shard_devices"] = cell.chips
     birdie_path = tmp / f"portbench-{cell.name}-birdies.txt"
     write_birdies(birdie_path, cell.config, cell.traffic)
     kill_path = tmp / f"portbench-{cell.name}-kill.txt"
     killfile = str(kill_path) if write_killfile(kill_path, cell.config) else ""
-    return SearchConfig(zapfilename=str(birdie_path), killfilename=killfile,
-                        **cell.traffic["search"])
+    return SearchConfig(zapfilename=str(birdie_path), killfilename=killfile, **flags)
+
+
+def read_cards() -> list[dict]:
+    """Every visible card's index, name and allocator peak, read after the
+    window; each card's power limit where its peak is above 0."""
+    import torch
+
+    from .peaks import power_limit_w
+
+    cards = []
+    for i in range(torch.cuda.device_count()):
+        peak = int(torch.cuda.max_memory_allocated(i))
+        cards.append({"index": i, "name": torch.cuda.get_device_name(i), "peak_bytes": peak,
+                      "power_limit_w": power_limit_w(i) if peak > 0 else None})
+    return cards
+
+
+def card_report(cards: list[dict]) -> tuple[dict, list[dict]]:
+    """The result line's ``device`` from the cards of :func:`read_cards`,
+    and the cards used (allocator peak above 0): their count, their shared
+    name, the fullest card's peak and the lowest power limit among them."""
+    used = [c for c in cards if c["peak_bytes"] > 0]
+    names = sorted({c["name"] for c in used})
+    if len(names) > 1:
+        raise ValueError(f"the cards used differ: {names}")
+    dev = {"platform": "gpu", "kind": names[0] if names else "", "count": len(used),
+           "memory_peak_bytes": max((c["peak_bytes"] for c in used), default=0)}
+    limits = [c["power_limit_w"] for c in used if c["power_limit_w"] is not None]
+    if limits:
+        dev["power_limit_w"] = min(limits)
+    return dev, used
 
 
 def judge_run(cell: Cell, obs: list, lists: list, seed: int, device,
@@ -137,8 +198,9 @@ def judge_run(cell: Cell, obs: list, lists: list, seed: int, device,
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> dict:
-    """One run of ``cell`` on ``device``: set-up (timed from ``t_start``),
-    window, judgement. Returns the result line's object."""
+    """One run of ``cell`` on its cards, ``device`` the first: set-up
+    (timed from ``t_start``), window, judgement. Returns the result line's
+    object."""
     import torch
     from torch.profiler import record_function
 
@@ -147,24 +209,27 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
 
     from . import metrics, roofline
     from .gen import make_observation
-    from .peaks import peaks, power_limit_w
+    from .peaks import peaks
     from .reference.check import answers_of, decide
     from .trace import OBS_SPAN, WINDOW_SPAN, absorb_start_loss, reduce_events
 
     on_card = device.type == "cuda"
+    cards = cell_cards(cell, device)
     parts = {"start": time.perf_counter() - t_start}
     if on_card:
         kernels.load()
-        torch.zeros(1, device=device)
+        for d in cards:
+            torch.zeros(1, device=d)
     parts["kernels"] = time.perf_counter() - t_start
     obs = [make_observation(cell.config, cell.traffic, seed + i, device) for i in range(2)]
     parts["observations"] = time.perf_counter() - t_start
     cfg = search_config(cell, Path(os.environ.get("TMPDIR") or tempfile.gettempdir()))
     PeasoupSearch(cfg, device=device).run(obs[0].fil)
-    _sync(device)
+    _sync(cards)
     parts["warm_up"] = time.perf_counter() - t_start
     if on_card:
-        torch.cuda.reset_peak_memory_stats(device)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.perf_counter() - t_start
 
     timers, lists = [], [dict(), dict()]
@@ -189,7 +254,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
                 try:
                     with record_function(OBS_SPAN):
                         res = PeasoupSearch(cfg, device=device).run(obs[k].fil)
-                    _sync(device)
+                    _sync(cards)
                 except Exception:  # a failed observation counts, and the window goes on
                     failed += 1
                     traceback.print_exc()
@@ -209,15 +274,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     red = None
     if prof is not None:
         prof.__exit__(None, None, None)
-        red = reduce_events(prof.events(), roofline.symbols())
+        red = reduce_events(prof.events(), roofline.symbols(), len(cards))
         del prof
     completed = attempted - failed
-    peak_mem = int(torch.cuda.max_memory_allocated(device)) if on_card else None
     launches = _launch_delta(before, kernels)
-    name = torch.cuda.get_device_name(device) if on_card else "cpu"
-    limit_w = power_limit_w(device.index or 0) if on_card else None
     if on_card:
-        torch.cuda.empty_cache()
+        dev, used = card_report(read_cards())
+        for d in cards:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+    else:
+        dev = {"platform": "cpu", "kind": "cpu", "count": 1, "memory_peak_bytes": None}
+        used = []
+    limit_w = dev.get("power_limit_w")
 
     verdict = judge_run(cell, obs, [list(ls.values()) for ls in lists], seed, device)
     checks, held = decide(verdict["numbers"], cell.traffic["limits"])
@@ -226,7 +295,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
     out_metrics = {}
     if trace:
         ctx = Context(timers=timers, trace=red, launches=launches,
-                      peak=peaks(name) if on_card else None, peak_mem_bytes=peak_mem,
+                      peak=peaks(dev["kind"]) if on_card else None,
+                      peak_mem_bytes=dev["memory_peak_bytes"],
                       config=cell.config)
         for m in cell.per_layer:
             v = metrics.load(m["name"]).read(ctx)
@@ -239,15 +309,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
         e2e = {"obs_s": window_s / completed if completed else math.inf, "setup_s": setup_s}
         for m in cell.end_to_end:
             out_metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
-    dev = {"platform": "gpu" if on_card else "cpu", "kind": name, "count": 1,
-           "memory_peak_bytes": peak_mem}
-    if limit_w is not None:
-        dev["power_limit_w"] = limit_w
     result = {"correct": correct, "attempted": attempted, "failed": failed,
               "metrics": out_metrics, "device": dev}
     if red is not None:
-        dev["busy_s"] = red.busy_s
-        dev["window_s"] = red.window_s
+        dev.update(red.card_means())
         result["breakdown"] = red.breakdown()
     result["info"] = dict(verdict["info"], observations=completed, window_s=window_s,
                           setup_parts=parts, obs_seconds=[t.get("total") for t in timers],
@@ -256,7 +321,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start
                                for ls in lists for ans in ls.values()],
                           distinct_lists=[len(ls) for ls in lists],
                           candidates=[len(next(iter(ls.values()), [])) for ls in lists],
-                          pulsars=[o.describe() for o in obs])
+                          pulsars=[o.describe() for o in obs], cards=used)
     result["checks"] = checks
     return result
 
@@ -295,6 +360,10 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
                       torch.device("cuda", 0), T_START)
+    if result["device"]["count"] < cell.chips:
+        print(f"portbench: {cell.name} asks for {cell.chips} cards and did work on "
+              f"{result['device']['count']}: {result['info']['cards']}", file=sys.stderr)
+        return 5
     found = forbidden_modules()
     if found:
         print(f"portbench: modules of JAX or the JAX package loaded: {found}", file=sys.stderr)

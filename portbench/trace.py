@@ -1,6 +1,6 @@
 """The traced run's reduction of a ``torch.profiler`` trace: device busy
-time as the union of the device's intervals, kernel time by name and by
-the port's kernels, and the device's idle gaps named by what the host was
+time as the union of each card's intervals, kernel time by name and by
+the port's kernels, and each card's idle gaps named by what the host was
 doing.
 
 The arithmetic that attributes kernels is the port's
@@ -9,9 +9,16 @@ The arithmetic that attributes kernels is the port's
 which take the records Kineto drops at a session's start and which every
 table leaves out, and each port kernel's launches held in the trace are
 counted against the launches its wrapper made (``lost``). Busy time is
-not a sum of durations: kernels and copies that overlap count once. The
-profiler's ranges of ``record_function`` scopes on the device track are
-annotations, not work, and are left out.
+not a sum of durations: kernels and copies that overlap on one card count
+once. The profiler's ranges of ``record_function`` scopes on the device
+track are annotations, not work, and are left out.
+
+Every time is in card-seconds: busy, window and idle seconds are summed
+over the cards of the cell (each card's union, the window once a card,
+each card's gaps), as kernel seconds already are, so that one less busy
+over window is the cards' mean idle share; the result line's busy and
+window seconds are a card's, those over the cards (``card_means``). On
+one card they are that card's seconds.
 """
 
 from __future__ import annotations
@@ -81,12 +88,19 @@ def _in_warmup(evt) -> bool:
 
 @dataclass
 class Reduced:
-    window_s: float = 0.0
-    busy_s: float = 0.0
-    by_name: dict = field(default_factory=dict)  # kernel name -> device seconds
-    port_seconds: dict = field(default_factory=dict)  # port kernel -> device seconds
+    window_s: float = 0.0  # the window times the cards
+    busy_s: float = 0.0  # each card's union, summed
+    cards: int = 1  # the cards the times are summed over
+    by_name: dict = field(default_factory=dict)  # kernel name -> card-seconds
+    port_seconds: dict = field(default_factory=dict)  # port kernel -> card-seconds
     port_held: dict = field(default_factory=dict)  # port kernel -> launches in the trace
-    idle_by_host: dict = field(default_factory=dict)  # host activity -> idle seconds
+    idle_by_host: dict = field(default_factory=dict)  # host activity -> idle card-seconds
+
+    def card_means(self) -> dict:
+        """``busy_s`` and ``window_s`` as the result line's ``device`` has
+        them: a card's busy seconds, the mean over the cards, and the
+        window's length."""
+        return {"busy_s": self.busy_s / self.cards, "window_s": self.window_s / self.cards}
 
     def breakdown(self, top: int = 10) -> dict:
         ops = sorted(self.by_name.items(), key=lambda kv: -kv[1])[:top]
@@ -144,15 +158,18 @@ class _HostTimeline:
         return "between observations"
 
 
-def reduce_events(events, symbols: dict[str, tuple]) -> Reduced:
+def reduce_events(events, symbols: dict[str, tuple], cards: int = 1) -> Reduced:
     """Reduce a profiler's FunctionEvents. ``symbols``: port kernel name ->
-    its device symbols (the last launched once a wrapper launch)."""
+    its device symbols (the last launched once a wrapper launch);
+    ``cards``: the cell's cards. Intervals are kept by the device index
+    the trace gives them; a card of the cell with none in the window is
+    idle throughout, and a card past ``cards`` that holds some counts too."""
     from torch.autograd import DeviceType
 
     red = Reduced()
     window = None
     spans = []
-    dev = []
+    dev = {}
     for e in events:
         if e.device_type == DeviceType.CPU:
             if e.name == WINDOW_SPAN:
@@ -169,7 +186,7 @@ def reduce_events(events, symbols: dict[str, tuple]) -> Reduced:
         s, t = e.time_range.start, e.time_range.end
         if window is not None and (t <= window[0] or s >= window[1]):
             continue
-        dev.append((s, t))
+        dev.setdefault(e.device_index, []).append((s, t))
         sec = (t - s) / 1e6
         red.by_name[e.name] = red.by_name.get(e.name, 0.0) + sec
         for kern, syms in symbols.items():
@@ -181,11 +198,14 @@ def reduce_events(events, symbols: dict[str, tuple]) -> Reduced:
     if window is None:
         raise RuntimeError(f"the trace holds no {WINDOW_SPAN} span")
     lo, hi = window
-    clipped = [(max(s, lo), min(t, hi)) for s, t in dev]
-    red.window_s = (hi - lo) / 1e6
-    red.busy_s = union_length(clipped) / 1e6
+    lanes = [dev[i] for i in sorted(dev)] + [[]] * max(0, cards - len(dev))
+    red.cards = len(lanes)
+    red.window_s = red.cards * (hi - lo) / 1e6
     host = _HostTimeline(spans)
-    for s, t in gaps(clipped, lo, hi):
-        name = host.at(0.5 * (s + t))
-        red.idle_by_host[name] = red.idle_by_host.get(name, 0.0) + (t - s) / 1e6
+    for lane in lanes:
+        clipped = [(max(s, lo), min(t, hi)) for s, t in lane]
+        red.busy_s += union_length(clipped) / 1e6
+        for s, t in gaps(clipped, lo, hi):
+            name = host.at(0.5 * (s + t))
+            red.idle_by_host[name] = red.idle_by_host.get(name, 0.0) + (t - s) / 1e6
     return red
