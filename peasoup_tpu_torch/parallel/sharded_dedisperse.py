@@ -11,6 +11,14 @@ filterbank once, and each shard launches the dedisperse kernel
 stay where they were made, as :class:`ShardedRows`; the search and the
 folder read them there.
 
+Under a profiler each copy of the filterbank to a device other than its
+own is the span ``Shard-Copy`` (utils/trace.py), and adds the bytes it
+moves to the counter ``shard.copy_bytes``; a shard on the filterbank's
+own device copies nothing and records neither. The span's stream seconds
+are read on the filterbank's device: a copy between cards runs on the
+source card's current stream, which the receiving card's stream waits
+on, so events there bracket the copy alone.
+
 Bitwise :func:`~peasoup_tpu_torch.ops.dedisperse.dedisperse` on one
 device: channel sums of <=8-bit samples are exact, so which device sums a
 trial cannot change it.
@@ -23,6 +31,7 @@ import torch
 
 from ..device import device_context
 from ..ops.dedisperse import _host, dedisperse
+from ..utils import trace_count, trace_span
 from .mesh import Mesh
 
 
@@ -102,11 +111,13 @@ def dedisperse_sharded(
         delays = np.concatenate(
             [delays, np.repeat(delays[-1:], per * len(devs) - ndm, axis=0)]
         )
-    copies: dict[torch.device, torch.Tensor] = {}
+    copies: dict[torch.device, torch.Tensor] = {fil_tc.device: fil_tc}
     parts = []
     for s, dev in enumerate(devs):
         if dev not in copies:
-            copies[dev] = fil_tc.to(dev)
+            with trace_span("Shard-Copy", device=fil_tc.device):
+                trace_count("shard.copy_bytes", fil_tc.numel() * fil_tc.element_size())
+                copies[dev] = fil_tc.to(dev)
         with device_context(dev):
             parts.append(dedisperse(
                 copies[dev], delays[s * per : (s + 1) * per], killmask, out_nsamps,

@@ -11,6 +11,12 @@ its device: the search (pipeline/search.py:PeasoupSearch._fetch_wave)
 packs a round's batches of each shard and reads them back in one
 transfer, every shard queued before the first waits. There is no
 communication between shards in the search itself.
+
+Under a profiler each shard's :func:`search_rows` call is the span
+``Shard-Feed`` (utils/trace.py; the host's wall seconds feeding that
+card, its stream seconds read there), and adds the batch's rows to the
+shard's counter ``shard.rows.<i>``, so that the counters of a run sum to
+its ``rows.dispatched``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from ..device import device_context
 from ..pipeline.accel_search import AccelSearchPeaks, search_rows
+from ..utils import trace_count, trace_span
 from .mesh import Mesh
 from .sharded_dedisperse import ShardedRows
 
@@ -42,18 +49,20 @@ def make_sharded_search_fn(
     nothing read back. ``fused_dft`` and ``mega_harm`` are the chain's
     routes (pipeline/search.py:choose_routes)."""
     devices = mesh.axis_devices(axis)
+    row_counters = [f"shard.rows.{i}" for i in range(len(devices))]
 
     def sharded_search(jobs, windows, *, nharms: int,
                        max_peaks: int) -> list[AccelSearchPeaks | None]:
         if len(jobs) != len(devices):
             raise ValueError(f"{len(jobs)} jobs for {len(devices)} shards")
         out = []
-        for dev, job in zip(devices, jobs):
+        for dev, job, rows in zip(devices, jobs, row_counters):
             if job is None:
                 out.append(None)
                 continue
             *args, row_bounds = job
-            with device_context(dev):
+            with device_context(dev), trace_span("Shard-Feed", device=dev):
+                trace_count(rows, len(args[1]))
                 out.append(search_rows(
                     *args, windows, threshold=threshold, nharms=nharms,
                     max_peaks=max_peaks, fused_dft=fused_dft, mega_harm=mega_harm,

@@ -52,9 +52,13 @@ its stages run under the JAX package's named scopes as spans
 while a profiler records, tools/scope_trace.py). Under a profiler the run
 is the root span ``Search``, whose table also holds the port's own spans
 (``Upload``, ``Whitening``, ``Wave-Fetch``, ``Fetch``, ``Search-Host``,
-its three ``Distil-*`` parts, ``Distilling``, ``Scoring``) and counters
-(``upload.bytes``, ``whitening.trials``, ``wave.*``, ``rows.*``,
-``distil.*``), apart from the telemetry. ``progress_bar`` draws a
+its three ``Distil-*`` parts, ``Distilling``, ``Scoring``, ``Shard-Feed``
+for each stretch of the host's work for one shard in a round and, where
+the DM trials are sharded over cards, ``Shard-Copy`` under ``Dedisperse``
+for each copy of the filterbank to another card) and counters (``upload.bytes``,
+``whitening.trials``, ``wave.*``, ``rows.*``, ``distil.*``,
+``shard.copy_bytes`` and each shard's ``shard.rows.<i>``, which sum to
+``rows.dispatched``), apart from the telemetry. ``progress_bar`` draws a
 ProgressBar on stderr over the DM waves.
 
 The DM trials are sharded over the devices :func:`_pick_devices` picks
@@ -1281,7 +1285,10 @@ class PeasoupSearch:
         batches are packed and fetched in one transfer (:meth:`_fetch_wave`),
         or earlier where the pending batches' slots would pass
         ``WAVE_BUDGET`` bytes. Each searched DM trial's results go into
-        ``per_dm``. False where every trial of the round was restored."""
+        ``per_dm``. False where every trial of the round was restored. The
+        host's work for one shard's block (its trial rows, whitening and
+        row tables) is the span ``Shard-Feed``, as is each of its row
+        batches' dispatch (parallel/sharded_search.py)."""
         cfg = self.config
         size = geometry["size"]
         blocks = []
@@ -1291,21 +1298,22 @@ class PeasoupSearch:
             if not todo:
                 blocks.append(None)
                 continue
-            with device_context(dev):
-                tims = _trial_rows(trials, lo, hi, size, dev)
-                with trace_span("Whitening", device=dev):
-                    trace_count("whitening.trials", hi - lo)
-                    xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
-                del tims
-            # the round's row tables, uploaded once and sliced per batch
-            row_dm = np.concatenate(
-                [np.full(len(dispatch_lists[d]), d - lo, np.int32) for d in todo])
-            afs = np.concatenate(
-                [accel_factor(dispatch_lists[d], tsamp).astype(np.float32) for d in todo])
-            blocks.append(dict(
-                todo=todo, dev=dev, xd=xd, mean=mean, std=std, row_dm=row_dm,
-                row_dm_dev=_upload(row_dm, dev), afs=_upload(afs, dev), results=[],
-            ))
+            with trace_span("Shard-Feed", device=dev):
+                with device_context(dev):
+                    tims = _trial_rows(trials, lo, hi, size, dev)
+                    with trace_span("Whitening", device=dev):
+                        trace_count("whitening.trials", hi - lo)
+                        xd, mean, std = preprocess_block(tims, zaps[dev], **geometry)
+                    del tims
+                # the round's row tables, uploaded once and sliced per batch
+                row_dm = np.concatenate(
+                    [np.full(len(dispatch_lists[d]), d - lo, np.int32) for d in todo])
+                afs = np.concatenate(
+                    [accel_factor(dispatch_lists[d], tsamp).astype(np.float32) for d in todo])
+                blocks.append(dict(
+                    todo=todo, dev=dev, xd=xd, mean=mean, std=std, row_dm=row_dm,
+                    row_dm_dev=_upload(row_dm, dev), afs=_upload(afs, dev), results=[],
+                ))
         if not any(blocks):
             return False
         nlev = cfg.nharmonics + 1

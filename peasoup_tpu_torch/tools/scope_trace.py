@@ -53,6 +53,7 @@ JAX_SCOPES = (
 PORT_SPANS = (
     "Search", "Upload", "Whitening", "Wave-Fetch", "Fetch", "Search-Host",
     "Distil-Rows", "Distil-Native", "Distil-Objects", "Distilling", "Scoring",
+    "Shard-Copy", "Shard-Feed",
 )
 # every scope name the port opens
 SCOPES = JAX_SCOPES + PORT_SPANS

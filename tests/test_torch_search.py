@@ -316,7 +316,7 @@ def test_tune_shared_subband_plan_matches_jax(synthetic, tmp_path):
         assert abs(b.snr - a.snr) <= 1e-3 * abs(a.snr), rank
 
 
-@pytest.mark.parametrize("nshards", [2, 3, 8])
+@pytest.mark.parametrize("nshards", [2, 3, 4, 8])
 def test_shard_devices_now_run(synthetic, one_thread_result, nshards):
     # ROADMAP A.9, ported: shard_devices, refused before, shards the DM
     # trials over that many shards of the CPU. Each shard dedisperses and

@@ -31,7 +31,7 @@ from test_torch_search import KW, _bits, one_thread, synthetic  # noqa: F401
 SEARCH_SPANS = {"Search", "Dedisperse", "Upload", "DM-Loop", "Whitening", "Spectrum-Chain",
                 "Acceleration-Loop", "Resample", "Harmonic summing", "Peaks", "Wave-Fetch",
                 "Fetch", "Search-Host", "Distil-Rows", "Distil-Native", "Distil-Objects",
-                "Distilling", "Scoring"}
+                "Distilling", "Scoring", "Shard-Feed"}
 DISTIL = ("Distil-Rows", "Distil-Native", "Distil-Objects")
 
 
@@ -145,7 +145,8 @@ def test_the_search_table_holds_its_spans_and_counters(synthetic, traced):  # no
     names = {n for n, _ in table.spans}
     assert SEARCH_SPANS <= names
     parents = {n: p for n, p in table.spans}
-    assert parents["Upload"] == "Dedisperse" and parents["Whitening"] == "DM-Loop"
+    assert parents["Upload"] == "Dedisperse" and parents["Whitening"] == "Shard-Feed"
+    assert ("Shard-Feed", "DM-Loop") in table.spans
     assert parents["Spectrum-Chain"] in ("Whitening", "Acceleration-Loop")
     assert ("Spectrum-Chain", "Whitening") in table.spans
     assert parents["Fetch"] == "Wave-Fetch" and parents["Wave-Fetch"] == "DM-Loop"
@@ -185,7 +186,8 @@ def test_escalation_counts_the_rows_dispatched_again(synthetic):  # noqa: F811
         res = _search(synthetic[0], max_peaks=1)
     t = res.trace
     assert 0 < t.count("rows.redispatched") <= t.count("rows.dispatched") / 2
-    assert ("Acceleration-Loop", "Wave-Fetch") in t.spans
+    assert ("Shard-Feed", "Wave-Fetch") in t.spans
+    assert ("Acceleration-Loop", "Shard-Feed") in t.spans
 
 
 def test_capture_folds_the_table_and_names_idle_gaps(synthetic, tmp_path):  # noqa: F811
